@@ -1,0 +1,51 @@
+"""Architecture registry (counterpart of ``repro/configs/registry.py``).
+
+The port holds the dense decoder ``internlm2-1.8b`` only; the other
+architectures of the reference arrive with their model families
+(ROADMAP queue 1, item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ported: {ARCH_IDS}); the "
+            "other families come with ROADMAP queue 1, item 9")
+    return importlib.import_module(_MODULES[arch]).CONFIG
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced smoke variant: same family wiring, tiny dims, float32."""
+    kv_ratio = max(1, cfg.n_heads // cfg.n_kv_heads)
+    n_heads = 4
+    ssm = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=32,
+                              slstm_every=2)
+    moe = dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+                              top_k=min(cfg.moe.top_k, 2))
+    approx = dataclasses.replace(cfg.approx, n_approx=2, d_hidden=32)
+    if cfg.family == "ssm":
+        n_layers, attn_every = 4, 0
+    elif cfg.family == "hybrid":
+        n_layers, attn_every = 4, 2
+    else:
+        n_layers, attn_every = 2, 0
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, d_model=64, n_heads=n_heads,
+        n_kv_heads=max(1, n_heads // kv_ratio), head_dim=16,
+        d_ff=128 if cfg.d_ff else 0, vocab=512,
+        sliding_window=min(cfg.sliding_window, 32) if cfg.sliding_window else 0,
+        attn_every=attn_every, ssm=ssm, moe=moe, approx=approx,
+        param_dtype="float32", act_dtype="float32", remat=False,
+        q_block=32, kv_block=32)

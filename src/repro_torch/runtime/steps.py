@@ -1,0 +1,64 @@
+"""Serve-mode step functions (counterpart of the serve half of
+``repro/runtime/steps.py``).
+
+``make_decode_step(cfg)`` -> ``(params, cache, inputs, row_mask=None) ->
+(logits, cache[, metrics])``.  PyTorch runs eagerly, so a step is a plain
+closure over the serve config, run under ``torch.no_grad``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.runtime.dispatch import DISPATCH_BACKENDS
+
+
+def mcma_serve_config(cfg: ModelConfig, *,
+                      backend: str | None = None) -> ModelConfig:
+    """Serve-mode cfg routing the ApproxFFN through the MCMA dispatch
+    engine (runtime/dispatch.py).  Default backend "pallas" (the switched
+    CUDA kernel); "pallas_fused" runs the fused CUDA kernel; "xla" the
+    eager per-class oracle."""
+    assert cfg.approx.enable, "MCMA dispatch requires cfg.approx.enable"
+    backend = backend or "pallas"
+    if backend not in DISPATCH_BACKENDS:
+        raise ValueError(f"unknown dispatch backend: {backend!r}")
+    return dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, backend=backend))
+
+
+def _serve_cfg(cfg: ModelConfig, *, use_mcma_dispatch: bool,
+               route_scope: str | None, backend: str | None) -> ModelConfig:
+    """Shared cfg munging for the serve-mode steps: MCMA backend selection
+    and the route-scope override."""
+    if use_mcma_dispatch:
+        cfg = mcma_serve_config(cfg, backend=backend)
+    if route_scope is not None:
+        if route_scope not in ("layer", "tick"):
+            raise ValueError(f"unknown route_scope: {route_scope!r} "
+                             "(expected 'layer' or 'tick')")
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, route_scope=route_scope))
+    return cfg
+
+
+def make_decode_step(cfg: ModelConfig, *, use_mcma_dispatch: bool = False,
+                     with_stats: bool = False,
+                     route_scope: str | None = None,
+                     backend: str | None = None):
+    """``use_mcma_dispatch`` serves the ApproxFFN through the MCMA dispatch
+    engine; ``with_stats`` makes the step also return the layer-meaned
+    dispatch metrics per tick.  The step takes an optional trailing
+    ``row_mask`` ((B,) bool of ACTIVE slots) and updates the cache in
+    place (models/model.decode)."""
+    cfg = _serve_cfg(cfg, use_mcma_dispatch=use_mcma_dispatch,
+                     route_scope=route_scope, backend=backend)
+
+    def decode_step(params, cache, inputs, row_mask=None):
+        with torch.no_grad():
+            return M.decode(cfg, params, cache, inputs, serve=True,
+                            collect_metrics=with_stats, row_mask=row_mask)
+    return decode_step

@@ -1,0 +1,86 @@
+"""Rules of the PyTorch port that hold without the reference: it imports
+neither ``jax`` nor the JAX package, its entry points never drop to the
+CPU quietly, and serving options it has not ported raise."""
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model as M
+from repro_torch.runtime.options import ServeOptions
+from repro_torch.runtime.server import DecodeServer, Request
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def _cfg():
+    cfg = smoke_config(get_config("internlm2-1.8b"))
+    return dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True))
+
+
+def test_entry_points_without_device_raise_when_there_is_no_gpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _cfg()
+    for call in (lambda: M.init_model(0, cfg),
+                 lambda: M.init_cache(cfg, 2, 8),
+                 lambda: params_from_jax(cfg, {}),
+                 lambda: launch_serve.main(["--smoke", "--approx"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+UNPORTED = {"mesh": object(), "autotune": True, "qos_tiers": True,
+            "qos_app": "bessel", "library": object(), "kv_page_size": 4,
+            "kv_pages": 8, "prefill_chunk": 4, "route_scope": "tick"}
+
+
+@pytest.mark.parametrize("field", sorted(UNPORTED))
+def test_unported_serve_options_raise(field):
+    cfg = _cfg()
+    params = M.init_model(0, cfg, device="cpu")
+    opts = dataclasses.replace(ServeOptions(use_mcma_dispatch=True),
+                               **{field: UNPORTED[field]})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        DecodeServer(cfg, params, options=opts)
+
+
+def test_unported_archs_and_qos_requests_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("olmo-1b")
+    cfg = _cfg()
+    srv = DecodeServer(cfg, M.init_model(0, cfg, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        srv.submit(Request(rid=0, prompt=np.ones(2), error_bound=0.1))
+
+
+def test_launcher_serves_on_cpu():
+    stats = launch_serve.main(["--smoke", "--approx", "--mcma-dispatch",
+                               "--device", "cpu", "--requests", "3",
+                               "--max-new", "4", "--batch", "2"])
+    assert stats["ticks"] > 0 and 0.0 <= stats["invocation_rate"] <= 1.0

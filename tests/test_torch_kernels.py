@@ -1,0 +1,163 @@
+"""Kernel host code and kernels of the PyTorch port against the JAX
+reference: the same numpy inputs through ``repro.kernels`` (Pallas in
+interpret mode) and ``repro_torch.kernels``; and, on a machine with a GPU
+(marker ``cuda``), each CUDA kernel against its PyTorch version.
+
+Plans, row indices and padded stacks must be exactly equal; kernel
+outputs within the reference's kernel tolerances (3e-5 f32, 2e-2 bf16),
+and the fused path bitwise equal to the unfused one inside the port.
+"""
+import importlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_dispatch as tfd
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import switched_mlp as tsm
+from repro_torch.kernels.sweeps import CASES
+from repro_torch.kernels.sweeps import case_inputs as _inputs
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference's kernel modules (the parity tests skip where JAX
+    is not installed; the CUDA test below does not need it)."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_platform_name", "cpu")
+    return types.SimpleNamespace(
+        jnp=importlib.import_module("jax.numpy"),
+        ops=importlib.import_module("repro.kernels.ops"),
+        fd=importlib.import_module("repro.kernels.fused_dispatch"))
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=3e-5, atol=3e-5)
+
+
+def _torch(a, dtype="float32", device="cpu"):
+    t = torch.from_numpy(a).to(device)
+    return t.to(getattr(torch, dtype)) if t.is_floating_point() else t
+
+
+def _jax(J, a, dtype="float32"):
+    j = J.jnp.asarray(a)
+    return j.astype(getattr(J.jnp, dtype)) if a.dtype == np.float32 else j
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_class_sort_plan_and_row_index_match_jax(J, case):
+    _, cls, w, block = _inputs(case)
+    n, t = w[0].shape[0], cls.shape[0]
+    jp = J.ops.class_sort_plan(_jax(J, cls), n, block)
+    tp = tops.class_sort_plan(_torch(cls), n, block)
+    assert jp[4] == tp[4]
+    for name, a, b in zip(("order", "pos", "tile_cls", "padded_sizes"),
+                          jp[:4], tp[:4]):
+        assert b.dtype == torch.int32, (name, b.dtype)
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    jrows = J.fd.fused_row_index(jp[0], jp[1], t, jp[4])
+    trows = tfd.fused_row_index(tp[0], tp[1], t, tp[4])
+    assert trows.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(jrows), trows.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prepad_and_resident_gather_match_jax(J, dtype):
+    _, _, w, _ = _inputs("mcma_default")
+    jw = J.ops.prepad_switched_weights(*[_jax(J, a, dtype) for a in w])
+    tw = tops.prepad_switched_weights(*[_torch(a, dtype) for a in w])
+    # pinned residency cases: in range, out of range both ways, duplicates
+    res = np.asarray([2, -1, 3, 0, 0], np.int32)
+    jr = J.ops.gather_resident_stacks(*jw, _jax(J, res))
+    tr = tops.gather_resident_stacks(*tw, _torch(res))
+    for a, b in zip((*jw, *jr), (*tw, *tr)):
+        assert b.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(np.asarray(a).astype(np.float32),
+                                      b.float().numpy())
+
+
+# every sweep in float32, the mixed-shape ones in bfloat16 as well (the
+# reference runs its edge cases in float32 only)
+DTYPE_CASES = [(c, "float32") for c in sorted(CASES)] + [
+    (c, "bfloat16") for c in sorted(CASES) if CASES[c][-1] == "random"]
+
+
+@pytest.mark.parametrize("case,dtype", DTYPE_CASES)
+def test_switched_apply_plain_matches_jax_kernels(J, case, dtype):
+    x, cls, w, block = _inputs(case)
+    jargs = [_jax(J, a, dtype) for a in (x, cls, *w)]
+    targs = [_torch(a, dtype) for a in (x, cls, *w)]
+    want = np.asarray(J.ops.switched_apply(*jargs, block_t=block,
+                                           interpret=True), np.float32)
+    want_f = np.asarray(J.ops.switched_apply_fused(
+        *jargs, block_t=block, interpret=True), np.float32)
+    got = tops.switched_apply(*targs, block_t=block)
+    got_f = tops.switched_apply_fused(*targs, block_t=block)
+    assert got.dtype == got_f.dtype == targs[0].dtype
+    assert got.shape == got_f.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, **_tol(dtype))
+    np.testing.assert_allclose(got_f.float().numpy(), want_f, **_tol(dtype))
+    assert torch.equal(got, got_f), "fused != unfused inside the port"
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        tref.switched_mlp_ref(*targs).float().numpy(), **_tol(dtype))
+    if case == "all_nc":
+        assert not got.any()
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((128, 128), device="meta")
+    tile_cls = torch.zeros((1,), dtype=torch.int32, device="meta")
+    w = [torch.zeros(s, device="meta") for s in
+         ((1, 128, 128), (1, 1, 128), (1, 128, 128), (1, 1, 128))]
+    with pytest.raises(ValueError, match="no kernel"):
+        tsm.switched_mlp(x, tile_cls, *w, block_t=128)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfd.switched_mlp_fused(x, torch.zeros((128,), dtype=torch.int32,
+                                              device="meta"),
+                               tile_cls, *w, block_t=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", DTYPE_CASES)
+def test_cuda_kernels_match_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    x, cls, w, block = _inputs(case)
+    xt, ct = _torch(x, dtype, "cuda"), _torch(cls, device="cuda")
+    xp, rows, tile_cls, weights, order, pos = tops.kernel_operands(
+        xt, ct, *[_torch(a, dtype, "cuda") for a in w], block_t=block)
+    n0 = tsm.switched_mlp.launches
+    y = tsm.switched_mlp(xp, tile_cls, *weights, block_t=block)
+    yf = tfd.switched_mlp_fused(xt, rows, tile_cls, *weights, block_t=block)
+    torch.cuda.synchronize()
+    assert tsm.switched_mlp.launches == n0 + 1
+    want = tsm.switched_mlp_plain(xp, tile_cls, *weights, block_t=block)
+    torch.testing.assert_close(y.float(), want.float(), **_tol(dtype))
+    assert torch.equal(yf[:x.shape[0]], y[pos.long()][torch.argsort(
+        order.long())]), "fused != unfused"
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_operands_reproduce_switched_apply(case):
+    """The operands chip_smoke.py and the CUDA test hand the kernels are
+    those of ops.switched_apply(_fused): through either kernel they give
+    its result bitwise."""
+    x, cls, w, block = _inputs(case)
+    targs = [_torch(a) for a in (x, cls, *w)]
+    xp, rows, tile_cls, weights, order, pos = tops.kernel_operands(
+        *targs, block_t=block)
+    assert rows.dtype == tile_cls.dtype == torch.int32
+    t, d_out = x.shape[0], w[2].shape[2]
+    y = tsm.switched_mlp(xp, tile_cls, *weights, block_t=block)
+    unsorted = y[pos.long()][torch.argsort(order.long())]
+    yf = tfd.switched_mlp_fused(targs[0], rows, tile_cls, *weights,
+                                block_t=block)
+    assert torch.equal(yf[:t], unsorted)
+    assert torch.equal(unsorted[:, :d_out],
+                       tops.switched_apply(*targs, block_t=block))
