@@ -6,11 +6,16 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources in this checkout (one nvcc
      per source, in parallel);
-  3. each kernel against its PyTorch version on the card, over the sweeps
-     of tests/test_kernels.py and the decode path's full-width shape, in
-     float32 (tolerance 3e-5) and bfloat16 (2e-2); the fused kernel must
-     equal the switched one bitwise; kernel and PyTorch version timed
-     with CUDA events;
+  3. each kernel against its PyTorch version on the card, with CUDA-event
+     timings (plain, kernel, kernel, plain; L2 flushed before each call):
+     the weight-switch kernels over the sweeps of tests/test_kernels.py
+     and the decode path's full-width shape, in float32 (tolerance 3e-5)
+     and bfloat16 (2e-2), the fused kernel bitwise equal to the switched
+     one; the one-approximator MLP over the reference's four shapes and the
+     full-width ApproxFFN shape (same tolerances), with ``ops.mlp_apply``
+     held to ``ref.mlp_forward_ref``; the sLSTM recurrence over the
+     reference's three shapes (1e-5) and xlstm-1.3b's prefill and decode
+     shapes (1e-4 with float32 weights, 2e-2 with bfloat16);
   4. full-width internlm2-1.8b (24 layers, bf16, random weights from a
      seed, MCMA dispatch) served through DecodeServer with backends
      "pallas" then "pallas_fused": equal greedy tokens, and each kernel
@@ -18,9 +23,18 @@ Phases (any failure raises and the script exits non-zero):
      three backends from one cache, held to the "xla" oracle: in float32
      (the same weights upcast) within 1e-4 with equal greedy tokens, and
      in bf16 through an oracle given the kernels' rounding;
-  5. the smoke config in float32 on the card against the same parameters
-     served on the CPU by the eager oracle;
-  6. a JSON line describing every kernel, then the result line.
+  5. the internlm2 smoke config in float32 on the card against the same
+     parameters served on the CPU by the eager oracle;
+  6. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
+     a (8, 256) prefill launching the sLSTM kernel once per group (6) over
+     all 256 steps; DecodeServer serving 8 requests, 6 launches per tick;
+     then, in float32 (the same weights upcast), forward over 256 tokens
+     read at position 128 against prefill(128) + decode(1) within 2e-3 with
+     equal greedy tokens;
+  7. the xlstm smoke config in float32 on the card against the same
+     parameters on the CPU: prefill 32 tokens, 8 decode ticks, logits
+     within 1e-4 and equal greedy tokens;
+  8. a JSON line describing every kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -38,6 +52,13 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # outside the tensor cores
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 SERVE = dict(batch=8, max_len=256, n_requests=8, prompt_len=16, max_new=16)
+MLP_FULL = (2048, 2048, 256, 2048)   # ApproxFFN rows, d_in, d_hidden, d_out
+MLP_BLOCK = 256
+# the sLSTM at xlstm-1.3b width: prefill (S = prompt) and decode (S = 1)
+SLSTM_FULL = {"prefill": (256, 8, 4, 512), "decode": (1, 8, 4, 512)}
+SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
+XLSTM_PROMPT = (8, 256)              # prefill batch, prompt length
+WITNESS = dict(batch=2, seq=256, at=128)
 
 
 def log(msg):
@@ -160,22 +181,313 @@ def main_path_kernel_phase(np, torch, flush):
                     x, rows, tile_cls, *weights, block_t=blk), fu_bytes),
         }
         for name, (kern, plain, n_bytes) in run.items():
-            # plain, kernel, kernel, plain: compare within one call
-            p1 = time_ms(torch, plain, flush)
-            k1 = time_ms(torch, kern, flush)
-            k2 = time_ms(torch, kern, flush)
-            p2 = time_ms(torch, plain, flush)
+            ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern, plain,
+                                                        flush)
             b_ms, b_by = bound(dtype, n_bytes, flops)
             out[name, dtype] = dict(
-                max_abs_err=err[name], ms=min(k1, k2), plain_ms=min(p1, p2),
-                bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
-                classes=len(classes))
+                max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
             log(f"  {name} {dtype} main path (t_pad={xp.shape[0]}, "
                 f"{len(classes)} classes): kernel {k1:.4f}/{k2:.4f} ms, "
                 f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
                 f"{n_bytes} B, {flops} FLOP), max |kernel-plain| "
                 f"{err[name]:.3g}")
     return out
+
+
+def timed_pair(torch, kern, plain, flush, iters=30):
+    """plain, kernel, kernel, plain (two versions are compared only within
+    one call); returns (kernel ms, plain ms, the four medians)."""
+    p1 = time_ms(torch, plain, flush, iters)
+    k1 = time_ms(torch, kern, flush, iters)
+    k2 = time_ms(torch, kern, flush, iters)
+    p2 = time_ms(torch, plain, flush, iters)
+    return min(k1, k2), min(p1, p2), (p1, k1, k2, p2)
+
+
+def max_err(torch, got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def mlp_kernel_phase(np, torch, flush):
+    """mlp_forward against its PyTorch version over the reference's
+    shapes and the full-width ApproxFFN shape (timed there); then the
+    user entry point ops.mlp_apply against ref.mlp_forward_ref, the run
+    whose launches the kernels line reports."""
+    from repro_torch.kernels import mcma_mlp, ops, ref
+    from repro_torch.kernels.sweeps import MLP_SHAPES, mlp_inputs
+    rng = np.random.default_rng(11)
+    t, d_in, d_h, d_out = MLP_FULL
+    full = [rng.normal(size=(t, d_in)), rng.normal(size=(d_in, d_h))
+            * d_in ** -0.5, rng.normal(size=d_h) * 0.1,
+            rng.normal(size=(d_h, d_out)) * d_h ** -0.5,
+            rng.normal(size=d_out) * 0.1]
+    cases = [(shape, mlp_inputs(*shape), 128) for shape in MLP_SHAPES]
+    cases.append((MLP_FULL, full, MLP_BLOCK))
+    out, entry = {}, []
+    for dtype in ("float32", "bfloat16"):
+        to = dict(device="cuda", dtype=getattr(torch, dtype))
+        for shape, arrays, blk in cases:
+            a = [torch.from_numpy(np.asarray(v)).to(**to) for v in arrays]
+            operands = ops.mlp_operands(*a, block_t=blk)
+            kern = lambda: mcma_mlp.mlp_forward(*operands, block_t=blk)
+            plain = lambda: mcma_mlp.mlp_forward_plain(*operands,
+                                                       block_t=blk)
+            y, want = kern(), plain()
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            torch.testing.assert_close(y.float(), want.float(), rtol=tol,
+                                       atol=tol,
+                                       msg=f"mlp_forward {shape} {dtype}")
+            err = max_err(torch, [y], [want])
+            entry.append((shape, a, blk, dtype))
+            if shape != MLP_FULL:
+                log(f"  mlp_forward {shape} {dtype}: max |kernel-plain| "
+                    f"{err:.3g}")
+                continue
+            ms, plain_ms, four = timed_pair(torch, kern, plain, flush)
+            esz = a[0].element_size()
+            n_bytes = sum(o.numel() for o in operands) * esz + t * d_out * esz
+            flops = 2 * t * (d_in * d_h + d_h * d_out)
+            b_ms, b_by = bound(dtype, n_bytes, flops)
+            out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            log(f"  mlp_forward {shape} {dtype} block_t {blk}: kernel "
+                f"{four[1]:.4f}/{four[2]:.4f} ms, plain {four[0]:.4f}/"
+                f"{four[3]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {n_bytes} "
+                f"B, {flops} FLOP), max |kernel-plain| {err:.3g}")
+    # the entry point on the reference's shapes, as tests/test_kernels.py
+    # holds it (the reference's ref does not round h: bf16 tolerance)
+    torch.cuda.synchronize()
+    entry = [e for e in entry if e[0] != MLP_FULL]
+    mcma_mlp.mlp_forward.launches = 0
+    for shape, a, blk, dtype in entry:
+        y = ops.mlp_apply(*a, block_t=blk)
+        want = ref.mlp_forward_ref(*a)
+        tol = TOL[dtype]
+        torch.testing.assert_close(y.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"mlp_apply {shape} {dtype}")
+        if y.shape != (shape[0], shape[3]):
+            raise AssertionError(f"mlp_apply {shape}: shape {y.shape}")
+    torch.cuda.synchronize()
+    out["launches"] = mcma_mlp.mlp_forward.launches
+    if out["launches"] != len(entry):
+        raise AssertionError(f"mlp_apply launched mlp_forward "
+                             f"{out['launches']} times, want {len(entry)}")
+    log(f"  ops.mlp_apply vs ref.mlp_forward_ref on {out['launches']} "
+        f"shape x dtype cases: within tolerance, {out['launches']} launches")
+    return out
+
+
+def slstm_kernel_phase(np, torch, flush):
+    """slstm_scan against its PyTorch version over the reference's shapes
+    (1e-5) and xlstm-1.3b's prefill and decode shapes (timed), with float32
+    and bfloat16 recurrent weights."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.kernels.sweeps import SLSTM_SHAPES, slstm_inputs
+    out = {}
+    cases = [(s, slstm_inputs(*s), None) for s in SLSTM_SHAPES]
+    cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), name)
+              for name, s in SLSTM_FULL.items()]
+    for wdtype in ("float32", "bfloat16"):
+        for shape, arrays, name in cases:
+            xg, wh, *st = [torch.from_numpy(v).cuda() for v in arrays]
+            wh = wh.to(getattr(torch, wdtype))
+            kern = lambda: K.slstm_scan(xg, wh, *st)
+            plain = lambda: K.slstm_scan_plain(xg, wh, *st)
+            (ys, fin), (pys, pfin) = kern(), plain()
+            torch.cuda.synchronize()
+            tol = SLSTM_TOL[wdtype] if name else 1e-5
+            for g, w, what in zip((ys, *fin), (pys, *pfin),
+                                  ("ys", "h", "c", "n", "m")):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"slstm_scan {shape}: {what} not "
+                                         "finite")
+                torch.testing.assert_close(
+                    g, w, rtol=tol, atol=tol,
+                    msg=f"slstm_scan {shape} {wdtype} {what}")
+            err = max_err(torch, (ys, *fin), (pys, *pfin))
+            if name is None:
+                log(f"  slstm_scan {shape} wh {wdtype}: max |kernel-plain| "
+                    f"{err:.3g}")
+                continue
+            ms, plain_ms, four = timed_pair(torch, kern, plain, flush,
+                                            iters=10)
+            s, b, h, hd = shape
+            n_bytes = (xg.numel() + ys.numel() + 8 * b * h * hd) * 4 \
+                + wh.numel() * wh.element_size()
+            flops = 2 * s * b * h * hd * 4 * hd
+            b_ms, b_by = bound(wdtype, n_bytes, flops)
+            out[name, wdtype] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by)
+            log(f"  slstm_scan {name} {shape} wh {wdtype}: kernel "
+                f"{four[1]:.4f}/{four[2]:.4f} ms, plain {four[0]:.4f}/"
+                f"{four[3]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {n_bytes} "
+                f"B, {flops} FLOP), max |kernel-plain| {err:.3g}")
+    return out
+
+
+class StepRecorder:
+    """Wraps the model's sLSTM entry to record each call's step count S
+    (the wrapper's own launch counter still counts every launch)."""
+
+    def __init__(self):
+        from repro_torch.models import xlstm
+        self.mod, self.real, self.steps = xlstm, xlstm.slstm_scan, []
+
+    def __enter__(self):
+        def rec(xg, *a):
+            self.steps.append(xg.shape[0])
+            return self.real(xg, *a)
+        self.mod.slstm_scan = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.slstm_scan = self.real
+
+
+def serve_xlstm(np, torch):
+    """Full-width xlstm-1.3b: prefill, DecodeServer, and the float32
+    forward vs prefill + decode witness.  Returns the launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True))  # MCMA dispatch on: no ApproxFFN, rate 0
+    groups = M.topology(cfg).n_groups
+    t0 = time.time()
+    params = M.init_model(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  init {cfg.name}: {cfg.n_layers} layers ({groups} groups of "
+        f"{cfg.ssm.slstm_every - 1} mLSTM + 1 sLSTM), d={cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab={cfg.vocab}, {cfg.param_dtype}, "
+        f"{n_params} parameters in {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    b, s = XLSTM_PROMPT
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                              .astype(np.int32)).cuda()
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, {"inputs": prompt})                      # warm-up
+    torch.cuda.synchronize()
+    K.slstm_scan.launches = 0
+    with StepRecorder() as rec:
+        t0 = time.time()
+        last, cache = prefill(params, {"inputs": prompt})
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = {"prefill": K.slstm_scan.launches}
+    if counts["prefill"] != groups or rec.steps != [s] * groups:
+        raise AssertionError(f"prefill: {counts['prefill']} launches over "
+                             f"{rec.steps} steps, want {groups} x {s}")
+    if last.shape != (b, cfg.vocab) or not torch.isfinite(last.float()).all() \
+            or cache["pos"].tolist() != [s] * b:
+        raise AssertionError("prefill: logits or cache malformed")
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        prefill(params, {"inputs": prompt})
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    log(f"  prefill {b} x {s}: {wall * 1e3:.2f} ms (then "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms), slstm_scan "
+        f"launches {counts['prefill']} = {groups} groups x 1, each S = {s}")
+    del cache, last
+
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        batch=SERVE["batch"], max_len=SERVE["max_len"],
+        use_mcma_dispatch=True))
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               SERVE["prompt_len"])
+                    .astype(np.int32), max_new=SERVE["max_new"])
+            for i in range(SERVE["n_requests"])]
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    K.slstm_scan.launches = 0
+    t0 = time.time()
+    stats = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts["serve"] = K.slstm_scan.launches
+    if not all(r.done and not r.aborted for r in reqs):
+        raise AssertionError("xlstm: server did not drain")
+    if counts["serve"] != groups * stats["ticks"]:
+        raise AssertionError(f"xlstm serve: {counts['serve']} launches, "
+                             f"want {groups} x {stats['ticks']}")
+    if stats["kv_bytes_resident"] != 0 or stats["invocation_rate"] != 0.0:
+        raise AssertionError(f"xlstm serve stats: {stats.asdict()}")
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"  serve xlstm: {stats['ticks']} decode ticks, {n_tok} tokens, "
+        f"{wall * 1e3 / stats['ticks']:.2f} ms/tick, {n_tok / wall:.1f} "
+        f"tokens/s, slstm_scan launches {counts['serve']} = {groups} x "
+        f"{stats['ticks']}, kv_bytes_resident 0, invocation rate 0")
+    del srv
+
+    # the consistency witness in float32: chunkwise mLSTM over 256 and the
+    # kernel at S = 256, against chunkwise over 128 + the recurrent mLSTM
+    # update and the kernel at S = 128 then S = 1
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    params.float()
+    wb, ws, at = WITNESS["batch"], WITNESS["seq"], WITNESS["at"]
+    x = torch.from_numpy(rng.integers(0, cfg.vocab, (wb, ws))
+                         .astype(np.int32)).cuda()
+    with torch.no_grad():
+        full, _, _, _ = M.forward(cfg32, params, x)
+    want = full[:, at].float()
+    _, cache = steps.make_prefill_step(cfg32)(params, {"inputs": x[:, :at]})
+    got, cache = steps.make_decode_step(cfg32)(params, cache,
+                                               x[:, at:at + 1])
+    torch.cuda.synchronize()
+    gap = (got - want).abs().max().item()
+    log(f"  float32 witness: forward({ws}) at {at} vs prefill({at}) + "
+        f"decode(1): max |diff| {gap:.4g} (logits span "
+        f"{want.min().item():.3g}..{want.max().item():.3g})")
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3,
+                               msg="xlstm float32 witness")
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError("xlstm float32 witness: greedy tokens differ")
+    if cache["pos"].tolist() != [at + 1] * wb:
+        raise AssertionError(f"xlstm witness pos {cache['pos'].tolist()}")
+    return counts
+
+
+def smoke_reference_xlstm(np, torch):
+    """The float32 xlstm smoke config on the card against the same
+    parameters on the CPU (the kernels' PyTorch versions): prefill 32
+    tokens, then 8 greedy decode ticks; logits within 1e-4, tokens equal."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    cfg = smoke_config(get_config("xlstm-1.3b"))
+    params = M.init_model(0, cfg, device="cuda")
+    cpu_params = copy.deepcopy(params).cpu()
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (8, 32)).astype(np.int32))
+    runs = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", params)):
+        lg, cache = steps.make_prefill_step(cfg)(p, {"inputs": toks.to(dev)})
+        step = steps.make_decode_step(cfg)
+        out = [lg.float().cpu()]
+        for _ in range(8):
+            nxt = lg.argmax(-1).to(torch.int32)[:, None]
+            lg, cache = step(p, cache, nxt)
+            out.append(lg.float().cpu())
+        runs[dev] = torch.stack(out)
+    torch.testing.assert_close(runs["cuda"], runs["cpu"], rtol=1e-4,
+                               atol=1e-4, msg="xlstm smoke cuda vs cpu")
+    if not torch.equal(runs["cuda"].argmax(-1), runs["cpu"].argmax(-1)):
+        raise AssertionError("xlstm smoke: greedy tokens differ")
+    log(f"  xlstm smoke config f32, prefill 32 + 8 ticks: card within "
+        f"{(runs['cuda'] - runs['cpu']).abs().max().item():.3g} of the "
+        "CPU, greedy tokens equal")
 
 
 def serve_full_width(np, torch):
@@ -413,6 +725,8 @@ def main() -> int:
                 f"{err['switched_mlp_fused']:.3g}")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     timing = main_path_kernel_phase(np, torch, flush)
+    mlp = mlp_kernel_phase(np, torch, flush)
+    slstm = slstm_kernel_phase(np, torch, flush)
     del flush
 
     log("[serve full width]")
@@ -423,19 +737,38 @@ def main() -> int:
 
     log("[smoke reference]")
     smoke_reference_check(np, torch)
+    torch.cuda.empty_cache()
 
+    log("[serve xlstm full width]")
+    slstm_launches = serve_xlstm(np, torch)
+    torch.cuda.empty_cache()
+
+    log("[smoke reference xlstm]")
+    smoke_reference_xlstm(np, torch)
+
+    # library_ms is null for all four: no single PyTorch call computes a
+    # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh
+    # + addmm) or the recurrence (a loop of steps)
     rows = []
-    for name, backend, src, replaces in (
-            ("switched_mlp", "pallas", "switched_mlp.cu",
-             "src/repro/kernels/switched_mlp.py:37"),
-            ("switched_mlp_fused", "pallas_fused", "fused_dispatch.cu",
-             "src/repro/kernels/fused_dispatch.py:120")):
-        tm = timing[name, "bfloat16"]
+    for name, src, replaces, tm, launches in (
+            ("switched_mlp", "switched_mlp.cu",
+             "src/repro/kernels/switched_mlp.py:37",
+             timing["switched_mlp", "bfloat16"],
+             results["pallas"]["launches"]),
+            ("switched_mlp_fused", "fused_dispatch.cu",
+             "src/repro/kernels/fused_dispatch.py:120",
+             timing["switched_mlp_fused", "bfloat16"],
+             results["pallas_fused"]["launches"]),
+            ("mlp_forward", "mcma_mlp.cu",
+             "src/repro/kernels/mcma_mlp.py:37", mlp["bfloat16"],
+             mlp["launches"]),
+            ("slstm_scan", "slstm_scan.cu",
+             "src/repro/kernels/slstm_scan.py:94",
+             slstm["prefill", "bfloat16"], sum(slstm_launches.values()))):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces,
-            "launches": results[backend]["launches"],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None})

@@ -1,9 +1,12 @@
-"""PyTorch/CUDA port of the MCMA decode-serving path.
+"""PyTorch/CUDA port of the MCMA decode-serving path and the xLSTM
+family's prefill and decode.
 
 A second package beside the JAX reference (``repro``), with the same
 layout: ``repro/<pkg>/<mod>.py`` has its counterpart at
 ``repro_torch/<pkg>/<mod>.py``, with the same public names and argument
-order.  It never imports ``jax`` or anything of ``repro``.
+order.  It never imports ``jax`` or anything of ``repro``.  Every Pallas
+kernel of the reference is a hand-written CUDA C++ kernel here
+(``kernels/csrc/``), each with its PyTorch version beside its wrapper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no ``device`` they raise.

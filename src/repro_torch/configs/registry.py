@@ -1,8 +1,8 @@
 """Architecture registry (counterpart of ``repro/configs/registry.py``).
 
-The port holds the dense decoder ``internlm2-1.8b`` only; the other
-architectures of the reference arrive with their model families
-(ROADMAP queue 1, item 9).
+The port holds the dense decoder ``internlm2-1.8b`` and the xLSTM
+``xlstm-1.3b``; the other architectures of the reference arrive with their
+model families (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
 }
 

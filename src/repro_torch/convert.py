@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, topology
 
 
 def _flatten(tree, prefix=""):
@@ -40,15 +40,23 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> Model:
     Every leaf must land on a parameter of the same shape and dtype, and
     every parameter must be covered."""
     model = Model(cfg, resolve_device(device))
+    topo = topology(cfg)
+    # stacked leaves: top-level key -> the leading dims to split off
+    stacked = {"blocks": (cfg.n_layers,),
+               "mlstm": (topo.n_groups, topo.per_group),
+               "slstm": (topo.n_groups,)}
     state = {}
     for name, leaf in _flatten(tree):
         t = to_torch(leaf)
-        if name.startswith("blocks."):
-            assert t.shape[0] == cfg.n_layers, (name, t.shape)
-            for i in range(cfg.n_layers):
-                state[f"blocks.{i}.{name[len('blocks.'):]}"] = t[i]
-        else:
+        head, _, rest = name.partition(".")
+        lead = stacked.get(head)
+        if lead is None:
             state[name] = t
+            continue
+        assert t.shape[:len(lead)] == lead, (name, t.shape, lead)
+        for idx in np.ndindex(*lead):
+            key = ".".join(map(str, (head, *idx, rest)))
+            state[key] = t[idx]
     own = dict(model.named_parameters())
     for name, t in state.items():
         if name in own and own[name].dtype != t.dtype:

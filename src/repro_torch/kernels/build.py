@@ -19,7 +19,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("switched_mlp", "fused_dispatch")
+SOURCES = ("switched_mlp", "fused_dispatch", "mcma_mlp", "slstm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

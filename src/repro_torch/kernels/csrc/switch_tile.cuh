@@ -1,5 +1,6 @@
 // The tile compute shared by the two weight-switch kernels
-// (switched_mlp.cu and fused_dispatch.cu).
+// (switched_mlp.cu and fused_dispatch.cu) and the one-approximator MLP
+// (mcma_mlp.cu, which passes tile_cls == nullptr: every tile is class 0).
 //
 // One CTA owns `rows_per_cta` consecutive padded row positions (all inside
 // one single-class block_t tile, so one approximator c = tile_cls[tile])
@@ -76,7 +77,7 @@ __device__ __forceinline__ void switched_tile(
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * rows_per_cta;
   const int col0 = blockIdx.y * kCols;
-  const int c = tile_cls[p0 / block_t];
+  const int c = tile_cls == nullptr ? 0 : tile_cls[p0 / block_t];
   const T* w1c = w1 + (size_t)c * d_in_p * d_h_p;
   const T* b1c = b1 + (size_t)c * d_h_p;
   const T* w2c = w2 + (size_t)c * d_h_p * d_out_p;

@@ -1,4 +1,4 @@
-"""Host-side wrappers around the weight-switch kernels
+"""Host-side wrappers around the approximator-MLP kernels
 (counterpart of ``repro/kernels/ops.py``).
 
 Responsibilities kept OUT of the kernels:
@@ -17,13 +17,37 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import fused_dispatch, switched_mlp
+from repro_torch.kernels import fused_dispatch, mcma_mlp, switched_mlp
 
 LANE = 128
 
 
 def _pad_to(n: int, m: int) -> int:
     return (n + m - 1) // m * m
+
+
+def mlp_operands(x: torch.Tensor, w1, b1, w2, b2, *, block_t: int):
+    """``mlp_apply``'s kernel operands: x's rows zero-padded to a multiple
+    of ``block_t`` and every feature dim to a multiple of LANE."""
+    t, d_in = x.shape
+    d_h, d_out = w1.shape[1], w2.shape[1]
+    tp, d_in_p = _pad_to(max(t, 1), block_t), _pad_to(d_in, LANE)
+    d_h_p, d_out_p = _pad_to(d_h, LANE), _pad_to(d_out, LANE)
+    return (F.pad(x, (0, d_in_p - d_in, 0, tp - t)),
+            F.pad(w1, (0, d_h_p - d_h, 0, d_in_p - d_in)),
+            F.pad(b1, (0, d_h_p - d_h)),
+            F.pad(w2, (0, d_out_p - d_out, 0, d_h_p - d_h)),
+            F.pad(b2, (0, d_out_p - d_out)))
+
+
+def mlp_apply(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, *,
+              block_t: int = 256) -> torch.Tensor:
+    """Fused approximator MLP on arbitrary (T, d_in) inputs: the padded
+    operands through the kernel, the result sliced back."""
+    y = mcma_mlp.mlp_forward(*mlp_operands(x, w1, b1, w2, b2,
+                                           block_t=block_t), block_t=block_t)
+    return y[:x.shape[0], :w2.shape[1]]
 
 
 def bincount(x: torch.Tensor, length: int) -> torch.Tensor:

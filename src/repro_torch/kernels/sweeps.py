@@ -1,9 +1,11 @@
-"""The weight-switch kernels' shape sweeps, shared by the parity tests
+"""The kernels' shape sweeps, shared by the parity tests
 (tests/test_torch_kernels.py) and chip_smoke.py.
 
-They are the sweeps of the reference's tests/test_kernels.py: mixed
-shapes, a skewed class mix, an empty class, T < block, one approximator,
-and every row on a zero-weight class.
+They are the sweeps of the reference's tests/test_kernels.py.  Weight
+switch: mixed shapes, a skewed class mix, an empty class, T < block, one
+approximator, and every row on a zero-weight class.  One-approximator MLP:
+the four shapes of its lines 29-34.  sLSTM recurrence: the three shapes of
+its lines 198-202.
 """
 from __future__ import annotations
 
@@ -41,3 +43,30 @@ def case_inputs(case: str):
     elif mix == "no_class_1":
         cls[cls == 1] = 3
     return x, cls, w, block
+
+
+# (t, d_in, d_h, d_out)
+MLP_SHAPES = [(64, 8, 8, 1), (300, 100, 40, 60), (512, 256, 128, 256),
+              (1, 6, 8, 2)]
+
+
+def mlp_inputs(t, d_in, d_h, d_out):
+    """float32 numpy ``[x, w1, b1, w2, b2]`` from a seed fixed per shape."""
+    rng = np.random.default_rng(t * 1000 + d_in)
+    return [(rng.normal(size=s) * sc).astype(np.float32) for s, sc in (
+        ((t, d_in), 0.5), ((d_in, d_h), 0.2), ((d_h,), 0.1),
+        ((d_h, d_out), 0.2), ((d_out,), 0.1))]
+
+
+# (S, B, H, hd)
+SLSTM_SHAPES = [(8, 2, 2, 8), (32, 4, 4, 16), (16, 1, 4, 128)]
+
+
+def slstm_inputs(s, b, h, hd, wh_scale=0.2):
+    """float32 numpy ``(xg, wh, h0, c0, n0, m0)`` from a seed fixed per
+    shape: zero states and m0 = -1e30, as the model starts a sequence."""
+    rng = np.random.default_rng(s * 100 + b)
+    xg = (rng.normal(size=(s, b, h, 4 * hd)) * 0.5).astype(np.float32)
+    wh = (rng.normal(size=(h, hd, 4 * hd)) * wh_scale).astype(np.float32)
+    z = np.zeros((b, h, hd), np.float32)
+    return xg, wh, z, z, z, np.full((b, h, hd), -1e30, np.float32)

@@ -1,10 +1,12 @@
 """Where a decode tick's time goes, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--backend pallas] [--ticks 6] [--seed 0]
+        [--arch internlm2-1.8b | xlstm-1.3b] [--backend pallas] \\
+        [--ticks 6] [--seed 0]
 
-Serves the full-width internlm2-1.8b (all 24 layers, random weights from
-``--seed``, MCMA dispatch, batch 8) until every slot is decoding, then:
+Serves the full-width model (all layers, random weights from ``--seed``,
+batch 8; internlm2-1.8b with MCMA dispatch on ``--backend``) until every
+slot is decoding, then:
   * times ``--ticks`` decode steps with the host clock (each ended by a
     synchronize), and counts the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``);
@@ -13,7 +15,8 @@ Serves the full-width internlm2-1.8b (all 24 layers, random weights from
     device time is its kernels' time, so adding both would count it
     twice), the kernel launches per tick, the idle share, the top kernels
     by device time and the top operators by calls.
-Needs a CUDA device.
+For xlstm-1.3b it then does the same for ``--ticks`` prefills of an
+(8, 256) prompt batch.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,8 +28,54 @@ import warnings
 TOP = 15
 
 
+def profiled(torch, fn, n):
+    """Host ms per call of ``fn`` (untraced, then traced) and the traced
+    GPU kernels and aten operators, each summed over ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.key.startswith("aten::")]
+    return host_ms, wall_ms, kernels, ops
+
+
+def report(what, host_ms, wall_ms, kernels, ops, n):
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    print(f"{what}: {host_ms:.2f} ms (host clock), {wall_ms:.2f} ms under "
+          f"the profiler, device busy {busy:.2f} ms in {launches:.0f} "
+          f"kernel launches, idle share {max(0.0, 1 - busy / host_ms):.3f} "
+          f"of the host-clock time ({max(0.0, 1 - busy / wall_ms):.3f} under "
+          "the profiler)")
+    print(f"top {TOP} kernels by device time per call:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]:
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms "
+              f"{e.count // n:6d} launches  {e.key[:90]}")
+    print(f"top {TOP} operators by calls per call:")
+    for e in sorted(ops, key=lambda e: -e.count)[:TOP]:
+        print(f"  {e.count // n:6d} calls  "
+              f"{e.self_device_time_total / 1e3 / n:9.3f} ms  {e.key}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=("internlm2-1.8b", "xlstm-1.3b"))
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "pallas_fused", "xla"))
     ap.add_argument("--ticks", type=int, default=6)
@@ -35,8 +84,6 @@ def main(argv=None):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device
@@ -45,12 +92,14 @@ def main(argv=None):
 
     dev = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("internlm2-1.8b")
-    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
-        cfg.approx, enable=True))
+    cfg = get_config(args.arch)
+    dense = cfg.family == "dense"
+    if dense:
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, enable=True))
     params = M.init_model(args.seed, cfg, device=dev)
-    step = steps.make_decode_step(cfg, use_mcma_dispatch=True,
-                                  with_stats=True, backend=args.backend)
+    step = steps.make_decode_step(cfg, use_mcma_dispatch=dense,
+                                  with_stats=dense, backend=args.backend)
     b = 8
     cache = M.init_cache(cfg, b, 256, device=dev)
     rng = np.random.default_rng(args.seed)
@@ -60,19 +109,13 @@ def main(argv=None):
 
     def tick():
         nonlocal toks, cache
-        logits, cache, m = step(params, cache, toks, mask)
+        logits, cache, *m = step(params, cache, toks, mask)
         toks = logits.argmax(-1).to(torch.int32)[:, None]
-        return float(m["invocation"])
+        if m:
+            float(m[0]["invocation"])        # the server reads it per tick
 
     for _ in range(3):
         tick()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.ticks):
-        tick()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
-
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -80,39 +123,22 @@ def main(argv=None):
     torch.cuda.set_sync_debug_mode("default")
     syncs = [f"{w.filename}:{w.lineno}" for w in caught
              if "synchroniz" in str(w.message)]
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.ticks):
-            tick()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    ops = [e for e in events if e.device_type == DeviceType.CPU
-           and e.key.startswith("aten::")]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.ticks
-    launches = sum(e.count for e in kernels) / args.ticks
-    print(f"{cfg.name} {cfg.n_layers} layers, batch {b}, backend "
-          f"{args.backend}: {host_ms:.2f} ms/tick (host clock), "
-          f"{wall_ms:.2f} ms/tick under the profiler, device busy "
-          f"{busy:.2f} ms/tick in {launches:.0f} kernel launches, idle "
-          f"share {max(0.0, 1 - busy / host_ms):.3f} of the host-clock tick "
-          f"({max(0.0, 1 - busy / wall_ms):.3f} under the profiler)")
+    what = f"{cfg.name} {cfg.n_layers} layers, decode tick, batch {b}" + (
+        f", backend {args.backend}" if dense else "")
+    report(what, *profiled(torch, tick, args.ticks), args.ticks)
     print(f"host-device synchronizations in one tick: {len(syncs)}")
     for s in sorted(set(syncs)):
         print(f"  {syncs.count(s)} x {s}")
-    print(f"top {TOP} kernels by device time per tick:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]:
-        print(f"  {e.self_device_time_total / 1e3 / args.ticks:9.3f} ms "
-              f"{e.count // args.ticks:6d} launches  {e.key[:90]}")
-    print(f"top {TOP} operators by calls per tick:")
-    for e in sorted(ops, key=lambda e: -e.count)[:TOP]:
-        print(f"  {e.count // args.ticks:6d} calls  "
-              f"{e.self_device_time_total / 1e3 / args.ticks:9.3f} ms  "
-              f"{e.key}")
+    if dense:
+        return
+    del cache
+    prefill = steps.make_prefill_step(cfg)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 256))
+                              .astype(np.int32)).to(dev)
+    prefill(params, {"inputs": prompt})
+    report(f"{cfg.name} prefill of {b} x 256 tokens",
+           *profiled(torch, lambda: prefill(params, {"inputs": prompt}),
+                     args.ticks), args.ticks)
 
 
 if __name__ == "__main__":

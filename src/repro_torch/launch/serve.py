@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --approx --mcma-dispatch [--backend pallas_fused] [--smoke] \\
         [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+        [--smoke] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; the weights are random,
 from ``--seed``.

@@ -1,4 +1,4 @@
-"""Shared LM layers (counterpart of ``repro/models/layers.py``): RMSNorm,
+"""Shared LM layers (counterpart of ``repro/models/layers.py``): the norms,
 RoPE, embeddings, the gated FFN and GQA decode attention over a dense KV
 cache.
 
@@ -41,19 +41,30 @@ def param(shape, dtype, device, gen=None, scale=None, fill=None):
 # ---------------------------------------------------------------------------
 
 class Norm(nn.Module):
+    """rmsnorm: a scale; layernorm: a scale and a bias."""
+
     def __init__(self, cfg: ModelConfig, shape_d: int, device):
         super().__init__()
-        if cfg.norm != "rmsnorm":
+        if cfg.norm not in ("rmsnorm", "layernorm"):
             raise NotImplementedError(
                 f"norm {cfg.norm!r} is not ported yet (ROADMAP queue 1, "
                 "item 9)")
         self.scale = param((shape_d,), cfg.pdtype, device, fill=1.0)
+        if cfg.norm == "layernorm":
+            self.bias = param((shape_d,), cfg.pdtype, device, fill=0.0)
 
 
 def norm_fwd(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    """Statistics in f32, the normalized value cast to x's dtype before
+    the affine."""
     xf = x.float()
-    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
-    return (xf * r).to(x.dtype) * p.scale.to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        return (xf * r).to(x.dtype) * p.scale.to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + 1e-6)).to(x.dtype)
+    return y * p.scale.to(x.dtype) + p.bias.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

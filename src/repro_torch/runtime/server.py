@@ -12,9 +12,12 @@ The ``max_len`` contract: positions are absolute, never recycled.
 ``submit()`` enforces ``len(prompt) + max_new <= max_len`` loudly (or
 trims the prompt's HEAD under ``overflow="trim"``).
 
-The server runs where its parameters live; the KV cache is dense
-``(batch, max_len)`` on the same device.  Options of features not ported
-yet raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The server runs where its parameters live; the cache, on the same
+device, is the dense ``(batch, max_len)`` KV cache (dense family) or the
+recurrent states (xLSTM family, which has no KV cache and whose
+``--mcma-dispatch`` runs report invocation rate 0: it has no ApproxFFN).
+Options of features not ported yet raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -261,16 +264,19 @@ class DecodeServer:
         if self.use_mcma_dispatch:
             logits, self.cache, m = self.decode(self.params, self.cache,
                                                 inputs, mask)
-            n_active = sum(active)
-            self.invocation_sum += float(m["invocation"]) * n_active
-            self.active_sum += n_active
-            self.dropped_sum += float(m["dropped_rows"])
-            disp = m["dispatched"].double().cpu().numpy()
-            routed = m["class_counts"].double().cpu().numpy()
-            self.dispatched_sum = disp if self.dispatched_sum is None \
-                else self.dispatched_sum + disp
-            self.routed_sum = routed if self.routed_sum is None \
-                else self.routed_sum + routed
+            # a family without an ApproxFFN (xLSTM) reports no metrics
+            if "invocation" in m:
+                n_active = sum(active)
+                self.invocation_sum += float(m["invocation"]) * n_active
+                self.active_sum += n_active
+            if "dropped_rows" in m:
+                self.dropped_sum += float(m["dropped_rows"])
+                disp = m["dispatched"].double().cpu().numpy()
+                routed = m["class_counts"].double().cpu().numpy()
+                self.dispatched_sum = disp if self.dispatched_sum is None \
+                    else self.dispatched_sum + disp
+                self.routed_sum = routed if self.routed_sum is None \
+                    else self.routed_sum + routed
         else:
             logits, self.cache = self.decode(self.params, self.cache,
                                              inputs, mask)
@@ -337,6 +343,14 @@ class DecodeServer:
                 stats.dropped_frac = self.dropped_sum / total
                 stats.served_invocation_rate = \
                     float(self.dispatched_sum[1:].sum()) / total
-        stats.kv_bytes_resident = 2 * self.cache["k"].numel() \
-            * self.cache["k"].element_size()
+        stats.kv_bytes_resident = self._kv_bytes_resident()
         return stats
+
+    def _kv_bytes_resident(self) -> int:
+        """Resident KV-cache bytes: the dense cache reserves batch x
+        max_len for k and v whatever is held; a pure-SSM cache holds no
+        KV."""
+        k = self.cache.get("k")
+        if k is None:
+            return 0
+        return 2 * k.numel() * k.element_size()

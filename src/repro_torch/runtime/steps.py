@@ -1,7 +1,8 @@
 """Serve-mode step functions (counterpart of the serve half of
 ``repro/runtime/steps.py``).
 
-``make_decode_step(cfg)`` -> ``(params, cache, inputs, row_mask=None) ->
+``make_prefill_step(cfg)`` -> ``(params, batch) -> (last_logits, cache)``
+``make_decode_step(cfg)``  -> ``(params, cache, inputs, row_mask=None) ->
 (logits, cache[, metrics])``.  PyTorch runs eagerly, so a step is a plain
 closure over the serve config, run under ``torch.no_grad``.
 """
@@ -14,6 +15,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.runtime.dispatch import DISPATCH_BACKENDS
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Prefill over ``batch["inputs"]`` (B, S) tokens: the last position's
+    logits and the decode cache after S tokens (``pos = S``).  The forward
+    is ported for the xLSTM family (models/model.forward)."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, cache, _, _ = M.forward(cfg, params, batch["inputs"],
+                                            collect_cache=True, serve=True)
+        return logits[:, -1], cache
+    return prefill_step
 
 
 def mcma_serve_config(cfg: ModelConfig, *,

@@ -4,8 +4,9 @@ interpret mode) and ``repro_torch.kernels``; and, on a machine with a GPU
 (marker ``cuda``), each CUDA kernel against its PyTorch version.
 
 Plans, row indices and padded stacks must be exactly equal; kernel
-outputs within the reference's kernel tolerances (3e-5 f32, 2e-2 bf16),
-and the fused path bitwise equal to the unfused one inside the port.
+outputs within the reference's kernel tolerances (3e-5 f32, 2e-2 bf16;
+1e-5 for the sLSTM recurrence), and the fused path bitwise equal to the
+unfused one inside the port.
 """
 import importlib
 import types
@@ -15,10 +16,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_dispatch as tfd
+from repro_torch.kernels import mcma_mlp as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import slstm_scan as tss
 from repro_torch.kernels import switched_mlp as tsm
-from repro_torch.kernels.sweeps import CASES
+from repro_torch.kernels.sweeps import (CASES, MLP_SHAPES, SLSTM_SHAPES,
+                                        mlp_inputs, slstm_inputs)
 from repro_torch.kernels.sweeps import case_inputs as _inputs
 
 
@@ -31,6 +35,8 @@ def J():
     return types.SimpleNamespace(
         jnp=importlib.import_module("jax.numpy"),
         ops=importlib.import_module("repro.kernels.ops"),
+        ref=importlib.import_module("repro.kernels.ref"),
+        sk=importlib.import_module("repro.kernels.slstm_scan"),
         fd=importlib.import_module("repro.kernels.fused_dispatch"))
 
 
@@ -121,13 +127,79 @@ def test_wrappers_refuse_other_devices():
         tfd.switched_mlp_fused(x, torch.zeros((128,), dtype=torch.int32,
                                               device="meta"),
                                tile_cls, *w, block_t=128)
+    with pytest.raises(ValueError, match="no kernel"):
+        tmm.mlp_forward(x, w[0][0], w[1][0], w[2][0], w[3][0], block_t=128)
+    st = torch.zeros((2, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tss.slstm_scan(torch.zeros((4, 2, 2, 32), device="meta"),
+                       torch.zeros((2, 8, 32), device="meta"), st, st, st, st)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d_in,d_h,d_out", MLP_SHAPES)
+def test_mlp_apply_matches_jax_kernel(J, dtype, t, d_in, d_h, d_out):
+    """The port rounds ``h`` to x's dtype as the reference kernel does
+    (mcma_mlp.py:32), so it is held to that kernel; ``ref.mlp_forward_ref``
+    does not round ``h`` and agrees within the bf16 tolerance only."""
+    a = mlp_inputs(t, d_in, d_h, d_out)
+    want = np.asarray(J.ops.mlp_apply(*[_jax(J, v, dtype) for v in a],
+                                      block_t=128, interpret=True),
+                      np.float32)
+    targs = [_torch(v, dtype) for v in a]
+    got = tops.mlp_apply(*targs, block_t=128)
+    assert got.shape == (t, d_out) and got.dtype == targs[0].dtype
+    np.testing.assert_allclose(got.float().numpy(), want, **_tol(dtype))
+    np.testing.assert_allclose(got.float().numpy(),
+                               tref.mlp_forward_ref(*targs).float().numpy(),
+                               **_tol(dtype))
+    np.testing.assert_allclose(
+        tref.mlp_forward_ref(*targs).float().numpy(),
+        np.asarray(J.ref.mlp_forward_ref(*[_jax(J, v, dtype) for v in a]),
+                   np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("s,b,h,hd", SLSTM_SHAPES)
+def test_slstm_scan_plain_matches_jax_kernel_and_ref(J, s, b, h, hd):
+    a = slstm_inputs(s, b, h, hd)
+    jys, jfin = J.sk.slstm_scan(*map(J.jnp.asarray, a), interpret=True)
+    rys, rfin = J.ref.slstm_scan_ref(*map(J.jnp.asarray, a))
+    n0 = tss.slstm_scan.launches
+    ys, fin = tss.slstm_scan(*map(torch.from_numpy, a))
+    assert tss.slstm_scan.launches == n0      # CPU tensors: the plain version
+    tys, tfin = tref.slstm_scan_ref(*map(torch.from_numpy, a))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for got in ((ys, fin), (tys, tfin)):
+        for want in ((jys, jfin), (rys, rfin)):
+            for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+                assert g.dtype == torch.float32 and g.shape == w.shape
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+def test_slstm_scan_plain_rounds_h_like_the_jax_kernel(J):
+    """bf16 ``wh``: the plain version rounds ``h`` to bf16 and sums the
+    product in f32, as the reference kernel does (its ``ref`` does not
+    round ``h``)."""
+    xg, wh, *st = slstm_inputs(32, 4, 4, 16)
+    jwh = J.jnp.asarray(wh).astype(J.jnp.bfloat16)
+    jys, jfin = J.sk.slstm_scan(J.jnp.asarray(xg), jwh,
+                                *map(J.jnp.asarray, st), interpret=True)
+    ys, fin = tss.slstm_scan(torch.from_numpy(xg),
+                             torch.from_numpy(wh).to(torch.bfloat16),
+                             *map(torch.from_numpy, st))
+    for g, w in zip((ys, *fin), (jys, *jfin)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,dtype", DTYPE_CASES)
 def test_cuda_kernels_match_plain(case, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _cuda()
     x, cls, w, block = _inputs(case)
     xt, ct = _torch(x, dtype, "cuda"), _torch(cls, device="cuda")
     xp, rows, tile_cls, weights, order, pos = tops.kernel_operands(
@@ -141,6 +213,37 @@ def test_cuda_kernels_match_plain(case, dtype):
     torch.testing.assert_close(y.float(), want.float(), **_tol(dtype))
     assert torch.equal(yf[:x.shape[0]], y[pos.long()][torch.argsort(
         order.long())]), "fused != unfused"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d_in,d_h,d_out", MLP_SHAPES)
+def test_cuda_mlp_forward_matches_plain(dtype, t, d_in, d_h, d_out):
+    _cuda()
+    a = [_torch(v, dtype, "cuda") for v in mlp_inputs(t, d_in, d_h, d_out)]
+    n0 = tmm.mlp_forward.launches
+    got = tops.mlp_apply(*a, block_t=128)
+    torch.cuda.synchronize()
+    assert tmm.mlp_forward.launches == n0 + 1
+    cpu = tops.mlp_apply(*[v.cpu() for v in a], block_t=128)
+    torch.testing.assert_close(got.float().cpu(), cpu.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,b,h,hd", SLSTM_SHAPES)
+def test_cuda_slstm_scan_matches_plain(wdtype, s, b, h, hd):
+    _cuda()
+    xg, wh, *st = [torch.from_numpy(v).cuda()
+                   for v in slstm_inputs(s, b, h, hd)]
+    wh = wh.to(getattr(torch, wdtype))
+    n0 = tss.slstm_scan.launches
+    ys, fin = tss.slstm_scan(xg, wh, *st)
+    torch.cuda.synchronize()
+    assert tss.slstm_scan.launches == n0 + 1
+    pys, pfin = tss.slstm_scan_plain(xg, wh, *st)
+    for g, w in zip((ys, *fin), (pys, *pfin)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
