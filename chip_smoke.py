@@ -5,17 +5,20 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources in this checkout (one nvcc
-     per source, in parallel);
+     per source, in parallel), and print what cudaFuncGetAttributes says of
+     each launcher of the weight-switch tile routine at the decode shape
+     (registers, static and dynamic shared memory, local bytes, cluster);
   3. each kernel against its PyTorch version on the card, with CUDA-event
      timings (plain, kernel, kernel, plain; L2 flushed before each call):
      the weight-switch kernels over the sweeps of tests/test_kernels.py
-     and the decode path's full-width shape, in float32 (tolerance 3e-5)
-     and bfloat16 (2e-2), the fused kernel bitwise equal to the switched
-     one; the one-approximator MLP over the reference's four shapes and the
-     full-width ApproxFFN shape (same tolerances), with ``ops.mlp_apply``
-     held to ``ref.mlp_forward_ref``; the sLSTM recurrence over the
-     reference's three shapes (1e-5) and xlstm-1.3b's prefill and decode
-     shapes (1e-4 with float32 weights, 2e-2 with bfloat16);
+     (and 16-row tiles) and the decode path's full-width shape, in
+     float32 (tolerance 3e-5) and bfloat16 (2e-2), the fused kernel
+     bitwise equal to the switched one; the one-approximator MLP over the
+     reference's four shapes and the full-width ApproxFFN shape (same
+     tolerances), with ``ops.mlp_apply`` held to ``ref.mlp_forward_ref``;
+     the sLSTM recurrence over the reference's three shapes (1e-5) and
+     xlstm-1.3b's prefill and decode shapes (1e-4 with float32 weights,
+     2e-2 with bfloat16);
   4. full-width internlm2-1.8b (24 layers, bf16, random weights from a
      seed, MCMA dispatch) served through DecodeServer with backends
      "pallas" then "pallas_fused": equal greedy tokens, and each kernel
@@ -63,6 +66,28 @@ WITNESS = dict(batch=2, seq=256, at=128)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernel_resources():
+    """Registers, shared memory, local bytes and cluster width of the three
+    launchers of csrc/switch_tile.cuh, in both dtypes, at the decode
+    path's shape (d_h_p 256, d_out_p 2048, block_t 128)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+    cfg = get_config("internlm2-1.8b")
+    for name, src in (("switched_mlp", "switched_mlp"),
+                      ("switched_mlp_fused", "fused_dispatch"),
+                      ("mlp_forward", "mcma_mlp")):
+        for dtype in ("float32", "bfloat16"):
+            r = build.resources(src, f"{name}_resources",
+                                bf16=dtype == "bfloat16",
+                                d_h_p=cfg.approx.d_hidden,
+                                d_out_p=cfg.d_model,
+                                block_t=cfg.approx.block_t)
+            log(f"  {name} {dtype}: {r['registers']} registers/thread, "
+                f"{r['static_smem']} B static + {r['dynamic_smem']} B "
+                f"dynamic shared memory, {r['local_bytes']} B local, "
+                f"cluster of {r['cluster']}")
 
 
 def check_kernels(torch, x, cls, w, block, dtype, name):
@@ -714,6 +739,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    log("[kernel resources]")
+    kernel_resources()
 
     log("[kernels vs plain]")
     for case in sorted(CASES):

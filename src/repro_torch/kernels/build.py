@@ -85,10 +85,32 @@ def load(name: str, entries: dict[str, tuple[int, int]]) -> ctypes.CDLL:
         if not path.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(path))
-        for fn, (n_ptr, n_int) in entries.items():
-            f = getattr(lib, fn)
-            f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                          + [ctypes.c_void_p])
-            f.restype = ctypes.c_int
         _loaded[name] = lib
+    for fn, (n_ptr, n_int) in entries.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = ([ctypes.c_void_p] * n_ptr
+                          + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+            f.restype = ctypes.c_int
     return lib
+
+
+RESOURCE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                 "cluster")
+
+
+def resources(name: str, fn: str, *, bf16: bool, d_h_p: int, d_out_p: int,
+              block_t: int) -> dict[str, int]:
+    """What ``cudaFuncGetAttributes`` says of one kernel of
+    ``csrc/<name>.cu`` through its C query ``fn``: registers per thread,
+    static shared bytes, the dynamic shared bytes of a launch at (d_h_p,
+    d_out_p, block_t), local (spill) bytes per thread, cluster width."""
+    f = getattr(load(name, {}), fn)
+    f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = f(int(bf16), d_h_p, d_out_p, block_t, out)
+    if err:
+        raise RuntimeError(f"{fn}: cudaFuncGetAttributes failed with CUDA "
+                           f"error {err}")
+    return dict(zip(RESOURCE_KEYS, out))

@@ -9,11 +9,12 @@ same tile compute as ``csrc/switched_mlp.cu`` (both call
 through ``rows`` and its result stored straight to that original row, so
 the activations cross device memory once per layer.  The TPU kernel's
 limit that the whole activation block fit VMEM has no counterpart here:
-rows are gathered per CTA.  Bound at the decode path's shape: the weight
-bytes; PERF.md has the measured times.
+rows are gathered per row block, and a row block of padding only is
+skipped.  Bound at the decode path's shape: the weight bytes; PERF.md has
+the measured times.
 
 ``switched_mlp_fused`` launches the kernel for CUDA tensors and counts
-each launch in ``switched_mlp_fused.launches``; for CPU tensors it runs
+each call in ``switched_mlp_fused.launches``; for CPU tensors it runs
 ``switched_mlp_fused_plain``.  Any other device raises.
 """
 from __future__ import annotations
@@ -85,7 +86,7 @@ def switched_mlp_fused(x: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"switched_mlp_fused: no kernel for device "
                          f"{x.device}")
     sfx = check_cuda_args(x, (rows, tile_cls), (w1, b1, w2, b2),
-                          name="switched_mlp_fused")
+                          block_t=block_t, name="switched_mlp_fused")
     out = torch.empty((t + 1, d_out_p), dtype=x.dtype, device=x.device)
     lib = build.load("fused_dispatch", _ENTRIES)
     err = getattr(lib, f"switched_mlp_fused_{sfx}")(

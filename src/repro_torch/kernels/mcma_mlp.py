@@ -6,8 +6,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/mcma_mlp.py``
 kernel ``csrc/mcma_mlp.cu``, built for ``sm_90a`` and bound with
 ``ctypes`` (kernels/build.py): the weight-switch tile routine of
 ``csrc/switch_tile.cuh`` with a single class.  The TPU kernel keeps both
-weight matrices resident in VMEM across its row grid; here every CTA reads
-its weight tiles through L2.  PERF.md has the measured times.
+weight matrices resident in VMEM across its row grid; here each 32-row
+block's cluster of 8 CTAs streams its slices of both through L2.  PERF.md
+has the measured times.
 
 ``mlp_forward`` launches the kernel for CUDA tensors and counts each
 launch in ``mlp_forward.launches``; for CPU tensors it runs
@@ -59,7 +60,7 @@ def mlp_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"mlp_forward: no kernel for device {x.device}")
     sfx = check_cuda_args(x, (), _one_class(w1, b1, w2, b2),
-                          name="mlp_forward")
+                          block_t=block_t, name="mlp_forward")
     d_h, d_out = w1.shape[1], w2.shape[1]
     out = torch.empty((t, d_out), dtype=x.dtype, device=x.device)
     lib = build.load("mcma_mlp", _ENTRIES)

@@ -3,7 +3,9 @@
 
 They are the sweeps of the reference's tests/test_kernels.py.  Weight
 switch: mixed shapes, a skewed class mix, an empty class, T < block, one
-approximator, and every row on a zero-weight class.  One-approximator MLP:
+approximator, and every row on a zero-weight class; plus ``block16``, the
+16-row tiles of tests/test_torch_dispatch.py, which take the CUDA tile
+routine's 16-row blocks.  One-approximator MLP:
 the four shapes of its lines 29-34.  sLSTM recurrence: the three shapes of
 its lines 198-202.
 """
@@ -22,14 +24,18 @@ CASES = {
     "t_below_block": (7, 3, 16, 8, 16, 64, "random"),
     "one_approximator": (150, 1, 20, 12, 20, 64, "random"),
     "all_nc": (90, 4, 24, 8, 24, 32, "all_last"),
+    "block16": (24, 3, 32, 16, 32, 16, "random"),
 }
+# each case's seed: its place among the reference's sweeps, sorted, then
+# the cases added after them
+_SEED_ORDER = sorted(set(CASES) - {"block16"}) + ["block16"]
 
 
 def case_inputs(case: str):
     """float32 numpy inputs of one sweep, from a seed fixed per case:
     ``(x, cls, [w1, b1, w2, b2], block)``."""
     t, n, d_in, d_h, d_out, block, mix = CASES[case]
-    rng = np.random.default_rng(sorted(CASES).index(case))
+    rng = np.random.default_rng(_SEED_ORDER.index(case))
     x = (rng.normal(size=(t, d_in)) * 0.5).astype(np.float32)
     w = [(rng.normal(size=s) * sc).astype(np.float32) for s, sc in (
         ((n, d_in, d_h), 0.2), ((n, d_h), 0.1), ((n, d_h, d_out), 0.2),

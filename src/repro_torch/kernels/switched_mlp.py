@@ -4,14 +4,18 @@ Replaces the Pallas TPU kernel ``repro/kernels/switched_mlp.py``
 (``switched_mlp``, body ``_switched_kernel``).  On Hopper it is a CUDA C++
 kernel, ``csrc/switched_mlp.cu``, built for ``sm_90a`` and bound with
 ``ctypes`` (kernels/build.py).  The TPU kernel streams each tile's
-approximator weights into VMEM behind the previous tile's compute; here
-each CTA reads its tile's class and loads that approximator's weights
-itself.  At the decode path's shape the work is bound by the weight bytes
-(at most n + 1 classes of (d_in_p x d_h_p + d_h_p x d_out_p) values)
-rather than the arithmetic; PERF.md has the measured times.
+approximator weights into VMEM behind the previous tile's compute; here a
+cluster of 8 CTAs owns each 32-row block: each CTA computes an eighth of
+the block's hidden units once, the cluster shares them through
+distributed shared memory, and each CTA produces an eighth of the output
+columns, its weight slices streamed through a ``cp.async`` ring (bf16 on
+the tensor cores; ``csrc/switch_tile.cuh``).  At the decode path's shape
+the work is bound by the weight bytes (at most n + 1 classes of (d_in_p x
+d_h_p + d_h_p x d_out_p) values) rather than the arithmetic; PERF.md has
+the measured times.
 
 ``switched_mlp`` launches the kernel for CUDA tensors and counts each
-launch in ``switched_mlp.launches``; for CPU tensors it runs
+call in ``switched_mlp.launches``; for CPU tensors it runs
 ``switched_mlp_plain``, the same tile math in PyTorch.  Any other device
 raises.
 """
@@ -51,9 +55,19 @@ def switched_mlp_plain(x, tile_cls, w1, b1, w2, b2, *, block_t: int = 256):
     return tile_math(x, tile_cls, w1, b1, w2, b2, block_t=block_t)
 
 
-def check_cuda_args(x, int_args, weights, *, name: str):
+# The tile routine's limits (csrc/switch_tile.cuh): feature dims in whole
+# 256-byte stages and whole 16-column slices for each of the cluster's 8
+# CTAs, the whole h of a 32-row block in one CTA's shared memory, row
+# blocks of 16 or 32 that never straddle a tile.
+FEATURE_MULTIPLE = 128
+MAX_HIDDEN = 512
+BLOCK_MULTIPLE = 16
+
+
+def check_cuda_args(x, int_args, weights, *, block_t: int, name: str):
     """Refuse what the CUDA kernels do not take: mixed devices or dtypes,
-    dtypes other than f32/bf16, non-contiguous tensors, int64 indices."""
+    dtypes other than f32/bf16, non-contiguous tensors, int64 indices, and
+    shapes outside the tile routine's limits."""
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {x.dtype} is not float32/bfloat16")
     for a in (x, *int_args, *weights):
@@ -69,12 +83,22 @@ def check_cuda_args(x, int_args, weights, *, name: str):
         if w.dtype != x.dtype:
             raise TypeError(f"{name}: weights {w.dtype} != activations "
                             f"{x.dtype}")
+        if w.data_ptr() % 16:
+            raise ValueError(f"{name}: weights {tuple(w.shape)} not 16-byte "
+                             "aligned (the kernels copy them 16 B at a time)")
     d_in_p, d_h_p = weights[0].shape[1], weights[0].shape[2]
     d_out_p = weights[2].shape[2]
-    if d_in_p % 32 or d_h_p % 64 or d_out_p % 128:
+    m = FEATURE_MULTIPLE
+    if d_in_p % m or d_h_p % m or d_out_p % m:
         raise ValueError(f"{name}: feature dims (d_in {d_in_p}, d_h {d_h_p}, "
-                         f"d_out {d_out_p}) must be multiples of (32, 64, "
-                         "128); ops.prepad_switched_weights pads to 128")
+                         f"d_out {d_out_p}) must be multiples of {m}; "
+                         "ops.prepad_switched_weights pads to 128")
+    if d_h_p > MAX_HIDDEN:
+        raise ValueError(f"{name}: d_h {d_h_p} > {MAX_HIDDEN}, more than a "
+                         "CTA's shared memory holds")
+    if block_t % BLOCK_MULTIPLE:
+        raise ValueError(f"{name}: block_t {block_t} is not a multiple of "
+                         f"{BLOCK_MULTIPLE}")
     return _SUFFIX[x.dtype]
 
 
@@ -96,7 +120,7 @@ def switched_mlp(x: torch.Tensor, tile_cls: torch.Tensor, w1: torch.Tensor,
                                   block_t=block_t)
     if x.device.type != "cuda":
         raise ValueError(f"switched_mlp: no kernel for device {x.device}")
-    sfx = check_cuda_args(x, (tile_cls,), (w1, b1, w2, b2),
+    sfx = check_cuda_args(x, (tile_cls,), (w1, b1, w2, b2), block_t=block_t,
                           name="switched_mlp")
     d_h, d_out = w1.shape[2], w2.shape[2]
     out = torch.empty((t, d_out), dtype=x.dtype, device=x.device)

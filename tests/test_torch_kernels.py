@@ -246,6 +246,108 @@ def test_cuda_slstm_scan_matches_plain(wdtype, s, b, h, hd):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
+def _config_case(name):
+    """(t, n, d_in, d_h, d_out, block) of a served model's dispatch: 8
+    rows (the decode batch) over its approximators and the pseudo-class."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    cfg = get_config("internlm2-1.8b")
+    if name.endswith("smoke"):
+        cfg = smoke_config(cfg)
+    a = cfg.approx
+    return (8, a.n_approx + 1, cfg.d_model, a.d_hidden, cfg.d_model,
+            a.block_t)
+
+
+SERVED = sorted(CASES) + ["internlm2-1.8b", "internlm2-1.8b-smoke"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SERVED)
+def test_cuda_limits_admit_every_served_shape(case, dtype):
+    """The tile routine's limits (check_cuda_args) take the operands that
+    ops builds for every sweep and for internlm2-1.8b's decode dispatch at
+    full width and in its smoke config: a limit that shuts out a served
+    shape fails here, not on the card."""
+    if case in CASES:
+        x, cls, w, block = _inputs(case)
+    else:
+        t, n, d_in, d_h, d_out, block = _config_case(case)
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(t, d_in)).astype(np.float32)
+        cls = rng.integers(0, n, t).astype(np.int32)
+        w = [rng.normal(size=s).astype(np.float32) for s in (
+            (n, d_in, d_h), (n, d_h), (n, d_h, d_out), (n, d_out))]
+    xt = _torch(x, dtype)
+    xp, rows, tile_cls, weights, _, _ = tops.kernel_operands(
+        xt, _torch(cls), *[_torch(a, dtype) for a in w], block_t=block)
+    sfx = {"float32": "f32", "bfloat16": "bf16"}[dtype]
+    assert tsm.check_cuda_args(xp, (tile_cls,), weights, block_t=block,
+                               name="switched_mlp") == sfx
+    assert tsm.check_cuda_args(xt, (rows, tile_cls), weights, block_t=block,
+                               name="switched_mlp_fused") == sfx
+
+
+@pytest.mark.parametrize("shape", MLP_SHAPES + [(2048, 2048, 256, 2048)])
+def test_cuda_limits_admit_mlp_apply_shapes(shape):
+    """The same for ``ops.mlp_apply``'s operands: the reference's shapes
+    and the full-width ApproxFFN shape chip_smoke.py times."""
+    a = [torch.zeros(s) for s in ((shape[0], shape[1]), shape[1:3],
+                                  (shape[2],), shape[2:4], (shape[3],))]
+    block = 256 if shape[0] == 2048 else 128
+    xo, w1, b1, w2, b2 = tops.mlp_operands(*a, block_t=block)
+    assert tsm.check_cuda_args(xo, (), tmm._one_class(w1, b1, w2, b2),
+                               block_t=block, name="mlp_forward") == "f32"
+
+
+def test_cuda_limits_refuse_what_the_routine_cannot_take():
+    x = torch.zeros((64, 128))
+    tile_cls = torch.zeros((1,), dtype=torch.int32)
+
+    def stacks(d_in, d_h, d_out):
+        return [torch.zeros(s) for s in ((1, d_in, d_h), (1, 1, d_h),
+                                         (1, d_h, d_out), (1, 1, d_out))]
+    for dims, block, match in (((128, 64, 128), 64, "multiples of 128"),
+                               ((128, 640, 128), 64, "shared memory"),
+                               ((128, 128, 128), 24, "block_t")):
+        with pytest.raises(ValueError, match=match):
+            tsm.check_cuda_args(x, (tile_cls,), stacks(*dims), block_t=block,
+                                name="switched_mlp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain_at_decode_width(dtype):
+    """Both kernels at internlm2-1.8b's full-width decode dispatch (8 rows,
+    n 3 + the zero pseudo-class, d 2048, d_h 256, block_t 128, t_pad 640)
+    within tolerance of their plain versions, fused bitwise equal to
+    switched on every real row."""
+    _cuda()
+    t, n, d_in, d_h, d_out, block = _config_case("internlm2-1.8b")
+    rng = np.random.default_rng(7)
+    x = _torch(rng.normal(size=(t, d_in)).astype(np.float32), dtype, "cuda")
+    w = [_torch((rng.normal(size=s) * sc).astype(np.float32), dtype, "cuda")
+         for s, sc in (((n, d_in, d_h), d_in ** -0.5), ((n, d_h), 0.1),
+                       ((n, d_h, d_out), d_h ** -0.5), ((n, d_out), 0.1))]
+    for a in w:
+        a[-1] = 0
+    cls = _torch(rng.integers(0, n, t).astype(np.int32), device="cuda")
+    xp, rows, tile_cls, weights, order, pos = tops.kernel_operands(
+        x, cls, *w, block_t=block)
+    assert xp.shape[0] == 640
+    y = tsm.switched_mlp(xp, tile_cls, *weights, block_t=block)
+    yf = tfd.switched_mlp_fused(x, rows, tile_cls, *weights, block_t=block)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        y.float(), tsm.switched_mlp_plain(xp, tile_cls, *weights,
+                                          block_t=block).float(),
+        **_tol(dtype))
+    torch.testing.assert_close(
+        yf[:t].float(), tfd.switched_mlp_fused_plain(
+            x, rows, tile_cls, *weights, block_t=block)[:t].float(),
+        **_tol(dtype))
+    assert torch.equal(yf[:t], y[pos.long()][torch.argsort(order.long())])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_operands_reproduce_switched_apply(case):
     """The operands chip_smoke.py and the CUDA test hand the kernels are
