@@ -7,7 +7,10 @@ Phases (any failure raises and the script exits non-zero):
   2. build every CUDA kernel from the sources in this checkout (one nvcc
      per source, in parallel), and print what cudaFuncGetAttributes says of
      each launcher of the weight-switch tile routine at the decode shape
-     (registers, static and dynamic shared memory, local bytes, cluster);
+     (registers, static and dynamic shared memory, local bytes, cluster)
+     and of the sLSTM kernel at xlstm-1.3b width in both weight dtypes
+     (the same, with the CTAs of its cooperative grid, CTAs per head and
+     units per CTA, and the dynamic shared memory held to the planner's);
   3. each kernel against its PyTorch version on the card, with CUDA-event
      timings (plain, kernel, kernel, plain; L2 flushed before each call):
      the weight-switch kernels over the sweeps of tests/test_kernels.py
@@ -16,9 +19,9 @@ Phases (any failure raises and the script exits non-zero):
      bitwise equal to the switched one; the one-approximator MLP over the
      reference's four shapes and the full-width ApproxFFN shape (same
      tolerances), with ``ops.mlp_apply`` held to ``ref.mlp_forward_ref``;
-     the sLSTM recurrence over the reference's three shapes (1e-5) and
-     xlstm-1.3b's prefill and decode shapes (1e-4 with float32 weights,
-     2e-2 with bfloat16);
+     the sLSTM recurrence over the reference's three shapes and three
+     that meet the edges of its split (1e-5), and xlstm-1.3b's prefill
+     and decode shapes (1e-4 with float32 weights, 2e-2 with bfloat16);
   4. full-width internlm2-1.8b (24 layers, bf16, random weights from a
      seed, MCMA dispatch) served through DecodeServer with backends
      "pallas" then "pallas_fused": equal greedy tokens, and each kernel
@@ -60,6 +63,8 @@ MLP_BLOCK = 256
 # the sLSTM at xlstm-1.3b width: prefill (S = prompt) and decode (S = 1)
 SLSTM_FULL = {"prefill": (256, 8, 4, 512), "decode": (1, 8, 4, 512)}
 SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
+# and at batches a larger slot table gives it (checked, not timed)
+SLSTM_WIDE_BATCH = [(16, 64, 4, 512), (4, 256, 4, 512)]
 XLSTM_PROMPT = (8, 256)              # prefill batch, prompt length
 WITNESS = dict(batch=2, seq=256, at=128)
 
@@ -68,26 +73,43 @@ def log(msg):
     print(msg, flush=True)
 
 
-def kernel_resources():
+def kernel_resources(torch):
     """Registers, shared memory, local bytes and cluster width of the three
     launchers of csrc/switch_tile.cuh, in both dtypes, at the decode
-    path's shape (d_h_p 256, d_out_p 2048, block_t 128)."""
+    path's shape (d_h_p 256, d_out_p 2048, block_t 128); then the sLSTM
+    kernel's at xlstm-1.3b width (batch 8) with its cooperative grid."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.models.xlstm import slstm_dims
     cfg = get_config("internlm2-1.8b")
     for name, src in (("switched_mlp", "switched_mlp"),
                       ("switched_mlp_fused", "fused_dispatch"),
                       ("mlp_forward", "mcma_mlp")):
         for dtype in ("float32", "bfloat16"):
-            r = build.resources(src, f"{name}_resources",
-                                bf16=dtype == "bfloat16",
-                                d_h_p=cfg.approx.d_hidden,
-                                d_out_p=cfg.d_model,
-                                block_t=cfg.approx.block_t)
+            r = build.resources(src, f"{name}_resources", (
+                int(dtype == "bfloat16"), cfg.approx.d_hidden, cfg.d_model,
+                cfg.approx.block_t))
             log(f"  {name} {dtype}: {r['registers']} registers/thread, "
                 f"{r['static_smem']} B static + {r['dynamic_smem']} B "
                 f"dynamic shared memory, {r['local_bytes']} B local, "
                 f"cluster of {r['cluster']}")
+    _, h, hd = slstm_dims(get_config("xlstm-1.3b"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in ("float32", "bfloat16"):
+        r = K.resources(SLSTM_FULL["prefill"][1], h, hd,
+                        getattr(torch, dtype))
+        log(f"  slstm_scan wh {dtype}: {r['registers']} registers/thread, "
+            f"{r['static_smem']} B static + {r['dynamic_smem']} B dynamic "
+            f"shared memory, {r['local_bytes']} B local; cooperative grid "
+            f"of {r['grid']} CTAs ({r['ctas_per_head']} per head, "
+            f"{r['units']} units each, {r['chunks']} chunk(s) of batch rows "
+            f"a step), {r['ctas_per_sm']} CTA/SM x {n_sm} SMs")
+        if r["dynamic_smem"] != r["plan_smem"] or \
+                r["ctas_per_sm"] * n_sm < r["grid"]:
+            raise AssertionError(f"slstm_scan {dtype}: the planner's "
+                                 f"layout or grid disagrees with the kernel "
+                                 f"({r})")
 
 
 def check_kernels(torch, x, cls, w, block, dtype, name):
@@ -306,15 +328,17 @@ def mlp_kernel_phase(np, torch, flush):
 
 
 def slstm_kernel_phase(np, torch, flush):
-    """slstm_scan against its PyTorch version over the reference's shapes
-    (1e-5) and xlstm-1.3b's prefill and decode shapes (timed), with float32
-    and bfloat16 recurrent weights."""
+    """slstm_scan against its PyTorch version over the sweeps (1e-5),
+    xlstm-1.3b's prefill and decode shapes (timed) and its width at larger
+    batches, with float32 and bfloat16 recurrent weights."""
     from repro_torch.kernels import slstm_scan as K
     from repro_torch.kernels.sweeps import SLSTM_SHAPES, slstm_inputs
     out = {}
     cases = [(s, slstm_inputs(*s), None) for s in SLSTM_SHAPES]
     cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), name)
               for name, s in SLSTM_FULL.items()]
+    cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), "wide")
+              for s in SLSTM_WIDE_BATCH]
     for wdtype in ("float32", "bfloat16"):
         for shape, arrays, name in cases:
             xg, wh, *st = [torch.from_numpy(v).cuda() for v in arrays]
@@ -333,7 +357,7 @@ def slstm_kernel_phase(np, torch, flush):
                     g, w, rtol=tol, atol=tol,
                     msg=f"slstm_scan {shape} {wdtype} {what}")
             err = max_err(torch, (ys, *fin), (pys, *pfin))
-            if name is None:
+            if name in (None, "wide"):
                 log(f"  slstm_scan {shape} wh {wdtype}: max |kernel-plain| "
                     f"{err:.3g}")
                 continue
@@ -741,7 +765,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("[kernel resources]")
-    kernel_resources()
+    kernel_resources(torch)
 
     log("[kernels vs plain]")
     for case in sorted(CASES):

@@ -99,18 +99,21 @@ RESOURCE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                  "cluster")
 
 
-def resources(name: str, fn: str, *, bf16: bool, d_h_p: int, d_out_p: int,
-              block_t: int) -> dict[str, int]:
+def resources(name: str, fn: str, args: tuple[int, ...],
+              keys: tuple[str, ...] = RESOURCE_KEYS) -> dict[str, int]:
     """What ``cudaFuncGetAttributes`` says of one kernel of
-    ``csrc/<name>.cu`` through its C query ``fn``: registers per thread,
-    static shared bytes, the dynamic shared bytes of a launch at (d_h_p,
-    d_out_p, block_t), local (spill) bytes per thread, cluster width."""
+    ``csrc/<name>.cu`` through its C query ``fn(*args, out)``, which takes
+    ints and fills ``out`` with one int per key.  The tile routine's
+    launchers take (bf16, d_h_p, d_out_p, block_t) and report ``keys``:
+    registers per thread, static shared bytes, the dynamic shared bytes of
+    a launch at those widths, local (spill) bytes per thread, cluster
+    width."""
     f = getattr(load(name, {}), fn)
-    f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     f.restype = ctypes.c_int
-    out = (ctypes.c_int * len(RESOURCE_KEYS))()
-    err = f(int(bf16), d_h_p, d_out_p, block_t, out)
+    out = (ctypes.c_int * len(keys))()
+    err = f(*args, out)
     if err:
         raise RuntimeError(f"{fn}: cudaFuncGetAttributes failed with CUDA "
                            f"error {err}")
-    return dict(zip(RESOURCE_KEYS, out))
+    return dict(zip(keys, out))

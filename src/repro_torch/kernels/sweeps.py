@@ -7,7 +7,11 @@ approximator, and every row on a zero-weight class; plus ``block16``, the
 16-row tiles of tests/test_torch_dispatch.py, which take the CUDA tile
 routine's 16-row blocks.  One-approximator MLP:
 the four shapes of its lines 29-34.  sLSTM recurrence: the three shapes of
-its lines 198-202.
+its lines 198-202, then four that the cooperative kernel's split meets at
+its edges: more than 8 batch rows (two chunks of 8 rows a step; at 45,
+six with a ragged last one), and head dims that are not multiples of 16
+(a ragged mma K; at 44 also a ragged split of units, and bf16 weights
+copied element by element since rows are not 16-B multiples).
 """
 from __future__ import annotations
 
@@ -65,7 +69,9 @@ def mlp_inputs(t, d_in, d_h, d_out):
 
 
 # (S, B, H, hd)
-SLSTM_SHAPES = [(8, 2, 2, 8), (32, 4, 4, 16), (16, 1, 4, 128)]
+SLSTM_SHAPES = [(8, 2, 2, 8), (32, 4, 4, 16), (16, 1, 4, 128),
+                (4, 16, 2, 64), (5, 3, 4, 40), (5, 3, 4, 44),
+                (3, 45, 2, 40)]
 
 
 def slstm_inputs(s, b, h, hd, wh_scale=0.2):

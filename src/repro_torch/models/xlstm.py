@@ -208,7 +208,9 @@ class SLSTM(nn.Module):
 def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
               state: dict | None = None):
     """x: (B, S, d) -> (y, new_state); the S-step recurrence is one
-    ``slstm_scan`` call (one kernel launch on the GPU)."""
+    ``slstm_scan`` call: on the GPU one cooperative launch that holds
+    ``w_h`` in shared memory across its CTAs for all S steps, with one
+    barrier per step among the CTAs of a head."""
     b, s, d = x.shape
     _, h, hd = slstm_dims(cfg)
     xg = x @ p.w_x.to(x.dtype) + p.b.to(x.dtype)        # (B, S, 4d)

@@ -366,3 +366,172 @@ def test_kernel_operands_reproduce_switched_apply(case):
     assert torch.equal(yf[:t], unsorted)
     assert torch.equal(unsorted[:, :d_out],
                        tops.switched_apply(*targs, block_t=block))
+
+
+# --- the sLSTM kernel's planner (how one call is split over the card) ---
+
+H100_SMS, H100_SMEM = 132, 232448    # SMs; shared memory a CTA may opt in to
+
+
+def _xlstm_dims(name):
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models.xlstm import slstm_dims
+    cfg = get_config("xlstm-1.3b")
+    if name.endswith("smoke"):
+        cfg = smoke_config(cfg)
+    return slstm_dims(cfg)[1:]
+
+
+SLSTM_SERVED = [(b, *_xlstm_dims(name)) for name in ("xlstm-1.3b",
+                                                     "xlstm-1.3b-smoke")
+                for b in (1, 2, 8, 64, 256)] + [(b, h, hd)
+                                       for _, b, h, hd in SLSTM_SHAPES]
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hd", SLSTM_SERVED)
+def test_slstm_plan_admits_every_served_shape(b, h, hd, wdtype):
+    """The planner places xlstm-1.3b at full width (prefill and decode
+    share (B, H, hd)) and in its smoke config, at any served batch (up
+    to 256), and every sweep, on an H100: one CTA per SM at most, within
+    the shared-memory limit, every unit of every head owned by one CTA,
+    every batch row in one of the chunks of a step."""
+    p = tss.plan(b, h, hd, getattr(torch, wdtype), n_sm=H100_SMS,
+                 smem_limit=H100_SMEM)
+    assert p.grid == h * p.ctas_per_head <= H100_SMS
+    assert p.units % 8 == 0 and p.units * p.ctas_per_head >= hd
+    assert p.units * (p.ctas_per_head - 1) < hd
+    assert p.chunks * tss.ROWS >= b > (p.chunks - 1) * tss.ROWS
+    assert p.smem_bytes == tss.smem_bytes(getattr(torch, wdtype), hd,
+                                          p.units) <= H100_SMEM
+    if (h, hd) == (4, 512):
+        # the design: 32 CTAs of 16 units per head, one per SM, 128 in all
+        assert (p.units, p.ctas_per_head, p.grid) == (16, 32, 128)
+
+
+def test_slstm_plan_splits_the_ragged_sweep_raggedly():
+    """(5, 3, 4, 44): the last CTA of each head owns fewer units than the
+    others, and the mma's K (hd rounded up to 16) is ragged."""
+    p = tss.plan(3, 4, 44, torch.bfloat16, n_sm=H100_SMS,
+                 smem_limit=H100_SMEM)
+    assert 44 % p.units != 0 and 44 % 16 != 0
+
+
+@pytest.mark.parametrize("b,h,hd,wdtype,match", [
+    (8, 4, 4096, torch.bfloat16, "SMs"),          # too many CTAs
+    (8, 1, 4096, torch.bfloat16, "shared memory"),  # slice too large
+    (512, 2, 1024, torch.float32, "shared memory"),  # slice too large
+    (8, 8, 4096, torch.float32, "SMs"),
+])
+def test_slstm_plan_refuses_what_cannot_be_placed(b, h, hd, wdtype, match):
+    with pytest.raises(ValueError, match=match):
+        tss.plan(b, h, hd, wdtype, n_sm=H100_SMS, smem_limit=H100_SMEM)
+
+
+def test_slstm_scan_trainable_grads_match_jax(J):
+    """The autograd Function (kernel forward, reference-recompute backward)
+    against the reference's custom_vjp on the same numpy inputs
+    (tests/test_kernels.py:249-270, same tolerance: rtol 1e-4, atol
+    1e-5), and against autograd through the torch reference scan."""
+    import jax
+    xg, wh, z, _, _, m0 = slstm_inputs(12, 2, 2, 8)
+
+    def loss_jax(xg, wh):
+        ys, _ = J.sk.slstm_scan_trainable(xg, wh, z, z, z, m0, True)
+        return J.jnp.sum(ys ** 2)
+
+    want = jax.grad(loss_jax, argnums=(0, 1))(J.jnp.asarray(xg),
+                                              J.jnp.asarray(wh))
+    txg, twh = (torch.from_numpy(a).requires_grad_() for a in (xg, wh))
+    st = [torch.from_numpy(a) for a in (z, z, z, m0)]
+    n0 = tss.slstm_scan.launches
+    ys, fin = tss.slstm_scan_trainable(txg, twh, *st)
+    assert tss.slstm_scan.launches == n0      # CPU tensors: the plain version
+    got = torch.autograd.grad((ys ** 2).sum(), (txg, twh))
+    ref_ys, _ = tref.slstm_scan_ref(txg, twh, *st)
+    ref_g = torch.autograd.grad((ref_ys ** 2).sum(), (txg, twh))
+    plain = tss.slstm_scan_plain(txg.detach(), twh.detach(), *st)
+    for g, w, r in zip(got, want, ref_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    for g, w in zip((ys, *fin), (plain[0], *plain[1])):
+        assert torch.equal(g.detach(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_cuda_slstm_scan_matches_plain_at_full_width(wdtype):
+    """xlstm-1.3b's prefill shape (256, 8, 4, 512) through one cooperative
+    launch, within chip_smoke.py's full-width tolerance of the plain
+    version (1e-4 with f32 weights, 2e-2 with bf16), all finite, and the
+    same bits from run to run (partial sums added in a fixed order)."""
+    _cuda()
+    shape = (256, 8, 4, 512)
+    xg, wh, *st = [torch.from_numpy(v).cuda()
+                   for v in slstm_inputs(*shape, wh_scale=512 ** -0.5)]
+    wh = wh.to(getattr(torch, wdtype))
+    ys, fin = tss.slstm_scan(xg, wh, *st)
+    again, _ = tss.slstm_scan(xg, wh, *st)
+    pys, pfin = tss.slstm_scan_plain(xg, wh, *st)
+    torch.cuda.synchronize()
+    tol = 1e-4 if wdtype == "float32" else 2e-2
+    for g, w in zip((ys, *fin), (pys, *pfin)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    assert torch.equal(ys, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,b", [(16, 64), (4, 256)])
+def test_cuda_slstm_scan_matches_plain_at_large_batch(s, b, wdtype):
+    """xlstm-1.3b's width at batches that DecodeServer's slot table may
+    hold (--batch) beyond the 8 of the smoke run: 8 and 32 chunks of
+    batch rows a step, within the full-width tolerance of the plain
+    version."""
+    _cuda()
+    xg, wh, *st = [torch.from_numpy(v).cuda()
+                   for v in slstm_inputs(s, b, 4, 512, wh_scale=512 ** -0.5)]
+    wh = wh.to(getattr(torch, wdtype))
+    ys, fin = tss.slstm_scan(xg, wh, *st)
+    pys, pfin = tss.slstm_scan_plain(xg, wh, *st)
+    torch.cuda.synchronize()
+    tol = 1e-4 if wdtype == "float32" else 2e-2
+    for g, w in zip((ys, *fin), (pys, *pfin)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hd", SLSTM_SERVED)
+def test_cuda_slstm_plan_matches_the_kernels_layout(b, h, hd, wdtype):
+    """The planner's mirror of the kernel's shared-memory layout
+    (``smem_bytes``) equals the dynamic shared memory the .cu computes,
+    and the planned grid fits the card at the occupancy the driver
+    reports, at every served shape."""
+    _cuda()
+    r = tss.resources(b, h, hd, getattr(torch, wdtype))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert r["dynamic_smem"] == r["plan_smem"]
+    assert r["grid"] <= r["ctas_per_sm"] * n_sm
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_trainable_grad_through_the_kernel():
+    """Gradients of the autograd Function on the card (the forward through
+    the kernel) equal autograd through the reference scan on the card."""
+    _cuda()
+    xg, wh, *st = [torch.from_numpy(v).cuda()
+                   for v in slstm_inputs(12, 2, 2, 8)]
+    leaves = [xg.clone().requires_grad_(), wh.clone().requires_grad_()]
+    n0 = tss.slstm_scan.launches
+    ys, _ = tss.slstm_scan_trainable(*leaves, *st)
+    got = torch.autograd.grad((ys ** 2).sum(), leaves)
+    assert tss.slstm_scan.launches == n0 + 1
+    ref_ys, _ = tref.slstm_scan_ref(*leaves, *st)
+    want = torch.autograd.grad((ref_ys ** 2).sum(), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
