@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      the weight-switch kernels over the sweeps of tests/test_kernels.py
      (and 16-row tiles) and the decode path's full-width shape, in
      float32 (tolerance 3e-5) and bfloat16 (2e-2), the fused kernel
-     bitwise equal to the switched one; the one-approximator MLP over the
+     bitwise equal to the switched one, timed at the decode tick's shape
+     (8 rows) and the prefill chunk's (512 rows); the one-approximator MLP
+     over the
      reference's four shapes and the full-width ApproxFFN shape (same
      tolerances), with ``ops.mlp_apply`` held to ``ref.mlp_forward_ref``;
      the sLSTM recurrence over the reference's three shapes and three
@@ -29,18 +31,30 @@ Phases (any failure raises and the script exits non-zero):
      three backends from one cache, held to the "xla" oracle: in float32
      (the same weights upcast) within 1e-4 with equal greedy tokens, and
      in bf16 through an oracle given the kernels' rounding;
-  5. the internlm2 smoke config in float32 on the card against the same
+  5. the serving configuration of the reference's scheduler at full width
+     (internlm2-1.8b, batch 8, max_len 256, route_scope "tick",
+     prefill_chunk 64, kv_page_size 16, 128 pages; 8 requests of 15 to 200
+     prompt tokens, 16 new tokens), each tick timed by phase: "pallas" and
+     "pallas_fused" give equal tokens, every request done and every page
+     back; each kernel launched 24 times per tick (decode and prefill) on
+     its backend alone and one dispatch plan per tick; a dense cache gives
+     the same tokens and tick log; a 40-page pool defers admission but
+     serves all; at no-clip capacities in float32 chunked and
+     token-by-token prefill give equal tokens (in bf16 the equal share is
+     printed); then the slice-1 configuration (layer scope, token-by-token
+     prefill, dense cache) on the same stream for comparison;
+  6. the internlm2 smoke config in float32 on the card against the same
      parameters served on the CPU by the eager oracle;
-  6. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
+  7. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
      a (8, 256) prefill launching the sLSTM kernel once per group (6) over
      all 256 steps; DecodeServer serving 8 requests, 6 launches per tick;
      then, in float32 (the same weights upcast), forward over 256 tokens
      read at position 128 against prefill(128) + decode(1) within 2e-3 with
      equal greedy tokens;
-  7. the xlstm smoke config in float32 on the card against the same
+  8. the xlstm smoke config in float32 on the card against the same
      parameters on the CPU: prefill 32 tokens, 8 decode ticks, logits
      within 1e-4 and equal greedy tokens;
-  8. a JSON line describing every kernel, then the result line.
+  9. a JSON line describing every kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -58,6 +72,15 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # outside the tensor cores
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 SERVE = dict(batch=8, max_len=256, n_requests=8, prompt_len=16, max_new=16)
+# the serving configuration of the reference's scheduler: tick-scope
+# routing, chunked prefill, a paged KV cache sized for the whole worst case
+SCHED = dict(batch=8, max_len=256, route_scope="tick", prefill_chunk=64,
+             kv_page_size=16, kv_pages=128)
+SCHED_PROMPTS = (15, 16, 17, 33, 64, 100, 130, 200)
+SCHED_MAX_NEW = 16
+SCHED_TIGHT_PAGES = 40      # below the stream's worst-case reservation, 48
+SLICE1 = dict(route_scope="layer", prefill_chunk=0, kv_page_size=0)
+NO_CLIP = dict(exact_frac=1.0, invoke_frac=1.0)
 MLP_FULL = (2048, 2048, 256, 2048)   # ApproxFFN rows, d_in, d_hidden, d_out
 MLP_BLOCK = 256
 # the sLSTM at xlstm-1.3b width: prefill (S = prompt) and decode (S = 1)
@@ -180,65 +203,75 @@ def bound(dtype, n_bytes, flops):
 
 
 def main_path_kernel_phase(np, torch, flush):
-    """Both kernels at the decode path's full-width shape: one layer's
-    dispatch of 8 rows over 3 approximators + the zero pseudo-class,
-    d=2048, d_hidden=256, block_t=128, bf16 and float32."""
+    """Both kernels at the serving path's full-width shapes, d=2048,
+    d_hidden=256, block_t=128, 3 approximators + the zero pseudo-class,
+    bf16 and float32: one layer's dispatch of a decode tick (8 rows,
+    t_pad 640) and of a prefill-chunk tick (8 slots x 64 tokens = 512
+    rows, t_pad 1024).  Returns {(kernel, dtype[, "prefill"]): numbers}."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import fused_dispatch, switched_mlp
     cfg = get_config("internlm2-1.8b")
     a = cfg.approx
-    n, d, dh, t = a.n_approx + 1, cfg.d_model, a.d_hidden, SERVE["batch"]
-    rng = np.random.default_rng(7)
+    n, d, dh = a.n_approx + 1, cfg.d_model, a.d_hidden
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        to = dict(device="cuda", dtype=dt)
-        x = torch.from_numpy(rng.normal(size=(t, d))).to(**to)
-        w = [torch.from_numpy(rng.normal(size=s) * sc).to(**to) for s, sc in (
-            ((n, d, dh), d ** -0.5), ((n, dh), 0.1), ((n, dh, d), dh ** -0.5),
-            ((n, d), 0.1))]
-        for arr in w:
-            arr[-1] = 0                         # the zero pseudo-class
-        cls = torch.from_numpy(rng.integers(0, n, t).astype(np.int32)).cuda()
-        err, (xp, rows, tile_cls, weights) = check_kernels(
-            torch, x, cls, w, a.block_t, dtype, "main_path")
-        blk = a.block_t
-        classes = torch.unique(tile_cls).tolist()
-        w_bytes = sum(wt[c].numel() * wt.element_size()
-                      for c in classes for wt in weights)
-        flops = tile_cls.numel() * blk * 2 * (
-            weights[0].shape[1] * weights[0].shape[2]
-            + weights[2].shape[1] * weights[2].shape[2])
-        d_out_p = weights[2].shape[2]
-        esz = xp.element_size()
-        sw_bytes = xp.numel() * esz + 4 * tile_cls.numel() + w_bytes \
-            + xp.shape[0] * d_out_p * esz
-        fu_bytes = x.numel() * esz + 4 * (rows.numel() + tile_cls.numel()) \
-            + w_bytes + (t + 1) * d_out_p * esz
-        run = {
-            "switched_mlp": (
-                lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,
-                                                  block_t=blk),
-                lambda: switched_mlp.switched_mlp_plain(
-                    xp, tile_cls, *weights, block_t=blk), sw_bytes),
-            "switched_mlp_fused": (
-                lambda: fused_dispatch.switched_mlp_fused(
-                    x, rows, tile_cls, *weights, block_t=blk),
-                lambda: fused_dispatch.switched_mlp_fused_plain(
-                    x, rows, tile_cls, *weights, block_t=blk), fu_bytes),
-        }
-        for name, (kern, plain, n_bytes) in run.items():
-            ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern, plain,
-                                                        flush)
-            b_ms, b_by = bound(dtype, n_bytes, flops)
-            out[name, dtype] = dict(
-                max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
-            log(f"  {name} {dtype} main path (t_pad={xp.shape[0]}, "
-                f"{len(classes)} classes): kernel {k1:.4f}/{k2:.4f} ms, "
-                f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-                f"{n_bytes} B, {flops} FLOP), max |kernel-plain| "
-                f"{err[name]:.3g}")
+    for shape, t, seed in (("decode", SERVE["batch"], 7),
+                           ("prefill", SCHED["batch"] * SCHED["prefill_chunk"],
+                            8)):
+        rng = np.random.default_rng(seed)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            to = dict(device="cuda", dtype=dt)
+            x = torch.from_numpy(rng.normal(size=(t, d))).to(**to)
+            w = [torch.from_numpy(rng.normal(size=s) * sc).to(**to)
+                 for s, sc in (((n, d, dh), d ** -0.5), ((n, dh), 0.1),
+                               ((n, dh, d), dh ** -0.5), ((n, d), 0.1))]
+            for arr in w:
+                arr[-1] = 0                     # the zero pseudo-class
+            cls = torch.from_numpy(rng.integers(0, n, t).astype(np.int32)
+                                   ).cuda()
+            err, (xp, rows, tile_cls, weights) = check_kernels(
+                torch, x, cls, w, a.block_t, dtype, f"main_path {shape}")
+            blk = a.block_t
+            classes = torch.unique(tile_cls).tolist()
+            w_bytes = sum(wt[c].numel() * wt.element_size()
+                          for c in classes for wt in weights)
+            flops = tile_cls.numel() * blk * 2 * (
+                weights[0].shape[1] * weights[0].shape[2]
+                + weights[2].shape[1] * weights[2].shape[2])
+            d_out_p = weights[2].shape[2]
+            esz = xp.element_size()
+            sw_bytes = xp.numel() * esz + 4 * tile_cls.numel() + w_bytes \
+                + xp.shape[0] * d_out_p * esz
+            fu_bytes = x.numel() * esz + 4 * (rows.numel()
+                                              + tile_cls.numel()) \
+                + w_bytes + (t + 1) * d_out_p * esz
+            run = {
+                "switched_mlp": (
+                    lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,
+                                                      block_t=blk),
+                    lambda: switched_mlp.switched_mlp_plain(
+                        xp, tile_cls, *weights, block_t=blk), sw_bytes),
+                "switched_mlp_fused": (
+                    lambda: fused_dispatch.switched_mlp_fused(
+                        x, rows, tile_cls, *weights, block_t=blk),
+                    lambda: fused_dispatch.switched_mlp_fused_plain(
+                        x, rows, tile_cls, *weights, block_t=blk),
+                    fu_bytes),
+            }
+            for name, (kern, plain, n_bytes) in run.items():
+                ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern,
+                                                            plain, flush)
+                b_ms, b_by = bound(dtype, n_bytes, flops)
+                key = (name, dtype) if shape == "decode" \
+                    else (name, dtype, shape)
+                out[key] = dict(max_abs_err=err[name], ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by)
+                log(f"  {name} {dtype} main path {shape} ({t} rows, "
+                    f"t_pad={xp.shape[0]}, {len(classes)} classes): kernel "
+                    f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                    f"bound {b_ms:.5f} ms ({b_by}: {n_bytes} B, {flops} "
+                    f"FLOP), max |kernel-plain| {err[name]:.3g}")
     return out
 
 
@@ -690,6 +723,172 @@ def oracle_witness(torch, cfg, params, srv, reqs):
                              f"{gap}")
 
 
+class PlanCounter:
+    """Counts ``make_dispatch_plan`` calls, through every module binding
+    of it the serving path calls."""
+
+    def __enter__(self):
+        from repro_torch.models import approx_ffn
+        from repro_torch.runtime import dispatch
+        self.mods, self.real, self.calls = (approx_ffn, dispatch), \
+            dispatch.make_dispatch_plan, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        for m in self.mods:
+            m.make_dispatch_plan = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.make_dispatch_plan = self.real
+
+
+def drive(torch, srv, prompts, max_new):
+    """Submit the stream and tick the server dry, each tick timed on the
+    host clock (a tick ends by reading the device) and filed by phase.
+    Returns (requests, DrainStats, {phase: [ms]}, wall s)."""
+    from repro_torch.runtime.server import Request
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    times = {"prefill": [], "decode": []}
+    t0 = time.perf_counter()
+    while (srv.queue or any(x is not None for x in srv.slots)) \
+            and srv.ticks < 10_000:
+        before, a = srv.prefill_ticks, time.perf_counter()
+        if srv.tick():
+            torch.cuda.synchronize()
+            phase = "prefill" if srv.prefill_ticks > before else "decode"
+            times[phase].append((time.perf_counter() - a) * 1e3)
+    wall = time.perf_counter() - t0
+    return reqs, srv.run_until_drained(), times, wall
+
+
+def serve_scheduler(np, torch):
+    """Full-width internlm2-1.8b through the reference's serving
+    configuration (tick scope, chunked prefill, paged KV), gates 1 to 5 of
+    the phase, and the slice-1 configuration on the same stream."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    from repro_torch.models import model as M
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True))
+    params = M.init_model(0, cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in SCHED_PROMPTS]
+    kernels = {"pallas": switched_mlp.switched_mlp,
+               "pallas_fused": fused_dispatch.switched_mlp_fused}
+
+    def run(label, cfg_=cfg, **over):
+        opts = {**SCHED, "use_mcma_dispatch": True, "backend": "pallas",
+                **over}
+        srv = DecodeServer(cfg_, params, options=ServeOptions(**opts))
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        with PlanCounter() as plans:
+            reqs, st, times, wall = drive(torch, srv, prompts, SCHED_MAX_NEW)
+        launches = {b: k.launches for b, k in kernels.items()}
+        if not all(r.done and not r.aborted for r in reqs) or \
+                st["undrained_queued"] or st["undrained_inflight"]:
+            raise AssertionError(f"{label}: the stream did not drain")
+        if opts["kv_page_size"] and st["pages_in_use"] != 0:
+            raise AssertionError(f"{label}: {st['pages_in_use']} pages held "
+                                 "at drain")
+        n_tok = sum(len(r.out) for r in reqs)
+        ttft = statistics.mean(r.first_token_tick - r.arrival_tick
+                               for r in reqs)
+        med = {ph: statistics.median(v) if v else 0.0
+               for ph, v in times.items()}
+        mean = {ph: statistics.mean(v) if v else 0.0
+                for ph, v in times.items()}
+        pages = (f", pages hwm {st['page_hwm']}/{opts['kv_pages']}, "
+                 f"alloc_failures {st['alloc_failures']}, page_util "
+                 f"{st['page_util']:.3f}") if opts["kv_page_size"] else ""
+        log(f"  {label}: {st['ticks']} ticks ({len(times['decode'])} decode, "
+            f"{st['prefill_ticks']} prefill); ms per decode tick median "
+            f"{med['decode']:.2f} mean {mean['decode']:.2f}, per prefill "
+            f"tick median {med['prefill']:.2f} mean {mean['prefill']:.2f}; "
+            f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+            f"mean TTFT {ttft:.2f} ticks; invocation rate "
+            f"{st['invocation_rate']:.4f}; launches {launches}, "
+            f"dispatch plans {plans.calls}; kv_bytes_resident "
+            f"{st['kv_bytes_resident']}{pages}")
+        return dict(tokens=[r.out for r in reqs], stats=st, launches=launches,
+                    plans=plans.calls, tick_log=list(srv.tick_log),
+                    backend=opts["backend"])
+
+    runs = {b: run(f"{b} tick/chunk 64/paged 16", backend=b)
+            for b in ("pallas", "pallas_fused")}
+    # gate 1: both kernel backends, equal tokens
+    if runs["pallas"]["tokens"] != runs["pallas_fused"]["tokens"]:
+        raise AssertionError("scheduler: greedy tokens differ between "
+                             "pallas and pallas_fused")
+    # gate 2: one launch per layer per tick on the run's own backend, none
+    # of the other kernel, one dispatch plan per tick
+    for r in runs.values():
+        ticks = r["stats"]["ticks"]
+        want = cfg.n_layers * ticks
+        if r["launches"][r["backend"]] != want or \
+                sum(r["launches"].values()) != want:
+            raise AssertionError(f"scheduler {r['backend']}: launches "
+                                 f"{r['launches']}, want {want} of "
+                                 f"{r['backend']} alone")
+        if r["plans"] != ticks:
+            raise AssertionError(f"scheduler {r['backend']}: "
+                                 f"{r['plans']} dispatch plans in {ticks} "
+                                 "ticks")
+    log(f"  gates 1-2: tokens equal across backends; {cfg.n_layers} launches "
+        f"and 1 dispatch plan per tick on each")
+    # gate 3: the dense cache, same schedule, same tokens and tick log
+    dense = run("pallas dense cache", kv_page_size=0)
+    if dense["tokens"] != runs["pallas"]["tokens"] or \
+            dense["tick_log"] != runs["pallas"]["tick_log"]:
+        raise AssertionError("scheduler: the dense cache's tokens or tick "
+                             "log differ from the paged cache's")
+    log("  gate 3: dense cache == paged cache (tokens and tick log)")
+    # gate 4: a pool below the worst-case reservation defers admission
+    tight = run(f"pallas {SCHED_TIGHT_PAGES}-page pool",
+                kv_pages=SCHED_TIGHT_PAGES)
+    st = tight["stats"]
+    if not st["alloc_failures"] > 0 or st["page_hwm"] > SCHED_TIGHT_PAGES:
+        raise AssertionError(f"scheduler tight pool: alloc_failures "
+                             f"{st['alloc_failures']}, page_hwm "
+                             f"{st['page_hwm']}")
+    log(f"  gate 4: {SCHED_TIGHT_PAGES}-page pool deferred admission "
+        f"{st['alloc_failures']} times and served every request")
+    # the slice-1 configuration for comparison
+    run("pallas slice-1 configuration (layer scope, token by token, dense)",
+        **SLICE1)
+    # gate 5: chunked == token by token at no-clip capacities; bf16 shown
+    no_clip = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, **NO_CLIP))
+    bf = [run(f"bf16 no-clip prefill_chunk {c}", no_clip, prefill_chunk=c)
+          for c in (64, 0)]
+    pairs = [(x, y) for a, b in zip(bf[0]["tokens"], bf[1]["tokens"])
+             for x, y in zip(a, b)]
+    log(f"  bf16 no-clip: chunked == token by token on "
+        f"{sum(x == y for x, y in pairs)} of {len(pairs)} tokens (not gated)")
+    params.float()
+    f32 = dataclasses.replace(no_clip, param_dtype="float32",
+                              act_dtype="float32")
+    fl = [run(f"float32 no-clip prefill_chunk {c}", f32, prefill_chunk=c)
+          for c in (64, 0)]
+    if fl[0]["tokens"] != fl[1]["tokens"]:
+        raise AssertionError("float32 no-clip: chunked and token-by-token "
+                             "prefill sample different tokens")
+    log("  gate 5: float32 no-clip, chunked == token by token (tokens)")
+    return runs
+
+
 def smoke_reference_check(np, torch):
     """The float32 smoke config on the card, each backend, against the
     same parameters served on the CPU by the eager oracle: logits within
@@ -785,6 +984,10 @@ def main() -> int:
     cfg, params, results, (srv, reqs) = serve_full_width(np, torch)
     oracle_witness(torch, cfg, params, srv, reqs)
     del srv, params
+    torch.cuda.empty_cache()
+
+    log("[serve scheduler full width]")
+    serve_scheduler(np, torch)
     torch.cuda.empty_cache()
 
     log("[smoke reference]")

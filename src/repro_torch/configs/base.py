@@ -49,7 +49,7 @@ class ApproxConfig:
     # per-class oracle loop; "pallas" = the switched CUDA kernel;
     # "pallas_fused" = the fused CUDA kernel
     backend: str = "xla"
-    # routing granularity at decode: "layer" (ported) or "tick"
+    # routing granularity: "layer" (per layer) or "tick" (one plan a tick)
     route_scope: str = "layer"
     block_t: int = 128           # dispatch row-tile size
 

@@ -2,11 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         [--arch internlm2-1.8b | xlstm-1.3b] [--backend pallas] \\
+        [--route-scope layer | tick] [--prefill-chunk 64] \\
         [--ticks 6] [--seed 0]
 
 Serves the full-width model (all layers, random weights from ``--seed``,
-batch 8; internlm2-1.8b with MCMA dispatch on ``--backend``) until every
-slot is decoding, then:
+batch 8, max_len 256; internlm2-1.8b with MCMA dispatch on ``--backend``
+at ``--route-scope``) until every slot is decoding, then:
   * times ``--ticks`` decode steps with the host clock (each ended by a
     synchronize), and counts the host-device synchronizations one step
     makes (``torch.cuda.set_sync_debug_mode``);
@@ -15,8 +16,11 @@ slot is decoding, then:
     device time is its kernels' time, so adding both would count it
     twice), the kernel launches per tick, the idle share, the top kernels
     by device time and the top operators by calls.
-For xlstm-1.3b it then does the same for ``--ticks`` prefills of an
-(8, 256) prompt batch.  Needs a CUDA device.
+With ``--prefill-chunk`` S > 0 (internlm2-1.8b) it then does the same for
+``--ticks`` prefill-chunk ticks of S tokens in each of the 8 slots
+(``steps.make_prefill_chunk_step`` from position 0, the invocation rate
+read as the server reads it).  For xlstm-1.3b it does the same for
+``--ticks`` prefills of an (8, 256) prompt batch.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -78,6 +82,11 @@ def main(argv=None):
                     choices=("internlm2-1.8b", "xlstm-1.3b"))
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "pallas_fused", "xla"))
+    ap.add_argument("--route-scope", default="layer",
+                    choices=("layer", "tick"))
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="also profile prefill-chunk ticks of this many "
+                         "tokens per slot (internlm2-1.8b)")
     ap.add_argument("--ticks", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -98,8 +107,10 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
             cfg.approx, enable=True))
     params = M.init_model(args.seed, cfg, device=dev)
-    step = steps.make_decode_step(cfg, use_mcma_dispatch=dense,
-                                  with_stats=dense, backend=args.backend)
+    kw = dict(use_mcma_dispatch=dense, with_stats=dense,
+              backend=args.backend,
+              route_scope=args.route_scope if dense else None)
+    step = steps.make_decode_step(cfg, **kw)
     b = 8
     cache = M.init_cache(cfg, b, 256, device=dev)
     rng = np.random.default_rng(args.seed)
@@ -116,19 +127,28 @@ def main(argv=None):
 
     for _ in range(3):
         tick()
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        tick()
-    torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{w.filename}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
-    what = f"{cfg.name} {cfg.n_layers} layers, decode tick, batch {b}" + (
-        f", backend {args.backend}" if dense else "")
-    report(what, *profiled(torch, tick, args.ticks), args.ticks)
-    print(f"host-device synchronizations in one tick: {len(syncs)}")
-    for s in sorted(set(syncs)):
-        print(f"  {syncs.count(s)} x {s}")
+    scope = f", backend {args.backend}, route_scope {args.route_scope}" \
+        if dense else ""
+    measure(torch, f"{cfg.name} {cfg.n_layers} layers, decode tick, batch "
+            f"{b}{scope}", tick, args.ticks)
+    if dense and args.prefill_chunk:
+        del cache
+        s = args.prefill_chunk
+        chunk = steps.make_prefill_chunk_step(cfg, **kw)
+        ccache = M.init_cache(cfg, b, 256, device=dev)
+        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32)).to(dev)
+        nv = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+        def chunk_tick():
+            ccache["pos"].zero_()
+            _, m = chunk(params, ccache, ctoks, nv)
+            float(m["invocation"])           # the server reads it per tick
+
+        for _ in range(3):
+            chunk_tick()
+        measure(torch, f"{cfg.name} {cfg.n_layers} layers, prefill-chunk "
+                f"tick of {b} x {s} tokens{scope}", chunk_tick, args.ticks)
     if dense:
         return
     del cache
@@ -139,6 +159,21 @@ def main(argv=None):
     report(f"{cfg.name} prefill of {b} x 256 tokens",
            *profiled(torch, lambda: prefill(params, {"inputs": prompt}),
                      args.ticks), args.ticks)
+
+
+def measure(torch, what, fn, n):
+    """Host syncs of one call of ``fn``, then its profile over ``n``."""
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn()
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    report(what, *profiled(torch, fn, n), n)
+    print(f"host-device synchronizations in one call: {len(syncs)}")
+    for s in sorted(set(syncs)):
+        print(f"  {syncs.count(s)} x {s}")
 
 
 if __name__ == "__main__":

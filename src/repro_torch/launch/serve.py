@@ -1,13 +1,16 @@
 """Serving launcher: batched decode with the continuous-batching server.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
-        --approx --mcma-dispatch [--backend pallas_fused] [--smoke] \\
-        [--device cpu]
+        --approx --mcma-dispatch [--backend pallas_fused] \\
+        [--route-scope tick] [--prefill-chunk 64] \\
+        [--kv-page-size 16 [--kv-pages 128]] [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         [--smoke] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; the weights are random,
-from ``--seed``.
+from ``--seed``.  Prompts load ``--prefill-chunk`` tokens per prefill
+tick (default 16, as the reference's CLI; 0 = token by token; the xLSTM
+family always feeds token by token).
 """
 from __future__ import annotations
 
@@ -62,8 +65,15 @@ def main(argv=None):
     done = sum(r.done for r in reqs)
     toks = sum(len(r.out) for r in reqs)
     print(f"served {done}/{len(reqs)} requests, {toks} tokens, "
-          f"{stats['ticks']} ticks on {device}, {stats['wall_s']:.1f}s "
+          f"{stats['ticks']} ticks ({stats['prefill_ticks']} prefill, "
+          f"chunk={server.prefill_chunk}) on {device}, "
+          f"{stats['wall_s']:.1f}s "
           f"({toks / max(stats['wall_s'], 1e-9):.1f} tok/s aggregate)")
+    if "page_hwm" in stats:
+        print(f"KV pages: high-water {stats['page_hwm']} of "
+              f"{server.n_pages}, {stats['alloc_failures']} admission "
+              f"deferrals, page_util {stats['page_util']:.3f}, "
+              f"{stats['kv_bytes_resident']} B resident at peak")
     if "invocation_rate" in stats:
         print(f"mean invocation rate: {stats['invocation_rate']:.3f}")
     if "served_invocation_rate" in stats:

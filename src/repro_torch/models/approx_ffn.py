@@ -9,8 +9,11 @@ class-0 tokens through the exact FFN (``exact_frac``·T of them), classes
 1..n through their approximator (``invoke_frac``·T each), over-capacity
 tokens contribute zero.
 
-The co-training path, tick-scope plans and the sharded serve path are
-not ported yet (ROADMAP queue 1, items 5 and 10).
+Routing is per layer (``route_scope="layer"``) or once per tick
+(``"tick"``: ``make_tick_plan`` builds one plan from the model's
+tick-router head, and every layer executes against it).  The co-training
+path and the sharded serve path are not ported yet (ROADMAP queue 1,
+items 9 and 10).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch.nn as nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import LANE, _pad_to
 from repro_torch.models.layers import FFN, ffn_fwd, param
-from repro_torch.runtime.dispatch import mcma_dispatch
+from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
+                                          mcma_dispatch, plan_invoke_stats)
 from repro_torch.sharding.rules import shard_capacity
 
 
@@ -85,18 +89,62 @@ def _row_mask_tokens(row_mask, s: int):
     return rm.reshape(-1) if rm.ndim == 2 else rm.repeat_interleave(s)
 
 
+def make_tick_plan(cfg: ModelConfig, params, x: torch.Tensor,
+                   row_mask: torch.Tensor | None = None):
+    """One DispatchPlan per tick (``route_scope="tick"``), single device.
+
+    Classifies with the model's tick-router head (``params.tick_router``)
+    on the pre-layer hidden state ``x`` (B, S, d), runs capacity and the
+    class sort once, and returns the plan every layer executes against.
+    ``row_mask`` is a per-slot (B,) or per-token (B, S) active mask.  The
+    reference's ``tier``/``tier_margins``/``residency`` arguments come
+    with the QoS and library servers (ROADMAP queue 1, items 6b and 6c),
+    its mesh branch with item 10."""
+    a = cfg.approx
+    b, s, d = x.shape
+    t = b * s
+    router = getattr(params, "tick_router", None)
+    if router is None:
+        raise ValueError("route_scope='tick' needs the tick-router head, "
+                         "but these params have none")
+    xt = x.reshape(t, d)
+    logits = (xt @ router.to(xt.dtype)).float()
+    ec, ic = serve_caps(cfg, t)
+    return make_dispatch_plan(
+        logits, _row_mask_tokens(row_mask, s), exact_cap=ec, invoke_cap=ic,
+        backend=a.backend, block_t=a.block_t)
+
+
+def execute_plan(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor, plan):
+    """This layer's ApproxFFN against a tick plan: the exact FFN on the
+    plan's exact rows and one weight-switch launch over its class-sorted
+    rows; no router, sort or stats here.  x: (B, S, d) -> (B, S, d)."""
+    b, s, d = x.shape
+    out = execute_dispatch(plan, x.reshape(b * s, d),
+                           lambda xb: ffn_fwd(cfg, p.ffn, xb),
+                           p.a_w1, p.a_b1, p.a_w2, p.a_b2,
+                           weights_prepadded=True)
+    return out.reshape(b, s, d)
+
+
 def approx_ffn_serve(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor,
-                     row_mask: torch.Tensor | None = None):
+                     row_mask: torch.Tensor | None = None, plan=None):
     """Serving path with capacity dispatch.  x: (B, S, d) -> (out, aux).
 
-    ``row_mask`` ((B,) bool) marks the ACTIVE batch rows; idle rows are
-    excluded from dispatch and from every invoke stat.  The engine is
+    ``row_mask`` ((B,) or (B, S) bool) marks the ACTIVE rows; idle rows
+    are excluded from dispatch and from every invoke stat.  ``plan`` (a
+    tick plan from ``make_tick_plan``): the routing decision was made
+    once above the layers and this layer only executes against it
+    (``row_mask`` is ignored: the plan embeds it).  The engine is
     ``runtime/dispatch.mcma_dispatch``; ``cfg.approx.backend`` picks the
     executor ("pallas" = switched CUDA kernel, "pallas_fused" = fused CUDA
     kernel, "xla" = eager oracle)."""
     a = cfg.approx
     b, s, d = x.shape
     t = b * s
+    if plan is not None:
+        return execute_plan(cfg, p, x, plan), _aux(plan_invoke_stats(plan),
+                                                   x.device)
     xt = x.reshape(t, d)
     ec, ic = serve_caps(cfg, t)
     logits = (xt @ p.router.to(x.dtype)).float()
@@ -105,9 +153,10 @@ def approx_ffn_serve(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor,
         p.a_w1, p.a_b1, p.a_w2, p.a_b2, exact_cap=ec, invoke_cap=ic,
         backend=a.backend, block_t=a.block_t,
         row_mask=_row_mask_tokens(row_mask, s), weights_prepadded=True)
-    aux = {"loss": torch.zeros((), dtype=torch.float32, device=x.device),
-           "invocation": stats["invocation"],
-           "router_acc": torch.zeros((), dtype=torch.float32,
-                                     device=x.device),
-           "invoke_stats": stats}
-    return out.reshape(b, s, d), aux
+    return out.reshape(b, s, d), _aux(stats, x.device)
+
+
+def _aux(stats, device) -> dict:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss": zero, "invocation": stats["invocation"],
+            "router_acc": zero, "invoke_stats": stats}

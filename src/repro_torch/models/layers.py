@@ -1,6 +1,7 @@
 """Shared LM layers (counterpart of ``repro/models/layers.py``): the norms,
-RoPE, embeddings, the gated FFN and GQA decode attention over a dense KV
-cache.
+RoPE, embeddings, the gated FFN and GQA attention: blockwise flash
+attention over a full sequence, chunked prefill and single-step decode
+over a dense or paged KV cache.
 
 Parameters live in small ``nn.Module`` containers whose attribute names
 are the reference's parameter keys, in the reference's layouts (matrices
@@ -147,7 +148,7 @@ def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# GQA attention (decode over a dense KV cache)
+# GQA attention
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
@@ -175,41 +176,238 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
     return q, k, v
 
 
-def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                  positions: torch.Tensor, cache: dict):
-    """Single-step decode against a dense KV cache.
+def _repeat_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
+    """(B, S, Kh, hd) -> (B, S, H, hd) by repeating each kv head."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
 
-    x: (B, 1, d); cache: {"k", "v": (B, Skv, Kh, hd), "pos": (B,) int32}.
-    Writes this step's K/V at each slot's ``pos`` IN PLACE (the reference
-    returns an updated copy of its donated cache) and attends over
-    positions ``<= pos``.  Returns (out (B, 1, d), cache with ``pos + 1``).
-    The caller guarantees ``pos < Skv`` (model.decode checks it once per
-    step): the reference's dynamic-update-slice would clamp there.
-    """
+
+def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blockwise attention with an online softmax: a loop over KV blocks
+    inside a loop over Q blocks.  q: (B, Sq, H, hd); k, v: (B, Skv, H, hd).
+    ``q_offset``: absolute position of q[0].  The reference's plain-JAX
+    version step for step (f32 scores, the ``-1e30`` mask, probabilities
+    cast to the value dtype, f32 accumulators); there is no backward to
+    checkpoint here, the port's forward serves only."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    qb, kb = min(cfg.q_block, sq), min(cfg.kv_block, skv)
+    assert sq % qb == 0 and skv % kb == 0, (sq, qb, skv, kb)
+    scale = hd ** -0.5
+    outs = []
+    for iq in range(sq // qb):
+        qblk = q[:, iq * qb:(iq + 1) * qb]
+        q_pos = q_offset + iq * qb + torch.arange(qb, device=q.device)
+        acc = torch.zeros((b, h, qb, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, qb), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l_ = torch.zeros((b, h, qb), dtype=torch.float32, device=q.device)
+        for ik in range(skv // kb):
+            kblk, vblk = k[:, ik * kb:(ik + 1) * kb], v[:, ik * kb:(ik + 1) * kb]
+            s_ = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).float() * scale
+            if causal:
+                k_pos = ik * kb + torch.arange(kb, device=q.device)
+                s_ = torch.where(q_pos[:, None] >= k_pos[None, :], s_, -1e30)
+            m_new = torch.maximum(m, s_.amax(-1))
+            p_ = torch.exp(s_ - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l_ = l_ * alpha + p_.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p_.to(vblk.dtype), vblk).float()
+            m = m_new
+        out = acc / l_[..., None].clamp(min=1e-30)
+        outs.append(out.transpose(1, 2).to(cfg.adtype))    # (b, qb, h, hd)
+    return torch.cat(outs, 1)
+
+
+def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor):
+    """A paged pool gathered back into a per-slot dense view.
+
+    pool: (n_pages, page_size, Kh, hd); block_table: (B, n_pp) int32 with
+    -1 marking unallocated entries.  Returns (B, n_pp * page_size, Kh, hd).
+    Holes read page 0, as in the reference: every attended position
+    (kpos <= pos) lies in a page the slot owns and the ``-1e30`` mask
+    zeroes the rest.  With page_size dividing max_len the view has the
+    dense cache's (B, max_len) reduction shape, so paged attention gives
+    the dense cache's bits."""
+    b, n_pp = block_table.shape
+    g = pool[block_table.clamp(min=0).long()]
+    return g.reshape(b, n_pp * pool.shape[1], *pool.shape[2:])
+
+
+def _page_targets(bt: torch.Tensor, qpos: torch.Tensor, ok: torch.Tensor,
+                  page_size: int, trash: int):
+    """(page, offset) of each write at positions ``qpos`` (B, S) through
+    the block table.  A write that is not ``ok``, lies past the table or
+    meets an unallocated (-1) entry goes to page ``trash``, the pool's
+    last page, which no block table names: the reference's ``mode="drop"``
+    index ``n_pages``, made a real page (a -1 index would wrap onto the
+    last live page instead)."""
+    n_pp = bt.shape[1]
+    pg_idx, within = qpos // page_size, qpos % page_size
+    pg = torch.gather(bt, 1, pg_idx.clamp(max=n_pp - 1).long())
+    pg = torch.where(ok & (pg_idx < n_pp) & (pg >= 0), pg, trash)
+    return pg.long(), within.long()
+
+
+def _write_dense(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 n_valid: torch.Tensor):
+    """Write ``new`` (B, S, Kh, hd) at rows ``pos + i`` of a dense cache
+    ``c`` (B, Skv, Kh, hd), IN PLACE, with the reference's ``mode="drop"``
+    semantics: token i of slot b is written only if ``i < n_valid[b]``
+    and ``pos[b] + i < Skv``.
+
+    Torch has no dropping scatter, so every token writes somewhere in its
+    own slot's rows (its position, clamped to the last row) and each
+    position receives the value it must hold after the step: the new
+    value of the valid token that owns it, else its old value.  Writers
+    that share a position carry the same bits, so the scatter is exact
+    whatever their order, and no write lands a wrong value on a live
+    position.  No host sync."""
+    b, s = new.shape[:2]
+    skv = c.shape[1]
+    tgt = (pos[:, None] + torch.arange(s, device=c.device)).clamp(
+        max=skv - 1).long()                                    # (B, S)
+    owner = tgt - pos[:, None].long()                          # token index
+    owned = (owner >= 0) & (owner < n_valid[:, None].long())
+    rows = torch.arange(b, device=c.device)[:, None].expand(b, s)
+    fresh = new[rows, owner.clamp(0, s - 1)].to(c.dtype)
+    val = torch.where(owned[..., None, None], fresh, c[rows, tgt])
+    c[rows, tgt] = val
+
+
+def _attention_chunk(cfg: ModelConfig, q, k, v, cache: dict):
+    """Chunked-prefill attention against the DECODE cache layout.
+
+    q/k/v: (B, S, ., hd): S prompt tokens per slot, each slot at its own
+    offset ``cache["pos"]`` with ``cache["n_valid"]`` (B,) real tokens
+    this chunk (the tail is padding).  Padded tokens and positions at or
+    past the cache end write nothing (``_write_dense``; on a paged cache
+    they and unallocated entries go to the trash page), IN PLACE.  The
+    causal mask is per query (kpos <= pos + i), so a chunk attends as
+    feeding its tokens one decode tick at a time.  Returns (out (B, S, H,
+    hd), cache with ``pos + n_valid``)."""
+    b, sq = q.shape[0], q.shape[1]
+    pos, nv = cache["pos"], cache["n_valid"]
+    off = torch.arange(sq, device=q.device)
+    qpos = pos[:, None] + off[None, :]                         # (B, Sq)
+    ck, cv = cache["k"], cache["v"]
+    if "block_table" in cache:
+        bt = cache["block_table"]
+        page_size = ck.shape[1]
+        skv = bt.shape[1] * page_size
+        tok_ok = off[None, :] < nv[:, None]
+        pg, within = _page_targets(bt, qpos, tok_ok, page_size,
+                                   ck.shape[0] - 1)
+        ck[pg, within] = k.to(ck.dtype)
+        cv[pg, within] = v.to(cv.dtype)
+        ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
+        new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + nv}
+    else:
+        skv = ck.shape[1]
+        _write_dense(ck, k, pos, nv)
+        _write_dense(cv, v, pos, nv)
+        ak, av = ck, cv
+        new_cache = {"k": ck, "v": cv, "pos": pos + nv}
+    valid = torch.arange(skv, device=q.device)[None, None, :] \
+        <= qpos[:, :, None]                                    # (B, Sq, Skv)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, sq, cfg.n_kv_heads, rep, cfg.hd)
+    s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
+    s_ = torch.where(valid[:, None, None, :, :], s_, -1e30)
+    w = torch.softmax(s_, dim=-1).to(av.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
+    return o.reshape(b, sq, cfg.n_heads, cfg.hd), new_cache
+
+
+def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                  positions: torch.Tensor, cache: dict | None = None):
+    """Self-attention.  Without a cache: full-sequence flash attention
+    (prefill), returning the post-RoPE K/V as the new cache.  With a
+    cache carrying ``n_valid``: the chunked-prefill path
+    (``_attention_chunk``).  Otherwise single-step decode: x (B, 1, d),
+    this step's K/V written at each slot's ``pos`` IN PLACE (the
+    reference returns an updated copy of its donated cache), attention
+    over positions ``<= pos``.
+
+    A cache carrying ``block_table`` is PAGED (``init_attn_cache(
+    page_size=)``): k/v are pools (n_pages + 1, page_size, Kh, hd) whose
+    last page is the trash page, the block table (B, n_pp) maps each
+    slot's page index to a pool page (-1 = unallocated, written to the
+    trash page), and attention runs over the gathered per-slot view,
+    the dense reduction shape.  Returns (out (B, S, d), new_cache).  On
+    decode the caller guarantees ``pos < Skv`` (model.decode checks it
+    once per step): the reference's dynamic-update-slice would clamp."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
-    pos = cache["pos"].long()
+    if cache is None:
+        o = flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v))
+        o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
+        return o @ p.wo.to(o.dtype), {"k": k, "v": v}
+    if "n_valid" in cache:
+        o, new_cache = _attention_chunk(cfg, q, k, v, cache)
+        o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
+        return o @ p.wo.to(o.dtype), new_cache
+    pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
-    rows = torch.arange(b, device=x.device)
-    ck[rows, pos] = k[:, 0].to(ck.dtype)
-    cv[rows, pos] = v[:, 0].to(cv.dtype)
-    skv = ck.shape[1]
+    if "block_table" in cache:
+        bt = cache["block_table"]
+        page_size = ck.shape[1]
+        skv = bt.shape[1] * page_size
+        pg, off = _page_targets(bt, pos[:, None], torch.ones_like(
+            pos[:, None], dtype=torch.bool), page_size, ck.shape[0] - 1)
+        ck[pg[:, 0], off[:, 0]] = k[:, 0].to(ck.dtype)
+        cv[pg[:, 0], off[:, 0]] = v[:, 0].to(cv.dtype)
+        ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
+        new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + 1}
+    else:
+        rows = torch.arange(b, device=x.device)
+        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
+        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
+        skv = ck.shape[1]
+        ak, av = ck, cv
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]
     rep = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, q.shape[1], cfg.n_kv_heads, rep, cfg.hd)
-    s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ck).float() * cfg.hd ** -0.5
+    s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
     s_ = torch.where(valid[:, None, None, None, :], s_, -1e30)
-    w = torch.softmax(s_, dim=-1).to(cv.dtype)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", w, cv)
+    w = torch.softmax(s_, dim=-1).to(av.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
     o = o.reshape(b, q.shape[1], cfg.n_heads * cfg.hd)
-    new_cache = {"k": ck, "v": cv, "pos": cache["pos"] + 1}
     return o @ p.wo.to(o.dtype), new_cache
 
 
-def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Dense decode KV cache; ``pos`` is per-slot (continuous batching)."""
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
+                    page_size: int = 0, n_pages: int = 0):
+    """Decode KV cache; ``pos`` is per-slot (continuous batching).
+
+    ``page_size > 0`` builds the PAGED layout: k/v become a pool of
+    ``n_pages`` blocks of (page_size, Kh, hd) shared by every slot, PLUS
+    one trash page at index ``n_pages`` that takes the writes the
+    reference drops (``mode="drop"`` at index n_pages) and that no block
+    table names; and a ``block_table`` (batch, max_len // page_size)
+    int32 mapping each slot's page index to a pool page (-1 =
+    unallocated).  ``page_size`` must divide ``max_len`` so the gathered
+    per-slot view keeps the dense reduction shape."""
+    if page_size:
+        assert not cfg.sliding_window, \
+            "paged KV caches need absolute positions (no ring buffers)"
+        assert max_len % page_size == 0, (
+            f"page_size={page_size} must divide max_len={max_len}")
+        assert n_pages >= 1, f"paged cache needs n_pages >= 1, got {n_pages}"
+        shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.adtype, device=device),
+                "block_table": torch.full((batch, max_len // page_size), -1,
+                                          dtype=torch.int32, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device),

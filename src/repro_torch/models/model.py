@@ -1,6 +1,7 @@
 """Model assembly (counterpart of ``repro/models/model.py``), two families:
 
-  dense      : N x (attn + FFN)                 (decode)
+  dense      : N x (attn + FFN)    (prefill forward, chunked prefill and
+                                    decode over a dense or paged KV cache)
   ssm (xLSTM): G x ((k-1) mLSTM + 1 sLSTM)      (prefill forward + decode)
                (k = ssm.slstm_every)
 
@@ -9,8 +10,8 @@ the reference scans over stacked parameters.  ``Model``'s parameter names
 are the reference's pytree keys with the stacked leaves split per layer
 (``blocks.<i>.attn.wq``, ``mlstm.<g>.<p>.core.w_q``, ``slstm.<g>.ln.scale``),
 so ``convert.params_from_jax`` loads a JAX checkpoint leaf by leaf.  The
-MoE and hybrid families, the dense forward and training are not ported yet
-(ROADMAP queue 1, items 5 and 9).
+MoE and hybrid families and training are not ported yet (ROADMAP queue 1,
+item 9).
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm
-from repro_torch.models.approx_ffn import ApproxFFN, approx_ffn_serve
+from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
+                                           execute_plan, make_tick_plan)
+from repro_torch.runtime.dispatch import plan_invoke_stats
 
 
 def _check_supported(cfg: ModelConfig):
@@ -118,38 +121,84 @@ def init_model(key, cfg: ModelConfig, *, device=None) -> Model:
 
 
 def _dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, cache, *,
-                 serve=False, row_mask=None):
-    """One transformer block.  Returns (x, new_cache, aux_loss, metrics)."""
+                 serve=False, row_mask=None, dispatch_plan=None):
+    """One transformer block.  Returns (x, new_cache, aux_loss, metrics).
+
+    ``dispatch_plan`` (serve, ``route_scope="tick"``): the tick's plan,
+    built above the layers; this block's ApproxFFN executes against it
+    and reports no metrics of its own (the step reports the plan's)."""
     h, new_cache = L.attention_fwd(cfg, p.attn, L.norm_fwd(cfg, p.ln1, x),
                                    positions, cache)
     x = x + h
     f, aux, metrics = _ffn_part(cfg, p, L.norm_fwd(cfg, p.ln2, x), serve,
-                                row_mask)
+                                row_mask, dispatch_plan)
     return x + f, new_cache, aux, metrics
 
 
-def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None):
+def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None,
+              dispatch_plan=None):
     zero = torch.zeros((), dtype=torch.float32, device=xn.device)
     if not cfg.approx.enable:
         return L.ffn_fwd(cfg, p.ffn, xn), zero, {}
     if not serve:
         raise NotImplementedError("the ApproxFFN co-training path is not "
-                                  "ported yet (ROADMAP queue 1, item 5)")
+                                  "ported yet (ROADMAP queue 1, item 9)")
+    if dispatch_plan is not None:
+        return execute_plan(cfg, p.approx, xn, dispatch_plan), zero, {}
     y, a = approx_ffn_serve(cfg, p.approx, xn, row_mask=row_mask)
-    st = a["invoke_stats"]
+    return y, a["loss"], _dispatch_metrics(a["invoke_stats"])
+
+
+def _dispatch_metrics(st) -> dict:
+    """A serve-mode ApproxFFN's metrics from its ``InvokeStats``."""
     total = st["class_counts"].sum().clamp(min=1).float()
-    m = {"invocation": a["invocation"], "router_acc": a["router_acc"],
-         "exact_frac": st["exact_frac"],
-         "dropped_frac": st["dropped"].float() / total,
-         "padding_rows": st["padding_rows"].float(),
-         "class_counts": st["class_counts"].float(),
-         "dispatched": st["dispatched"].float(),
-         "dropped_rows": st["dropped"].float(),
-         "tier_counts": st["tier_counts"].float(),
-         "tier_dispatched": st["tier_dispatched"].float(),
-         "lib_counts": st["lib_counts"].float(),
-         "off_set_exact_rows": st["off_set_exact_rows"].float()}
-    return y, a["loss"], m
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=st["invocation"].device)
+    return {"invocation": st["invocation"], "router_acc": zero,
+            "exact_frac": st["exact_frac"],
+            "dropped_frac": st["dropped"].float() / total,
+            "padding_rows": st["padding_rows"].float(),
+            "class_counts": st["class_counts"].float(),
+            "dispatched": st["dispatched"].float(),
+            "dropped_rows": st["dropped"].float(),
+            "tier_counts": st["tier_counts"].float(),
+            "tier_dispatched": st["tier_dispatched"].float(),
+            "lib_counts": st["lib_counts"].float(),
+            "off_set_exact_rows": st["off_set_exact_rows"].float()}
+
+
+def _tick_plan(cfg: ModelConfig, params: Model, x, row_mask, serve: bool):
+    """The tick's dispatch plan under ``route_scope="tick"``, else None;
+    an unknown scope raises instead of routing per layer."""
+    if not (serve and cfg.approx.enable):
+        return None
+    if cfg.approx.route_scope not in ("layer", "tick"):
+        raise ValueError(f"unknown route_scope: {cfg.approx.route_scope!r} "
+                         "(expected 'layer' or 'tick')")
+    if cfg.approx.route_scope == "layer":
+        return None
+    return make_tick_plan(cfg, params, x, row_mask)
+
+
+def _step_metrics(plan, per_layer: list) -> dict:
+    """A step's metrics: the tick plan's stats (every layer executed that
+    one plan; the reference means L equal copies), else the layer mean."""
+    if plan is not None:
+        return _dispatch_metrics(plan_invoke_stats(plan))
+    if not per_layer or not per_layer[0]:
+        return {}
+    return {k: torch.stack([m[k] for m in per_layer]).mean(0)
+            for k in per_layer[0]}
+
+
+def _layer_cache(cache, i: int, **extra) -> dict:
+    """Layer ``i``'s view of a stacked dense or paged KV cache (the one
+    block table serves every layer)."""
+    lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"],
+          **extra}
+    if "block_table" in cache:
+        lc["block_table"] = cache["block_table"]
+    return lc
 
 
 # ---- xLSTM ---------------------------------------------------------------
@@ -166,55 +215,84 @@ def _slstm_block(cfg: ModelConfig, p: SLSTMBlock, x, state):
 
 def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
             collect_cache: bool = False, serve: bool = False):
-    """Full-sequence forward of the xLSTM family.  inputs: tokens (B, S).
+    """Full-sequence forward.  inputs: tokens (B, S).
 
     Returns (logits (B, S, V), cache-or-None, aux_loss, metrics).  With
-    ``collect_cache`` the cache holds every block's final state, stacked
-    as init_cache lays it out, and ``pos = S``.  ``serve`` changes nothing
-    for this family (it has no ApproxFFN)."""
-    if topology(cfg).kind != "xlstm":
-        raise NotImplementedError(
-            f"the {cfg.family!r} forward (train / prefill) is not ported "
-            "yet (ROADMAP queue 1, item 5)")
+    ``collect_cache`` the cache is the decode cache after S tokens, laid
+    out as init_cache lays it out with max_len S (dense family: the
+    post-RoPE K/V of every layer; xLSTM: every block's final state), and
+    ``pos = S``; ``pad_cache`` grows a dense one to decode room.  Dense
+    family: ``serve=True`` runs each layer's ApproxFFN through the
+    capacity dispatch, routing its own tokens (the reference builds no
+    tick plan here), with the layer-meaned dispatch metrics; the
+    training path (``serve=False`` with the ApproxFFN) is not ported yet
+    (ROADMAP queue 1, item 9).  ``serve`` changes nothing for the xLSTM
+    family (it has no ApproxFFN)."""
     x = L.embed_fwd(cfg, params.embed, inputs)
     b, s = x.shape[0], x.shape[1]
-    mstates, sstates = [], []
-    for mblks, sblk in zip(params.mlstm, params.slstm):
-        msts = []
-        for blk in mblks:
-            x, st = _mlstm_block(cfg, blk, x, None)
-            msts.append(st)
-        x, sst = _slstm_block(cfg, sblk, x, None)
+    metrics, cache = {}, None
+    if topology(cfg).kind == "uniform":
+        positions = torch.arange(s, device=x.device)[None, :]
+        per_layer, ks, vs = [], [], []
+        for blk in params.blocks:
+            x, kv, _, m = _dense_block(cfg, blk, x, positions, None,
+                                       serve=serve)
+            per_layer.append(m)
+            if collect_cache:
+                ks.append(kv["k"])
+                vs.append(kv["v"])
+        metrics = _step_metrics(None, per_layer)
         if collect_cache:
-            mstates.append(msts)
-            sstates.append(sst)
-    cache = None
-    if collect_cache:
-        cache = {"mlstm": {k: torch.stack([torch.stack([st[k] for st in g])
-                                           for g in mstates])
-                           for k in ("c", "n")},
-                 "slstm": {k: torch.stack([st[k] for st in sstates])
-                           for k in ("h", "c", "n", "m")},
-                 "pos": torch.full((b,), s, dtype=torch.int32,
-                                   device=x.device)}
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                     "pos": torch.full((b,), s, dtype=torch.int32,
+                                       device=x.device)}
+    else:
+        mstates, sstates = [], []
+        for mblks, sblk in zip(params.mlstm, params.slstm):
+            msts = []
+            for blk in mblks:
+                x, st = _mlstm_block(cfg, blk, x, None)
+                msts.append(st)
+            x, sst = _slstm_block(cfg, sblk, x, None)
+            if collect_cache:
+                mstates.append(msts)
+                sstates.append(sst)
+        if collect_cache:
+            cache = {"mlstm": {k: torch.stack([torch.stack([st[k]
+                                                            for st in g])
+                                               for g in mstates])
+                               for k in ("c", "n")},
+                     "slstm": {k: torch.stack([st[k] for st in sstates])
+                               for k in ("h", "c", "n", "m")},
+                     "pos": torch.full((b,), s, dtype=torch.int32,
+                                       device=x.device)}
     x = L.norm_fwd(cfg, params.ln_f, x)
     logits = L.unembed_fwd(cfg, params.embed, x)
     return logits, cache, torch.zeros((), dtype=torch.float32,
-                                      device=x.device), {}
+                                      device=x.device), metrics
 
 
 # ---------------------------------------------------------------------------
 # Decode (single token, cache update)
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """Empty decode cache.  Dense: k/v (L, batch, max_len, Kh, hd); xLSTM:
-    the mLSTM states (G, P, batch, ...) and the sLSTM states (G, batch,
-    ...), whatever ``max_len``; both with ``pos`` (batch,) int32.  The
-    paged layout is not ported yet (ROADMAP queue 1, item 5)."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               page_size: int = 0, kv_pages: int = 0, device=None):
+    """Empty decode cache.  Dense family: k/v (L, batch, max_len, Kh, hd),
+    or with ``page_size > 0`` the PAGED layout: per-layer pools (L,
+    kv_pages + 1, page_size, Kh, hd), whose last page is the trash page
+    of ``layers.init_attn_cache`` (the reference's pools stop at
+    kv_pages), plus ONE ``block_table`` (batch, max_len // page_size)
+    shared by every layer.  xLSTM: the mLSTM states (G, P, batch, ...)
+    and the sLSTM states (G, batch, ...), whatever ``max_len``.  All with
+    ``pos`` (batch,) int32."""
     _check_supported(cfg)
     dev = resolve_device(device)
     topo = topology(cfg)
+    if page_size:
+        assert topo.kind == "uniform", (
+            f"paged KV caches need the uniform dense-attention family "
+            f"(got family={cfg.family!r})")
     if topo.kind == "xlstm":
         lead = {"mlstm": (topo.n_groups, topo.per_group),
                 "slstm": (topo.n_groups,)}
@@ -225,28 +303,54 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
                  for name, st in init.items()}
         cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
         return cache
-    c = L.init_attn_cache(cfg, batch, max_len, dev)
-    stack = lambda a: a[None].repeat(cfg.n_layers, *([1] * a.ndim))
-    return {"k": stack(c["k"]), "v": stack(c["v"]), "pos": c["pos"]}
+    c = L.init_attn_cache(cfg, batch, max_len, dev, page_size=page_size,
+                          n_pages=kv_pages)
+    c["k"] = c["k"][None].repeat(cfg.n_layers, *([1] * c["k"].ndim))
+    c["v"] = c["v"][None].repeat(cfg.n_layers, *([1] * c["v"].ndim))
+    return c
 
 
-def _batch_dim(head: str) -> int:
+def _batch_dim(head: str, paged: bool = False):
     """Batch dim of a cache leaf under top-level key ``head``: k/v (L, B,
-    ...) -> 1; mlstm states (G, P, B, ...) -> 2; slstm states (G, B, ...)
-    -> 1; pos -> 0."""
-    return {"k": 1, "v": 1, "mlstm": 2, "slstm": 1}.get(head, 0)
+    ...) -> 1, or None for a paged cache's shared pools; mlstm states (G,
+    P, B, ...) -> 2; slstm states (G, B, ...) -> 1; pos, block_table ->
+    0."""
+    if head in ("k", "v"):
+        return None if paged else 1
+    return {"mlstm": 2, "slstm": 1}.get(head, 0)
 
 
 def reset_slot(cfg: ModelConfig, cache, fresh, slot: int):
     """Reset batch slot ``slot`` of a decode cache to ``fresh`` (a cache
-    from init_cache), IN PLACE, and return the cache."""
+    from init_cache), IN PLACE, and return the cache.  Paged caches: the
+    pools are shared by every slot (freeing pages is the server
+    allocator's job), so only the slot's block-table row (back to -1)
+    and ``pos`` (back to 0) reset."""
+    paged = "block_table" in cache
     for head, leaf in cache.items():
-        idx = (slice(None),) * _batch_dim(head) + (slot,)
+        d = _batch_dim(head, paged)
+        if d is None:
+            continue
+        idx = (slice(None),) * d + (slot,)
         pairs = ((leaf[k], fresh[head][k]) for k in leaf) \
             if isinstance(leaf, dict) else ((leaf, fresh[head]),)
         for a, f in pairs:
             a[idx] = f[idx]
     return cache
+
+
+def pad_cache(cfg: ModelConfig, cache, max_len: int):
+    """Grow a prefill-built dense cache's KV length to ``max_len`` (decode
+    room), zero-filled.  No-op for an xLSTM cache and for a paged cache (a
+    fixed pool: its capacity is kv_pages, not a per-slot length)."""
+    if "k" not in cache or "block_table" in cache:
+        return cache
+    pad = max_len - cache["k"].shape[2]
+    if pad <= 0:
+        return cache
+    grow = lambda a: torch.cat([a, a.new_zeros(
+        (a.shape[0], a.shape[1], pad, *a.shape[3:]))], 2)
+    return dict(cache, k=grow(cache["k"]), v=grow(cache["v"]))
 
 
 def _decode_xlstm(cfg: ModelConfig, params: Model, cache, x):
@@ -263,42 +367,51 @@ def _decode_xlstm(cfg: ModelConfig, params: Model, cache, x):
     return x
 
 
+def _kv_length(cache) -> int:
+    """Positions a slot of a dense-family cache can hold: max_len (dense)
+    or n_pp x page_size (paged)."""
+    if "block_table" in cache:
+        return cache["block_table"].shape[1] * cache["k"].shape[2]
+    return cache["k"].shape[2]
+
+
 def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
            serve: bool = True, collect_metrics: bool = False,
            row_mask: torch.Tensor | None = None):
     """One decode step.  inputs: tokens (B, 1).  Returns (logits (B, V),
     cache), or (logits, cache, metrics) when ``collect_metrics`` — the
-    layer-meaned ApproxFFN dispatch metrics (dense family; empty for the
-    xLSTM family, which has no ApproxFFN).
+    ApproxFFN dispatch metrics (dense family: the layer mean, or under
+    ``route_scope="tick"`` the one tick plan's stats; empty for the xLSTM
+    family, which has no ApproxFFN).
 
     The cache is updated IN PLACE and returned with ``pos`` advanced (the
     reference donates its cache and returns an updated one).  Dense
-    family: ``row_mask`` ((B,) bool) marks the ACTIVE slots: idle slots are
-    excluded from the dispatch and its stats, and their ``pos`` holds;
-    every slot's ``pos`` must be below the cache length (checked here; the
-    reference would clamp the write).  xLSTM family, as in the reference:
-    every slot's ``pos`` advances by 1 whatever ``row_mask``, and there is
-    no cache end to check."""
+    family, dense or paged cache: ``row_mask`` ((B,) bool) marks the
+    ACTIVE slots: idle slots are excluded from the dispatch and its
+    stats, and their ``pos`` holds; every slot's ``pos`` must be below
+    the cache length (checked here, one host sync; the reference would
+    clamp the write).  ``route_scope="tick"`` builds one DispatchPlan
+    from the tick-router head above the layers and every layer executes
+    against it.  xLSTM family, as in the reference: every slot's ``pos``
+    advances by 1 whatever ``row_mask``, and there is no cache end to
+    check."""
     x = L.embed_fwd(cfg, params.embed, inputs)
     pos = cache["pos"]
-    per_layer = []
+    per_layer, plan = [], None
     if topology(cfg).kind == "xlstm":
         x = _decode_xlstm(cfg, params, cache, x)
         cache["pos"] = pos + 1
     else:
-        if serve and cfg.approx.enable and cfg.approx.route_scope != "layer":
-            raise NotImplementedError(
-                f"route_scope={cfg.approx.route_scope!r} is not ported yet; "
-                "the port routes per layer (ROADMAP queue 1, item 5)")
-        skv = cache["k"].shape[2]
+        skv = _kv_length(cache)
         if int(pos.max()) >= skv:
             raise ValueError(f"decode past the cache end: pos "
                              f"{pos.tolist()} with max_len {skv}")
+        plan = _tick_plan(cfg, params, x, row_mask, serve)
         positions = pos[:, None]
         for i, blk in enumerate(params.blocks):
-            lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-            x, _, _, m = _dense_block(cfg, blk, x, positions, lc,
-                                      serve=serve, row_mask=row_mask)
+            x, _, _, m = _dense_block(cfg, blk, x, positions,
+                                      _layer_cache(cache, i), serve=serve,
+                                      row_mask=row_mask, dispatch_plan=plan)
             per_layer.append(m)
         adv = 1 if row_mask is None else row_mask.to(torch.int32)
         cache["pos"] = (pos + adv).to(torch.int32)
@@ -306,8 +419,46 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     logits = L.unembed_fwd(cfg, params.embed, x)[:, 0]
     if not collect_metrics:
         return logits, cache
-    metrics = {}
-    if per_layer and per_layer[0]:
-        metrics = {k: torch.stack([m[k] for m in per_layer]).mean(0)
-                   for k in per_layer[0]}
-    return logits, cache, metrics
+    return logits, cache, _step_metrics(plan, per_layer)
+
+
+def decode_chunk(cfg: ModelConfig, params: Model, cache,
+                 tokens: torch.Tensor, n_valid: torch.Tensor, *,
+                 serve: bool = True, collect_metrics: bool = False,
+                 row_mask: torch.Tensor | None = None):
+    """One chunked-PREFILL step against the decode cache layout (dense or
+    paged).
+
+    tokens: (B, S) int32, up to S prompt tokens per slot, appended at each
+    slot's own offset ``cache["pos"]``; ``n_valid`` (B,) int32 counts the
+    real tokens per slot (0 = the slot sits this step out; the tail of
+    its row is padding).  Returns ``(cache, metrics)``, the cache updated
+    IN PLACE with ``pos`` advanced by ``n_valid``.  No logits: the final
+    prompt token goes through the decode step.  Writes at or past the
+    cache end, and padded tokens, write nothing.  The serve-mode dispatch
+    (and the tick plan) runs on the B*S rows under a TOKEN mask (the slot
+    is active and the token is below its ``n_valid``), so padded rows
+    never reach the router, the capacities or a stat."""
+    topo = topology(cfg)
+    assert topo.kind == "uniform" and not cfg.sliding_window, \
+        "decode_chunk needs the uniform family with a dense KV cache " \
+        f"(got family={cfg.family!r}, sliding_window={cfg.sliding_window})"
+    s = tokens.shape[1]
+    x = L.embed_fwd(cfg, params.embed, tokens)
+    pos = cache["pos"]
+    off = torch.arange(s, device=x.device)
+    positions = pos[:, None] + off[None, :]                    # (B, S)
+    n_valid = n_valid.to(torch.int32)
+    tok_mask = off[None, :] < n_valid[:, None]
+    if row_mask is not None:
+        tok_mask = tok_mask & row_mask.to(torch.bool)[:, None]
+    plan = _tick_plan(cfg, params, x, tok_mask, serve)
+    per_layer = []
+    for i, blk in enumerate(params.blocks):
+        x, _, _, m = _dense_block(cfg, blk, x, positions,
+                                  _layer_cache(cache, i, n_valid=n_valid),
+                                  serve=serve, row_mask=tok_mask,
+                                  dispatch_plan=plan)
+        per_layer.append(m)
+    cache["pos"] = (pos + n_valid).to(torch.int32)
+    return cache, (_step_metrics(plan, per_layer) if collect_metrics else {})

@@ -2,10 +2,14 @@
 ``repro/runtime/options.py``).
 
 The same fields, names and defaults as the reference, so options pair
-one-to-one.  ``DecodeServer`` serves the subset this port has; every
-field of a feature not ported yet raises ``NotImplementedError`` there,
-naming the ROADMAP item that ports it.  ``LibrarySpec`` comes with the
-library-residency runtime (ROADMAP queue 1, item 6).
+one-to-one.  ``DecodeServer`` serves every field but those of features
+not ported yet, which raise ``NotImplementedError`` there, naming the
+ROADMAP queue 1 item that ports them:
+
+    qos_tiers, qos_app   item 6b (QoS tiers, with apps/)
+    library, autotune    item 6c (library residency, runtime/autotune.py;
+                         ``LibrarySpec`` comes with it)
+    mesh                 item 10 (multiple devices)
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ class ServeOptions:
     QoS:         qos_tiers, qos_app, qos_margin_scale
     scheduling:  prefill_chunk, admission ("cost"/"fifo"),
                  overflow ("reject"/"trim"), aging
-    memory:      kv_page_size, kv_pages
+    memory:      kv_page_size (paged KV cache page length in tokens;
+                 must divide max_len; 0 = the dense (batch, max_len)
+                 layout), kv_pages (page-pool size; 0 = batch x
+                 max_len / kv_page_size)
     library:     approximator-library residency
     """
 
@@ -58,7 +65,8 @@ class ServeOptions:
         ``runtime/cli.add_serve_options``; ``overrides`` win."""
         kw = {f: getattr(args, f) for f in
               ("batch", "max_len", "route_scope", "prefill_chunk",
-               "admission", "overflow", "aging", "backend", "seed")
+               "admission", "overflow", "aging", "kv_page_size",
+               "kv_pages", "backend", "seed")
               if hasattr(args, f)}
         if getattr(args, "mcma_dispatch", False):
             kw["use_mcma_dispatch"] = True

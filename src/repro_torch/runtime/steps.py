@@ -3,8 +3,10 @@
 
 ``make_prefill_step(cfg)`` -> ``(params, batch) -> (last_logits, cache)``
 ``make_decode_step(cfg)``  -> ``(params, cache, inputs, row_mask=None) ->
-(logits, cache[, metrics])``.  PyTorch runs eagerly, so a step is a plain
-closure over the serve config, run under ``torch.no_grad``.
+(logits, cache[, metrics])``
+``make_prefill_chunk_step(cfg)`` -> ``(params, cache, tokens, n_valid,
+row_mask=None) -> (cache, metrics)``.  PyTorch runs eagerly, so a step is
+a plain closure over the serve config, run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from repro_torch.runtime.dispatch import DISPATCH_BACKENDS
 
 def make_prefill_step(cfg: ModelConfig):
     """Prefill over ``batch["inputs"]`` (B, S) tokens: the last position's
-    logits and the decode cache after S tokens (``pos = S``).  The forward
-    is ported for the xLSTM family (models/model.forward)."""
+    logits and the decode cache after S tokens (``pos = S``; a dense
+    family's KV length is S, ``model.pad_cache`` grows it)."""
     def prefill_step(params, batch):
         with torch.no_grad():
             logits, cache, _, _ = M.forward(cfg, params, batch["inputs"],
@@ -63,8 +65,10 @@ def make_decode_step(cfg: ModelConfig, *, use_mcma_dispatch: bool = False,
                      route_scope: str | None = None,
                      backend: str | None = None):
     """``use_mcma_dispatch`` serves the ApproxFFN through the MCMA dispatch
-    engine; ``with_stats`` makes the step also return the layer-meaned
-    dispatch metrics per tick.  The step takes an optional trailing
+    engine; ``with_stats`` makes the step also return the tick's dispatch
+    metrics (the layer mean; under ``route_scope="tick"`` the one plan's
+    stats).  ``route_scope`` overrides the config's ("layer" or "tick").
+    The step takes an optional trailing
     ``row_mask`` ((B,) bool of ACTIVE slots) and updates the cache in
     place (models/model.decode)."""
     cfg = _serve_cfg(cfg, use_mcma_dispatch=use_mcma_dispatch,
@@ -75,3 +79,27 @@ def make_decode_step(cfg: ModelConfig, *, use_mcma_dispatch: bool = False,
             return M.decode(cfg, params, cache, inputs, serve=True,
                             collect_metrics=with_stats, row_mask=row_mask)
     return decode_step
+
+
+def make_prefill_chunk_step(cfg: ModelConfig, *,
+                            use_mcma_dispatch: bool = False,
+                            with_stats: bool = False,
+                            route_scope: str | None = None,
+                            backend: str | None = None):
+    """Chunked-prefill step: up to S prompt tokens per slot into the SAME
+    decode cache (dense or paged) that ``make_decode_step`` advances,
+    without logits (models/model.decode_chunk).  Takes ``(params, cache,
+    tokens (B, S) int32 right-padded, n_valid (B,) int32, row_mask=None)``
+    and returns ``(cache, metrics)``, the cache updated in place.  Shares
+    ``_serve_cfg`` with ``make_decode_step``, so both phases run the same
+    dispatch configuration; its metrics are the chunk's, to be kept apart
+    from the decode ticks'.  Uniform (dense-attention) family only."""
+    cfg = _serve_cfg(cfg, use_mcma_dispatch=use_mcma_dispatch,
+                     route_scope=route_scope, backend=backend)
+
+    def prefill_chunk_step(params, cache, tokens, n_valid, row_mask=None):
+        with torch.no_grad():
+            return M.decode_chunk(cfg, params, cache, tokens, n_valid,
+                                  serve=True, collect_metrics=with_stats,
+                                  row_mask=row_mask)
+    return prefill_chunk_step

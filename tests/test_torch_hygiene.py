@@ -56,8 +56,9 @@ def test_entry_points_without_device_raise_when_there_is_no_gpu(
 
 
 UNPORTED = {"mesh": object(), "autotune": True, "qos_tiers": True,
-            "qos_app": "bessel", "library": object(), "kv_page_size": 4,
-            "kv_pages": 8, "prefill_chunk": 4, "route_scope": "tick"}
+            "qos_app": "bessel", "library": object()}
+SCHEDULER = {"kv_page_size": 4, "kv_pages": 8, "prefill_chunk": 4,
+             "route_scope": "tick"}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED))
@@ -68,6 +69,21 @@ def test_unported_serve_options_raise(field):
                                **{field: UNPORTED[field]})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         DecodeServer(cfg, params, options=opts)
+
+
+@pytest.mark.parametrize("field", sorted(SCHEDULER))
+def test_scheduler_serve_options_are_served(field):
+    """The options that raised until chunked prefill, the paged cache and
+    tick scope were ported now serve a request."""
+    cfg = _cfg()
+    opts = dataclasses.replace(ServeOptions(use_mcma_dispatch=True, batch=2,
+                                            max_len=16),
+                               **{field: SCHEDULER[field]})
+    srv = DecodeServer(cfg, M.init_model(0, cfg, device="cpu"), options=opts)
+    r = Request(rid=0, prompt=np.arange(1, 10), max_new=3)
+    srv.submit(r)
+    stats = srv.run_until_drained(100)
+    assert r.done and len(r.out) == 3 and stats["undrained_inflight"] == 0
 
 
 def test_unported_archs_and_qos_requests_raise():
