@@ -43,18 +43,33 @@ Phases (any failure raises and the script exits non-zero):
      token-by-token prefill give equal tokens (in bf16 the equal share is
      printed); then the slice-1 configuration (layer scope, token-by-token
      prefill, dense cache) on the same stream for comparison;
-  6. the internlm2 smoke config in float32 on the card against the same
+  6. the same stream with the serve-time features of the reference's
+     DecodeServer ([serve qos library autotune full width]), each on both
+     kernel backends with equal tokens, 24 launches and one dispatch plan
+     per tick: QoS tiers (0.05, 0.10, 0.20) round-robin, half the requests
+     by error_bound, half by tier (equal per-tier ledgers, per-tier counts
+     summing to the totals, every request at the base tier == the untiered
+     server, tokens and tick log); a library of 6 approximators with 3
+     resident (equal swaps, lib_routed_per_class reconciled with
+     off_set_exact_rows, no new step object across swaps, identity
+     residency == the library-less server); autotune over the default
+     ladder (equal rung trajectories, one decode step object per rung
+     visited); host syncs per tick counted in separate runs; then both
+     switch kernels against their PyTorch versions, timed in bf16, on
+     plans of the top rung and of a ladder_from_counts rung and on stacks
+     gathered from the library;
+  7. the internlm2 smoke config in float32 on the card against the same
      parameters served on the CPU by the eager oracle;
-  7. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
+  8. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
      a (8, 256) prefill launching the sLSTM kernel once per group (6) over
      all 256 steps; DecodeServer serving 8 requests, 6 launches per tick;
      then, in float32 (the same weights upcast), forward over 256 tokens
      read at position 128 against prefill(128) + decode(1) within 2e-3 with
      equal greedy tokens;
-  8. the xlstm smoke config in float32 on the card against the same
+  9. the xlstm smoke config in float32 on the card against the same
      parameters on the CPU: prefill 32 tokens, 8 decode ticks, logits
      within 1e-4 and equal greedy tokens;
-  9. a JSON line describing every kernel, then the result line.
+  10. a JSON line describing every kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -209,7 +224,6 @@ def main_path_kernel_phase(np, torch, flush):
     t_pad 640) and of a prefill-chunk tick (8 slots x 64 tokens = 512
     rows, t_pad 1024).  Returns {(kernel, dtype[, "prefill"]): numbers}."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import fused_dispatch, switched_mlp
     cfg = get_config("internlm2-1.8b")
     a = cfg.approx
     n, d, dh = a.n_approx + 1, cfg.d_model, a.d_hidden
@@ -219,59 +233,85 @@ def main_path_kernel_phase(np, torch, flush):
                             8)):
         rng = np.random.default_rng(seed)
         for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            to = dict(device="cuda", dtype=dt)
-            x = torch.from_numpy(rng.normal(size=(t, d))).to(**to)
-            w = [torch.from_numpy(rng.normal(size=s) * sc).to(**to)
-                 for s, sc in (((n, d, dh), d ** -0.5), ((n, dh), 0.1),
-                               ((n, dh, d), dh ** -0.5), ((n, d), 0.1))]
-            for arr in w:
-                arr[-1] = 0                     # the zero pseudo-class
+            x, w = switch_inputs(np, torch, rng, t, n, d, dh, dtype)
             cls = torch.from_numpy(rng.integers(0, n, t).astype(np.int32)
                                    ).cuda()
-            err, (xp, rows, tile_cls, weights) = check_kernels(
-                torch, x, cls, w, a.block_t, dtype, f"main_path {shape}")
-            blk = a.block_t
-            classes = torch.unique(tile_cls).tolist()
-            w_bytes = sum(wt[c].numel() * wt.element_size()
-                          for c in classes for wt in weights)
-            flops = tile_cls.numel() * blk * 2 * (
-                weights[0].shape[1] * weights[0].shape[2]
-                + weights[2].shape[1] * weights[2].shape[2])
-            d_out_p = weights[2].shape[2]
-            esz = xp.element_size()
-            sw_bytes = xp.numel() * esz + 4 * tile_cls.numel() + w_bytes \
-                + xp.shape[0] * d_out_p * esz
-            fu_bytes = x.numel() * esz + 4 * (rows.numel()
-                                              + tile_cls.numel()) \
-                + w_bytes + (t + 1) * d_out_p * esz
-            run = {
-                "switched_mlp": (
-                    lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,
-                                                      block_t=blk),
-                    lambda: switched_mlp.switched_mlp_plain(
-                        xp, tile_cls, *weights, block_t=blk), sw_bytes),
-                "switched_mlp_fused": (
-                    lambda: fused_dispatch.switched_mlp_fused(
-                        x, rows, tile_cls, *weights, block_t=blk),
-                    lambda: fused_dispatch.switched_mlp_fused_plain(
-                        x, rows, tile_cls, *weights, block_t=blk),
-                    fu_bytes),
-            }
-            for name, (kern, plain, n_bytes) in run.items():
-                ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern,
-                                                            plain, flush)
-                b_ms, b_by = bound(dtype, n_bytes, flops)
+            for name, nums in time_switch_case(
+                    np, torch, flush, x, cls, w, a.block_t, dtype,
+                    f"main path {shape}").items():
                 key = (name, dtype) if shape == "decode" \
                     else (name, dtype, shape)
-                out[key] = dict(max_abs_err=err[name], ms=ms,
-                                plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-                log(f"  {name} {dtype} main path {shape} ({t} rows, "
-                    f"t_pad={xp.shape[0]}, {len(classes)} classes): kernel "
-                    f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-                    f"bound {b_ms:.5f} ms ({b_by}: {n_bytes} B, {flops} "
-                    f"FLOP), max |kernel-plain| {err[name]:.3g}")
+                out[key] = nums
+    return out
+
+
+def switch_inputs(np, torch, rng, t, n, d, dh, dtype):
+    """Random rows and weight stacks of ``n`` classes in ``dtype`` on the
+    card, the last class the zero pseudo-class."""
+    to = dict(device="cuda", dtype=getattr(torch, dtype))
+    x = torch.from_numpy(rng.normal(size=(t, d))).to(**to)
+    w = [torch.from_numpy(rng.normal(size=s) * sc).to(**to)
+         for s, sc in (((n, d, dh), d ** -0.5), ((n, dh), 0.1),
+                       ((n, dh, d), dh ** -0.5), ((n, d), 0.1))]
+    for arr in w:
+        arr[-1] = 0                     # the zero pseudo-class
+    return x, w
+
+
+def time_switch_case(np, torch, flush, x, cls, w, blk, dtype, label,
+                     timed=True):
+    """Both switch kernels on one dispatch (rows ``x`` under classes
+    ``cls``, stacks ``w`` with the pseudo-class last) against their plain
+    twins, then timed (plain, kernel, kernel, plain) with the bound from
+    the bytes and operations this case needs.  Returns {kernel: numbers};
+    with ``timed`` False only the check and its error."""
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    t = x.shape[0]
+    err, (xp, rows, tile_cls, weights) = check_kernels(
+        torch, x, cls, w, blk, dtype, label)
+    classes = torch.unique(tile_cls).tolist()
+    live = int((tile_cls != len(w[0]) - 1).sum())
+    if not timed:
+        log(f"  {label} {dtype} ({t} rows, t_pad={xp.shape[0]}, {live} of "
+            f"{tile_cls.numel()} tiles under a real class): max "
+            f"|kernel-plain| switched {err['switched_mlp']:.3g}, fused "
+            f"{err['switched_mlp_fused']:.3g}")
+        return {k: dict(max_abs_err=v) for k, v in err.items()}
+    w_bytes = sum(wt[c].numel() * wt.element_size()
+                  for c in classes for wt in weights)
+    flops = tile_cls.numel() * blk * 2 * (
+        weights[0].shape[1] * weights[0].shape[2]
+        + weights[2].shape[1] * weights[2].shape[2])
+    d_out_p = weights[2].shape[2]
+    esz = xp.element_size()
+    sw_bytes = xp.numel() * esz + 4 * tile_cls.numel() + w_bytes \
+        + xp.shape[0] * d_out_p * esz
+    fu_bytes = x.numel() * esz + 4 * (rows.numel() + tile_cls.numel()) \
+        + w_bytes + (t + 1) * d_out_p * esz
+    run = {
+        "switched_mlp": (
+            lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,
+                                              block_t=blk),
+            lambda: switched_mlp.switched_mlp_plain(xp, tile_cls, *weights,
+                                                    block_t=blk), sw_bytes),
+        "switched_mlp_fused": (
+            lambda: fused_dispatch.switched_mlp_fused(
+                x, rows, tile_cls, *weights, block_t=blk),
+            lambda: fused_dispatch.switched_mlp_fused_plain(
+                x, rows, tile_cls, *weights, block_t=blk), fu_bytes),
+    }
+    out = {}
+    for name, (kern, plain, n_bytes) in run.items():
+        ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern, plain,
+                                                    flush)
+        b_ms, b_by = bound(dtype, n_bytes, flops)
+        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name} {dtype} {label} ({t} rows, t_pad={xp.shape[0]}, "
+            f"{len(classes)} classes, {live} of {tile_cls.numel()} tiles "
+            f"under a real class): kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {n_bytes} "
+            f"B, {flops} FLOP), max |kernel-plain| {err[name]:.3g}")
     return out
 
 
@@ -745,27 +785,114 @@ class PlanCounter:
             m.make_dispatch_plan = self.real
 
 
-def drive(torch, srv, prompts, max_new):
+def drive(torch, srv, prompts, max_new, qos=None, count_syncs=False):
     """Submit the stream and tick the server dry, each tick timed on the
     host clock (a tick ends by reading the device) and filed by phase.
-    Returns (requests, DrainStats, {phase: [ms]}, wall s)."""
+    ``qos`` gives each request's ``error_bound``/``tier`` keywords.  With
+    ``count_syncs`` the host-device synchronizations of each tick are
+    counted (torch.cuda.set_sync_debug_mode) and the times are not
+    clean.  Returns (requests, DrainStats, {phase: [ms]}, wall s,
+    {phase: [syncs]})."""
+    import warnings
+
     from repro_torch.runtime.server import Request
-    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new,
+                    **(qos[i] if qos else {}))
             for i, p in enumerate(prompts)]
     for r in reqs:
         srv.submit(r)
     torch.cuda.synchronize()
     times = {"prefill": [], "decode": []}
+    syncs = {"prefill": [], "decode": []}
     t0 = time.perf_counter()
     while (srv.queue or any(x is not None for x in srv.slots)) \
             and srv.ticks < 10_000:
         before, a = srv.prefill_ticks, time.perf_counter()
-        if srv.tick():
+        with warnings.catch_warnings(record=True) as caught:
+            if count_syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            ran = srv.tick()
+            torch.cuda.set_sync_debug_mode("default")
+        if ran:
             torch.cuda.synchronize()
             phase = "prefill" if srv.prefill_ticks > before else "decode"
             times[phase].append((time.perf_counter() - a) * 1e3)
+            syncs[phase].append(sum("synchroniz" in str(w.message)
+                                    for w in caught))
     wall = time.perf_counter() - t0
-    return reqs, srv.run_until_drained(), times, wall
+    return reqs, srv.run_until_drained(), times, wall, syncs
+
+
+def run_stream(torch, cfg, params, prompts, label, qos=None,
+               count_syncs=False, **over):
+    """Serve the stream through a DecodeServer in the scheduler's serving
+    configuration (``over`` changes options), with the launch counts set
+    to 0 just before and read just after.  Fails unless every request is
+    served, every page comes back, each tick launched the run's own
+    switch kernel once per layer and no other, and the dispatch plans are
+    one a tick (tick scope) or one a layer a tick (layer scope)."""
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    kernels = {"pallas": switched_mlp.switched_mlp,
+               "pallas_fused": fused_dispatch.switched_mlp_fused}
+    opts = {**SCHED, "use_mcma_dispatch": True, "backend": "pallas", **over}
+    srv = DecodeServer(cfg, params, options=ServeOptions(**opts))
+    steps0 = (srv.decode, srv.chunk)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    with PlanCounter() as plans:
+        reqs, st, times, wall, syncs = drive(torch, srv, prompts,
+                                             SCHED_MAX_NEW, qos, count_syncs)
+    launches = {b: k.launches for b, k in kernels.items()}
+    if not all(r.done and not r.aborted for r in reqs) or \
+            st["undrained_queued"] or st["undrained_inflight"]:
+        raise AssertionError(f"{label}: the stream did not drain")
+    if opts["kv_page_size"] and st["pages_in_use"] != 0:
+        raise AssertionError(f"{label}: {st['pages_in_use']} pages held "
+                             "at drain")
+    ticks = st["ticks"]
+    want = cfg.n_layers * ticks
+    per_tick = 1 if opts["route_scope"] == "tick" else cfg.n_layers
+    if launches[opts["backend"]] != want or sum(launches.values()) != want \
+            or plans.calls != per_tick * ticks:
+        raise AssertionError(f"{label}: launches {launches}, {plans.calls} "
+                             f"dispatch plans in {ticks} ticks; want {want} "
+                             f"of {opts['backend']} alone and {per_tick} "
+                             "plan(s) a tick")
+    n_tok = sum(len(r.out) for r in reqs)
+    ttft = statistics.mean(r.first_token_tick - r.arrival_tick for r in reqs)
+    med = {ph: statistics.median(v) if v else 0.0 for ph, v in times.items()}
+    mean = {ph: statistics.mean(v) if v else 0.0 for ph, v in times.items()}
+    pages = (f", pages hwm {st['page_hwm']}/{opts['kv_pages']}, "
+             f"alloc_failures {st['alloc_failures']}, page_util "
+             f"{st['page_util']:.3f}") if opts["kv_page_size"] else ""
+    sync = "" if not count_syncs else (
+        f"; host syncs per decode tick mean "
+        f"{statistics.mean(syncs['decode']):.2f} max {max(syncs['decode'])}"
+        f", per prefill tick mean {statistics.mean(syncs['prefill']):.2f} "
+        f"max {max(syncs['prefill'])} (times under the sync counter)")
+    log(f"  {label}: {ticks} ticks ({len(times['decode'])} decode, "
+        f"{st['prefill_ticks']} prefill); ms per decode tick median "
+        f"{med['decode']:.2f} mean {mean['decode']:.2f}, per prefill "
+        f"tick median {med['prefill']:.2f} mean {mean['prefill']:.2f}; "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+        f"mean TTFT {ttft:.2f} ticks; invocation rate "
+        f"{st['invocation_rate']:.4f}, served "
+        f"{st['served_invocation_rate']:.4f}; launches {launches}, "
+        f"dispatch plans {plans.calls}; kv_bytes_resident "
+        f"{st['kv_bytes_resident']}{pages}{sync}")
+    return dict(srv=srv, tokens=[r.out for r in reqs], stats=st,
+                launches=launches, tick_log=list(srv.tick_log),
+                steps0=steps0)
+
+
+def stream_prompts(np, cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, n).astype(np.int32)
+            for n in SCHED_PROMPTS]
 
 
 def serve_scheduler(np, torch):
@@ -773,79 +900,23 @@ def serve_scheduler(np, torch):
     configuration (tick scope, chunked prefill, paged KV), gates 1 to 5 of
     the phase, and the slice-1 configuration on the same stream."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import fused_dispatch, switched_mlp
     from repro_torch.models import model as M
-    from repro_torch.runtime.options import ServeOptions
-    from repro_torch.runtime.server import DecodeServer
     cfg = get_config("internlm2-1.8b")
     cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
         cfg.approx, enable=True))
     params = M.init_model(0, cfg, device="cuda")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in SCHED_PROMPTS]
-    kernels = {"pallas": switched_mlp.switched_mlp,
-               "pallas_fused": fused_dispatch.switched_mlp_fused}
+    prompts = stream_prompts(np, cfg)
 
     def run(label, cfg_=cfg, **over):
-        opts = {**SCHED, "use_mcma_dispatch": True, "backend": "pallas",
-                **over}
-        srv = DecodeServer(cfg_, params, options=ServeOptions(**opts))
-        torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
-        with PlanCounter() as plans:
-            reqs, st, times, wall = drive(torch, srv, prompts, SCHED_MAX_NEW)
-        launches = {b: k.launches for b, k in kernels.items()}
-        if not all(r.done and not r.aborted for r in reqs) or \
-                st["undrained_queued"] or st["undrained_inflight"]:
-            raise AssertionError(f"{label}: the stream did not drain")
-        if opts["kv_page_size"] and st["pages_in_use"] != 0:
-            raise AssertionError(f"{label}: {st['pages_in_use']} pages held "
-                                 "at drain")
-        n_tok = sum(len(r.out) for r in reqs)
-        ttft = statistics.mean(r.first_token_tick - r.arrival_tick
-                               for r in reqs)
-        med = {ph: statistics.median(v) if v else 0.0
-               for ph, v in times.items()}
-        mean = {ph: statistics.mean(v) if v else 0.0
-                for ph, v in times.items()}
-        pages = (f", pages hwm {st['page_hwm']}/{opts['kv_pages']}, "
-                 f"alloc_failures {st['alloc_failures']}, page_util "
-                 f"{st['page_util']:.3f}") if opts["kv_page_size"] else ""
-        log(f"  {label}: {st['ticks']} ticks ({len(times['decode'])} decode, "
-            f"{st['prefill_ticks']} prefill); ms per decode tick median "
-            f"{med['decode']:.2f} mean {mean['decode']:.2f}, per prefill "
-            f"tick median {med['prefill']:.2f} mean {mean['prefill']:.2f}; "
-            f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
-            f"mean TTFT {ttft:.2f} ticks; invocation rate "
-            f"{st['invocation_rate']:.4f}; launches {launches}, "
-            f"dispatch plans {plans.calls}; kv_bytes_resident "
-            f"{st['kv_bytes_resident']}{pages}")
-        return dict(tokens=[r.out for r in reqs], stats=st, launches=launches,
-                    plans=plans.calls, tick_log=list(srv.tick_log),
-                    backend=opts["backend"])
+        return run_stream(torch, cfg_, params, prompts, label, **over)
 
+    # gates 1 and 2: both kernel backends give equal tokens; every run
+    # launches its own kernel once per layer a tick, one plan a tick
     runs = {b: run(f"{b} tick/chunk 64/paged 16", backend=b)
             for b in ("pallas", "pallas_fused")}
-    # gate 1: both kernel backends, equal tokens
     if runs["pallas"]["tokens"] != runs["pallas_fused"]["tokens"]:
         raise AssertionError("scheduler: greedy tokens differ between "
                              "pallas and pallas_fused")
-    # gate 2: one launch per layer per tick on the run's own backend, none
-    # of the other kernel, one dispatch plan per tick
-    for r in runs.values():
-        ticks = r["stats"]["ticks"]
-        want = cfg.n_layers * ticks
-        if r["launches"][r["backend"]] != want or \
-                sum(r["launches"].values()) != want:
-            raise AssertionError(f"scheduler {r['backend']}: launches "
-                                 f"{r['launches']}, want {want} of "
-                                 f"{r['backend']} alone")
-        if r["plans"] != ticks:
-            raise AssertionError(f"scheduler {r['backend']}: "
-                                 f"{r['plans']} dispatch plans in {ticks} "
-                                 "ticks")
     log(f"  gates 1-2: tokens equal across backends; {cfg.n_layers} launches "
         f"and 1 dispatch plan per tick on each")
     # gate 3: the dense cache, same schedule, same tokens and tick log
@@ -887,6 +958,229 @@ def serve_scheduler(np, torch):
                              "prefill sample different tokens")
     log("  gate 5: float32 no-clip, chunked == token by token (tokens)")
     return runs
+
+
+def visited_rungs(summary) -> set:
+    """The ladder rungs a decode tick ran on, from a CapacityController
+    summary: the start and every switch's target but one made at the last
+    observed tick."""
+    sw = summary["switches"]
+    start = sw[0]["from_index"] if sw else summary["final_index"]
+    return {start} | {x["to_index"] for x in sw
+                      if x["tick"] < summary["ticks"]}
+
+
+def serve_features(np, torch):
+    """Full-width internlm2-1.8b in the scheduler's serving configuration
+    with per-request QoS tiers, an approximator library and capacity
+    autotune, each on both kernel backends, with the phase's gates; then
+    both switch kernels on the new inputs (plans of the top rung and of a
+    ladder_from_counts rung, residency-gathered stacks).  Returns this
+    phase's launches per kernel, run by run: {backend: [{"run", "ticks",
+    "launches"}, ...]} for each run that launched that backend's kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import autotune as at
+    from repro_torch.runtime.options import LibrarySpec
+    cfg = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True))
+    params = M.init_model(0, cfg, device="cuda")
+    prompts = stream_prompts(np, cfg)
+    backends = ("pallas", "pallas_fused")
+    by_run = {b: [] for b in backends}
+
+    def run(label, cfg_=cfg, params_=params, **over):
+        r = run_stream(torch, cfg_, params_, prompts, label, **over)
+        for b in backends:
+            if r["launches"][b]:
+                by_run[b].append(dict(run=label, ticks=r["stats"]["ticks"],
+                                      launches=r["launches"][b]))
+        return r
+
+    def same_tokens(runs, what):
+        if runs["pallas"]["tokens"] != runs["pallas_fused"]["tokens"]:
+            raise AssertionError(f"{what}: greedy tokens differ between "
+                                 "pallas and pallas_fused")
+
+    # 1. QoS: tiers round-robin, half the requests by error_bound, half by
+    # tier, on the default table (0.05, 0.10, 0.20)
+    bounds = at.default_tier_bounds(cfg.approx.error_bound)
+    qos = [dict(error_bound=bounds[i % 3]) if i % 2 == 0
+           else dict(tier=i % 3) for i in range(len(prompts))]
+    q = {b: run(f"{b} QoS tiers {bounds}", qos=qos, qos_tiers=True,
+                backend=b) for b in backends}
+    same_tokens(q, "QoS")
+    if q["pallas"]["stats"]["per_tier"] != \
+            q["pallas_fused"]["stats"]["per_tier"]:
+        raise AssertionError("QoS: per-tier ledgers differ between backends")
+    for b, r in q.items():
+        srv = r["srv"]
+        if not (np.array_equal(srv.tier_routed_sum.sum(0), srv.routed_sum)
+                and np.array_equal(srv.tier_dispatched_sum.sum(0),
+                                   srv.dispatched_sum)
+                and srv.tier_routed_sum.sum() == srv.active_sum):
+            raise AssertionError(f"QoS {b}: the per-tier counts do not sum "
+                                 "to the totals")
+    srv = q["pallas"]["srv"]
+    log(f"  QoS margins {[round(float(m), 4) for m in srv.tier_margins]}, "
+        f"default tier {srv.default_tier}")
+    for p in q["pallas"]["stats"]["per_tier"]:
+        log(f"  tier {p['tier']} (bound {p['error_bound']}, margin "
+            f"{p['margin']:+.4f}): {p['rows']:.0f} rows, routed invocation "
+            f"{p['routed_invocation_rate']:.4f}, served invocation "
+            f"{p['served_invocation_rate']:.4f}, dropped_frac "
+            f"{p['dropped_frac']:.4f}")
+    base = run("pallas every request at the base tier",
+               qos=[dict(tier=srv.default_tier)] * len(prompts),
+               qos_tiers=True)
+    plain = run("pallas untiered")
+    if base["tokens"] != plain["tokens"] or \
+            base["tick_log"] != plain["tick_log"]:
+        raise AssertionError("QoS: the base-tier server's tokens or tick "
+                             "log differ from the untiered server's")
+    log("  QoS gates: tokens and per-tier ledgers equal across backends; "
+        "per-tier counts sum to the totals; base tier == untiered (tokens "
+        "and tick log)")
+
+    # 2. the library: 6 approximators, 3 resident
+    cfg_lib = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, library_size=6))
+    params_lib = M.init_model(0, cfg_lib, device="cuda")
+    spec = LibrarySpec(library_size=6, n_resident=3, observe_window=2,
+                       cooldown=2)
+    lib = {b: run(f"{b} library 6 (3 resident)", cfg_lib, params_lib,
+                  library=spec, backend=b) for b in backends}
+    same_tokens(lib, "library")
+    st = lib["pallas"]["stats"]
+    if st["residency"] != lib["pallas_fused"]["stats"]["residency"]:
+        raise AssertionError("library: the swaps differ between backends")
+    for b, r in lib.items():
+        s_ = r["stats"]
+        lrc = s_["lib_routed_per_class"]
+        if len(lrc) != 7 or s_["off_set_exact_rows"] != \
+                s_["routed_per_class"][0] - lrc[0] or \
+                s_["off_set_exact_rows"] > sum(lrc[1:]):
+            raise AssertionError(f"library {b}: lib_routed_per_class {lrc} "
+                                 "does not reconcile with off_set_exact_rows "
+                                 f"{s_['off_set_exact_rows']}")
+        srv_ = r["srv"]
+        if (srv_.decode, srv_.chunk) != r["steps0"] or srv_._steps \
+                or srv_._chunk_steps:
+            raise AssertionError(f"library {b}: a swap built a new step")
+    swaps = st["residency"]["swaps"]
+    log(f"  library: lib_routed_per_class {st['lib_routed_per_class']}, "
+        f"off_set_exact_rows {st['off_set_exact_rows']}, final resident "
+        f"set {st['residency']['final_residency']}, "
+        + (f"{len(swaps)} swaps: " + "; ".join(
+            f"tick {x['tick']} slot {x['slot']}: {x['demoted']} -> "
+            f"{x['promoted']} (EMA {x['cold_ema']:.3f} -> "
+            f"{x['hot_ema']:.3f})" for x in swaps) if swaps else "no swap"))
+    n = cfg.approx.n_approx
+    cfg_id = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, library_size=n))
+    ident = run(f"pallas identity residency (library of {n}, {n} "
+                "resident)", cfg_id, params, library=LibrarySpec(n, n))
+    if ident["tokens"] != plain["tokens"] or \
+            ident["tick_log"] != plain["tick_log"]:
+        raise AssertionError("library: identity residency differs from the "
+                             "library-less server")
+    log("  library gates: tokens and swaps equal across backends; "
+        "lib_routed_per_class (7) reconciles with off_set_exact_rows; the "
+        "two step objects unchanged across swaps; identity residency == "
+        "library-less (tokens and tick log)")
+
+    # 3. autotune over the default ladder
+    ladder = at.default_ladder(cfg)
+    atr = {b: run(f"{b} autotune (drop budget 0.05)", autotune=True,
+                  drop_budget=0.05, backend=b) for b in backends}
+    same_tokens(atr, "autotune")
+    summ = atr["pallas"]["stats"]["autotune"]
+    if summ != atr["pallas_fused"]["stats"]["autotune"]:
+        raise AssertionError("autotune: the rung trajectories differ")
+    for b, r in atr.items():
+        srv_ = r["srv"]
+        seen = visited_rungs(r["stats"]["autotune"])
+        if set(srv_._steps) != seen or not set(srv_._chunk_steps) <= seen:
+            raise AssertionError(f"autotune {b}: decode steps built for "
+                                 f"rungs {sorted(srv_._steps)}, chunk steps "
+                                 f"{sorted(srv_._chunk_steps)}, rungs "
+                                 f"visited {sorted(seen)}")
+    log(f"  autotune ladder {[(p.exact_frac, p.invoke_frac) for p in ladder]}"
+        f"; trajectory: "
+        + ("; ".join(f"tick {x['tick']} rung {x['from_index']} -> "
+                     f"{x['to_index']} (drop EMA {x['drop_ema']:.4f})"
+                     for x in summ["switches"]) or "no switch")
+        + f"; final rung {summ['final_index']}; "
+        f"{len(atr['pallas']['srv']._steps)} decode step objects for "
+        f"{len(visited_rungs(summ))} rungs visited")
+    log("  autotune gates: tokens and trajectory equal across backends; one "
+        "decode step object per rung visited")
+
+    # host syncs per tick (separate runs: the counter slows the host)
+    run("pallas untiered, syncs counted", count_syncs=True)
+    run("pallas QoS, syncs counted", qos=qos, qos_tiers=True,
+        count_syncs=True)
+    run("pallas library, syncs counted", cfg_lib, params_lib, library=spec,
+        count_syncs=True)
+    run("pallas autotune, syncs counted", autotune=True, drop_budget=0.05,
+        count_syncs=True)
+
+    # 4. both switch kernels at the new inputs
+    rung = next((p for p in plain["srv"].derived_ladder()
+                 if len(set(p.invoke_fracs)) > 1),
+                plain["srv"].derived_ladder()[0])
+    blk = params_lib.blocks[0].approx
+    res = torch.tensor(lib["pallas"]["stats"]["residency"]["final_residency"],
+                       dtype=torch.int32, device="cuda")
+    feature_kernels(np, torch, cfg, at, rung, blk, res)
+    del params, params_lib
+    for b in backends:
+        log(f"  {b} launches by run: " + "; ".join(
+            f"{x['run']}: {x['launches']} = {cfg.n_layers} x {x['ticks']} "
+            "ticks" for x in by_run[b]))
+    return by_run
+
+
+def feature_kernels(np, torch, cfg, at, rung, blk, residency):
+    """Both switch kernels against their plain twins, timed in bf16, at a
+    decode tick's 8 rows and a 512-row chunk, on plans of the default
+    ladder's top rung (no row dropped), of an asymmetric
+    ``ladder_from_counts`` rung, and on stacks gathered from a library
+    with a residency vector (n_resident + 1 rows of library_size + 1)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import dispatch
+    a = cfg.approx
+    d, dh = cfg.d_model, a.d_hidden
+    top = at.default_ladder(cfg)[-1]
+    log(f"  kernel inputs: top rung {top}; ladder_from_counts rung "
+        f"exact_frac {rung.exact_frac:.3f} invoke_fracs "
+        f"{tuple(round(f, 3) for f in rung.invoke_fracs)}; library stacks "
+        f"{tuple(blk.a_w1.shape)} gathered at residency "
+        f"{residency.tolist()}")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(21)
+    for kind, pt in (("top rung", top), ("ladder_from_counts rung", rung),
+                     ("gathered stacks", top)):
+        n = residency.numel() if kind == "gathered stacks" else a.n_approx
+        for t in (SERVE["batch"], SCHED["batch"] * SCHED["prefill_chunk"]):
+            logits = torch.from_numpy(rng.normal(size=(t, n + 1))
+                                      .astype(np.float32)).cuda()
+            plan = dispatch.make_dispatch_plan(
+                logits, operating_point=pt, backend="pallas",
+                block_t=a.block_t)
+            for dtype in ("float32", "bfloat16"):
+                x, w = switch_inputs(np, torch, rng, t, n + 1, d, dh, dtype)
+                if kind == "gathered stacks":
+                    g1, g2, g3, g4 = ops.gather_resident_stacks(
+                        blk.a_w1, blk.a_b1, blk.a_w2, blk.a_b2, residency)
+                    w = [v.to(getattr(torch, dtype)) for v in (
+                        g1[:, :d, :dh], g2[:, :dh], g3[:, :dh, :d],
+                        g4[:, :d])]
+                time_switch_case(np, torch, flush, x, plan.eff, w,
+                                 a.block_t, dtype, f"{kind} {t} rows",
+                                 timed=dtype == "bfloat16")
+    del flush
 
 
 def smoke_reference_check(np, torch):
@@ -990,6 +1284,12 @@ def main() -> int:
     serve_scheduler(np, torch)
     torch.cuda.empty_cache()
 
+    log("[serve qos library autotune full width]")
+    t0 = time.time()
+    feature_launches = serve_features(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
     log("[smoke reference]")
     smoke_reference_check(np, torch)
     torch.cuda.empty_cache()
@@ -1004,26 +1304,34 @@ def main() -> int:
     # library_ms is null for all four: no single PyTorch call computes a
     # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh
     # + addmm) or the recurrence (a loop of steps)
+    # launches: the sum over the main-path runs that launched the kernel;
+    # launches_by_run: each of those runs with its own count
     rows = []
-    for name, src, replaces, tm, launches in (
+    switch_runs = {b: [dict(run=f"slice 1 {b}", ticks=results[b]["ticks"],
+                            launches=results[b]["launches"])]
+                   + feature_launches[b] for b in ("pallas", "pallas_fused")}
+    for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",
-             timing["switched_mlp", "bfloat16"],
-             results["pallas"]["launches"]),
+             timing["switched_mlp", "bfloat16"], switch_runs["pallas"]),
             ("switched_mlp_fused", "fused_dispatch.cu",
              "src/repro/kernels/fused_dispatch.py:120",
              timing["switched_mlp_fused", "bfloat16"],
-             results["pallas_fused"]["launches"]),
+             switch_runs["pallas_fused"]),
             ("mlp_forward", "mcma_mlp.cu",
              "src/repro/kernels/mcma_mlp.py:37", mlp["bfloat16"],
-             mlp["launches"]),
+             [dict(run="ops.mlp_apply", launches=mlp["launches"])]),
             ("slstm_scan", "slstm_scan.cu",
              "src/repro/kernels/slstm_scan.py:94",
-             slstm["prefill", "bfloat16"], sum(slstm_launches.values()))):
+             slstm["prefill", "bfloat16"],
+             [dict(run=f"xlstm {k}", launches=v)
+              for k, v in slstm_launches.items()])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(x["launches"] for x in by_run),
+            "launches_by_run": by_run,
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None})

@@ -3,24 +3,35 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         [--arch internlm2-1.8b | xlstm-1.3b] [--backend pallas] \\
         [--route-scope layer | tick] [--prefill-chunk 64] \\
+        [--qos] [--library-size 6 --n-resident 3] [--autotune] \\
         [--ticks 6] [--seed 0]
 
-Serves the full-width model (all layers, random weights from ``--seed``,
-batch 8, max_len 256; internlm2-1.8b with MCMA dispatch on ``--backend``
-at ``--route-scope``) until every slot is decoding, then:
-  * times ``--ticks`` decode steps with the host clock (each ended by a
-    synchronize), and counts the host-device synchronizations one step
+Builds the full-width model (all layers, random weights from ``--seed``,
+batch 8, max_len 256).  internlm2-1.8b runs through a ``DecodeServer``
+with MCMA dispatch on ``--backend`` at ``--route-scope``, 8 requests
+admitted into its slots, and each tick is the server's own: its step at
+the autotuner's rung, its tensor inputs, its one device read and its
+controllers (``profile_server``).  xlstm-1.3b runs its bare decode step.
+Then:
+  * times ``--ticks`` decode ticks with the host clock (each ended by a
+    synchronize), and counts the host-device synchronizations one tick
     makes (``torch.cuda.set_sync_debug_mode``);
-  * traces the same steps with ``torch.profiler`` and prints the device
+  * traces the same ticks with ``torch.profiler`` and prints the device
     busy time per tick (the sum over GPU kernels only: an operator's
     device time is its kernels' time, so adding both would count it
     twice), the kernel launches per tick, the idle share, the top kernels
     by device time and the top operators by calls.
 With ``--prefill-chunk`` S > 0 (internlm2-1.8b) it then does the same for
-``--ticks`` prefill-chunk ticks of S tokens in each of the 8 slots
-(``steps.make_prefill_chunk_step`` from position 0, the invocation rate
-read as the server reads it).  For xlstm-1.3b it does the same for
-``--ticks`` prefills of an (8, 256) prompt batch.  Needs a CUDA device.
+``--ticks`` prefill-chunk ticks of S tokens in each of the 8 slots (the
+server's chunk step from position 0, the invocation rate read as the
+server reads it).  For xlstm-1.3b it does the same for ``--ticks``
+prefills of an (8, 256) prompt batch.
+
+The serve-time features are the server's options: ``--qos`` serves the
+default tier table with the 8 slots' tiers round-robin over it;
+``--library-size N --n-resident R`` a model of N approximators with R
+resident; ``--autotune`` the default ladder with a 0.05 drop budget.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -87,6 +98,15 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="also profile prefill-chunk ticks of this many "
                          "tokens per slot (internlm2-1.8b)")
+    ap.add_argument("--qos", action="store_true",
+                    help="a mixed-tier batch on the default tier table")
+    ap.add_argument("--library-size", type=int, default=0,
+                    help="serve a library of this many approximators")
+    ap.add_argument("--n-resident", type=int, default=0,
+                    help="resident slots with --library-size (0 = "
+                         "min(4, library_size))")
+    ap.add_argument("--autotune", action="store_true",
+                    help="walk the default capacity ladder per tick")
     ap.add_argument("--ticks", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -102,55 +122,27 @@ def main(argv=None):
     dev = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
-    dense = cfg.family == "dense"
-    if dense:
-        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
-            cfg.approx, enable=True))
-    params = M.init_model(args.seed, cfg, device=dev)
-    kw = dict(use_mcma_dispatch=dense, with_stats=dense,
-              backend=args.backend,
-              route_scope=args.route_scope if dense else None)
-    step = steps.make_decode_step(cfg, **kw)
     b = 8
-    cache = M.init_cache(cfg, b, 256, device=dev)
     rng = np.random.default_rng(args.seed)
+    if cfg.family == "dense":
+        profile_server(args, np, torch, cfg, dev, b, rng)
+        return
+    params = M.init_model(args.seed, cfg, device=dev)
+    step = steps.make_decode_step(cfg)
+    cache = M.init_cache(cfg, b, 256, device=dev)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))
                             .astype(np.int32)).to(dev)
     mask = torch.ones(b, dtype=torch.bool, device=dev)
 
     def tick():
         nonlocal toks, cache
-        logits, cache, *m = step(params, cache, toks, mask)
+        logits, cache = step(params, cache, toks, mask)
         toks = logits.argmax(-1).to(torch.int32)[:, None]
-        if m:
-            float(m[0]["invocation"])        # the server reads it per tick
 
     for _ in range(3):
         tick()
-    scope = f", backend {args.backend}, route_scope {args.route_scope}" \
-        if dense else ""
     measure(torch, f"{cfg.name} {cfg.n_layers} layers, decode tick, batch "
-            f"{b}{scope}", tick, args.ticks)
-    if dense and args.prefill_chunk:
-        del cache
-        s = args.prefill_chunk
-        chunk = steps.make_prefill_chunk_step(cfg, **kw)
-        ccache = M.init_cache(cfg, b, 256, device=dev)
-        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
-                                 .astype(np.int32)).to(dev)
-        nv = torch.full((b,), s, dtype=torch.int32, device=dev)
-
-        def chunk_tick():
-            ccache["pos"].zero_()
-            _, m = chunk(params, ccache, ctoks, nv)
-            float(m["invocation"])           # the server reads it per tick
-
-        for _ in range(3):
-            chunk_tick()
-        measure(torch, f"{cfg.name} {cfg.n_layers} layers, prefill-chunk "
-                f"tick of {b} x {s} tokens{scope}", chunk_tick, args.ticks)
-    if dense:
-        return
+            f"{b}", tick, args.ticks)
     del cache
     prefill = steps.make_prefill_step(cfg)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 256))
@@ -159,6 +151,98 @@ def main(argv=None):
     report(f"{cfg.name} prefill of {b} x 256 tokens",
            *profiled(torch, lambda: prefill(params, {"inputs": prompt}),
                      args.ticks), args.ticks)
+
+
+def dense_server(args, np, cfg, dev, b, rng):
+    """A ``DecodeServer`` over the full-width dense model with the
+    features the flags ask for, and ``b`` one-token requests admitted
+    into its slots (tiers round-robin over the table under ``--qos``).
+    Returns the server and the profile rows' label."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.options import LibrarySpec, ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True))
+    opts = dict(batch=b, max_len=256, use_mcma_dispatch=True,
+                backend=args.backend, route_scope=args.route_scope,
+                prefill_chunk=args.prefill_chunk)
+    label = f", backend {args.backend}, route_scope {args.route_scope}"
+    if args.library_size:
+        r = args.n_resident or min(4, args.library_size)
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, library_size=args.library_size))
+        opts["library"] = LibrarySpec(args.library_size, r)
+        label += f", library {args.library_size} ({r} resident)"
+    if args.qos:
+        opts["qos_tiers"] = True
+    if args.autotune:
+        opts.update(autotune=True, drop_budget=0.05)
+        label += ", autotune (default ladder)"
+    params = M.init_model(args.seed, cfg, device=dev)
+    srv = DecodeServer(cfg, params, options=ServeOptions(**opts))
+    n_tiers = len(srv.tier_bounds) if srv.tier_bounds else 0
+    if n_tiers:
+        label += f", QoS tiers {srv.tier_bounds} mixed"
+    for i in range(b):
+        srv.submit(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 1).astype(np.int32),
+            max_new=128, tier=i % n_tiers if n_tiers else None))
+    srv._admit()
+    return srv, label
+
+
+def profile_server(args, np, torch, cfg, dev, b, rng):
+    """The dense family's ticks as ``DecodeServer`` runs them: its step
+    at the controller's rung (``_active_step``), its tensor inputs
+    (``_step_inputs``: the slots' tier vector, the margins, the resident
+    set), its one device read (``_read_tick``) and its controllers
+    (``_observe_decode``), on 8 decoding slots; then its chunk step."""
+    srv, label = dense_server(args, np, cfg, dev, b, rng)
+    cfg = srv.cfg
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))
+                            .astype(np.int32)).to(dev)
+    mask = torch.ones(b, dtype=torch.bool, device=dev)
+    rungs = []
+
+    def tick():
+        nonlocal toks
+        if srv.controller is not None:
+            rungs.append(srv.controller.index)
+        logits, srv.cache, m = srv._active_step()(
+            srv.params, srv.cache, toks, mask, **srv._step_inputs())
+        nxt = torch.argmax(logits, -1)
+        srv._observe_decode(srv._read_tick(m, nxt, srv.cache["pos"]))
+        toks = nxt.to(torch.int32)[:, None]
+
+    for _ in range(3):
+        tick()
+    measure(torch, f"{cfg.name} {cfg.n_layers} layers, decode tick, batch "
+            f"{b}{label}", tick, args.ticks)
+    if args.prefill_chunk:
+        s = args.prefill_chunk
+        ctoks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32)).to(dev)
+        nv = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+        def chunk_tick():
+            srv.cache["pos"].zero_()
+            srv.cache, m = srv._active_chunk_step()(
+                srv.params, srv.cache, ctoks, nv, **srv._step_inputs())
+            float(m["invocation"])           # the server reads it per tick
+
+        for _ in range(3):
+            chunk_tick()
+        measure(torch, f"{cfg.name} {cfg.n_layers} layers, prefill-chunk "
+                f"tick of {b} x {s} tokens{label}", chunk_tick, args.ticks)
+    if srv.controller is not None:
+        print(f"autotune: decode ticks ran on rungs {rungs}, "
+              f"{len(srv._steps)} decode and {len(srv._chunk_steps)} chunk "
+              f"step objects; switches "
+              f"{srv.controller.summary()['switches']}")
+    if srv.residency_controller is not None:
+        summ = srv.residency_controller.summary()
+        print(f"residency: final {summ['final_residency']}, "
+              f"{summ['swap_count']} swaps")
 
 
 def measure(torch, what, fn, n):

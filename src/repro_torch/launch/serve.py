@@ -3,14 +3,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --approx --mcma-dispatch [--backend pallas_fused] \\
         [--route-scope tick] [--prefill-chunk 64] \\
-        [--kv-page-size 16 [--kv-pages 128]] [--smoke] [--device cpu]
+        [--kv-page-size 16 [--kv-pages 128]] [--qos [--qos-app bessel |
+        --tier-bounds 0.05,0.1,0.2]] [--library-size 6 --n-resident 3]
+        [--autotune [--drop-budget 0.05]] [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         [--smoke] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; the weights are random,
 from ``--seed``.  Prompts load ``--prefill-chunk`` tokens per prefill
 tick (default 16, as the reference's CLI; 0 = token by token; the xLSTM
-family always feeds token by token).
+family always feeds token by token).  With ``--qos`` the requests cycle
+through the tier table's bounds and the default tier, and the per-tier
+ledger is printed; ``--library-size`` builds a library model and prints
+the swaps; ``--autotune`` prints the rung trajectory and the ladder the
+served counts suggest.
 """
 from __future__ import annotations
 
@@ -50,7 +56,9 @@ def main(argv=None):
     options = ServeOptions.from_args(args)
     if args.approx or options.use_mcma_dispatch:
         cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
-            cfg.approx, enable=True))
+            cfg.approx, enable=True,
+            library_size=options.library.library_size
+            if options.library else cfg.approx.library_size))
     params = M.init_model(args.seed, cfg, device=device)
     server = DecodeServer(cfg, params, options=options)
 
@@ -59,6 +67,11 @@ def main(argv=None):
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len)
                     .astype(np.int32), max_new=args.max_new)
             for i in range(args.requests)]
+    if options.qos_tiers:
+        # a mixed-tier wave: the tier table's bounds and the default tier
+        choices = list(server.tier_bounds) + [None]
+        for i, r in enumerate(reqs):
+            r.error_bound = choices[i % len(choices)]
     for r in reqs:
         server.submit(r)
     stats = server.run_until_drained()
@@ -80,6 +93,34 @@ def main(argv=None):
         print(f"served invocation rate: {stats['served_invocation_rate']:.3f}"
               f" (dropped {stats['dropped_rows']:.1f} rows,"
               f" frac {stats['dropped_frac']:.4f})")
+    for p in stats.get("per_tier", ()):
+        print(f"tier {p['tier']} (bound {p['error_bound']:.3f}, margin "
+              f"{p['margin']:+.2f}): {p['rows']:.0f} rows, routed "
+              f"invocation {p['routed_invocation_rate']:.3f}, served "
+              f"{p['served_invocation_rate']:.3f}, dropped_frac "
+              f"{p['dropped_frac']:.4f}")
+    if "residency" in stats:
+        r = stats["residency"]
+        print(f"residency: final hot set {r['final_residency']} after "
+              f"{r['swap_count']} swaps (off-set exact rows "
+              f"{stats['off_set_exact_rows']:.1f})")
+        for s in r["swaps"]:
+            print(f"  tick {s['tick']}: slot {s['slot']} {s['demoted']} -> "
+                  f"{s['promoted']} (EMA {s['cold_ema']:.3f} -> "
+                  f"{s['hot_ema']:.3f})")
+    if "autotune" in stats:
+        a = stats["autotune"]
+        print(f"autotune: final rung {a['final_index']} "
+              f"{a['final_point']} after {len(a['switches'])} switches")
+        for s in a["switches"]:
+            print(f"  tick {s['tick']}: rung {s['from_index']} -> "
+                  f"{s['to_index']} (drop EMA {s['drop_ema']:.4f})")
+        if server.routed_history:
+            print("ladder_from_counts (the served class-count quantiles "
+                  "as per-class rungs for the next deployment):")
+            for pt in server.derived_ladder():
+                print(f"  exact_frac={pt.exact_frac:.3f} invoke_fracs="
+                      f"{tuple(round(f, 3) for f in pt.invoke_fracs)}")
     if done != len(reqs):
         raise RuntimeError(f"server failed to drain: {done}/{len(reqs)}")
     return stats

@@ -11,9 +11,13 @@ tokens contribute zero.
 
 Routing is per layer (``route_scope="layer"``) or once per tick
 (``"tick"``: ``make_tick_plan`` builds one plan from the model's
-tick-router head, and every layer executes against it).  The co-training
-path and the sharded serve path are not ported yet (ROADMAP queue 1,
-items 9 and 10).
+tick-router head, and every layer executes against it).  Per-request QoS
+tiers add a per-tier margin to each row's exact-path logit; with an
+approximator library (``approx.library_size > 0``) the router heads are
+library-wide and a residency vector folds the library onto the resident
+slots, whose weight rows each layer gathers.  The co-training path and
+the sharded serve path are not ported yet (ROADMAP queue 1, items 9 and
+10).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import LANE, _pad_to
+from repro_torch.kernels.ops import LANE, _pad_to, gather_resident_stacks
 from repro_torch.models.layers import FFN, ffn_fwd, param
 from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
                                           mcma_dispatch, plan_invoke_stats)
@@ -80,6 +84,14 @@ def serve_caps(cfg: ModelConfig, t_local: int):
     return ec, shard_capacity(t_local, a.invoke_frac, slack=a.shard_slack)
 
 
+def _default_margins(cfg: ModelConfig, device) -> torch.Tensor:
+    """The config's static per-tier margins (zeros when unset): what every
+    serve path uses when a caller passes tiers without a margins vector."""
+    a = cfg.approx
+    return torch.tensor(a.tier_margins or (0.0,) * a.n_tiers,
+                        dtype=torch.float32, device=device)
+
+
 def _row_mask_tokens(row_mask, s: int):
     """Normalize an active mask to per-ROW (B*S,) bools: a per-slot (B,)
     mask repeats over the slot's S tokens; a (B, S) token mask flattens."""
@@ -89,17 +101,35 @@ def _row_mask_tokens(row_mask, s: int):
     return rm.reshape(-1) if rm.ndim == 2 else rm.repeat_interleave(s)
 
 
+def _tier_args(cfg: ModelConfig, tier, tier_margins, s: int):
+    """Normalize the per-slot QoS args for a (B, S) row batch: the (B,)
+    tier vector repeated over each slot's S rows, and the margins vector
+    defaulted from the config when the caller passed tiers without one."""
+    if tier is None:
+        return None, None
+    tr = tier.to(torch.int32).repeat_interleave(s)
+    if tier_margins is None:
+        tier_margins = _default_margins(cfg, tier.device)
+    return tr, tier_margins
+
+
 def make_tick_plan(cfg: ModelConfig, params, x: torch.Tensor,
-                   row_mask: torch.Tensor | None = None):
+                   row_mask: torch.Tensor | None = None,
+                   tier: torch.Tensor | None = None,
+                   tier_margins: torch.Tensor | None = None,
+                   residency: torch.Tensor | None = None):
     """One DispatchPlan per tick (``route_scope="tick"``), single device.
 
     Classifies with the model's tick-router head (``params.tick_router``)
     on the pre-layer hidden state ``x`` (B, S, d), runs capacity and the
     class sort once, and returns the plan every layer executes against.
-    ``row_mask`` is a per-slot (B,) or per-token (B, S) active mask.  The
-    reference's ``tier``/``tier_margins``/``residency`` arguments come
-    with the QoS and library servers (ROADMAP queue 1, items 6b and 6c),
-    its mesh branch with item 10."""
+    ``row_mask`` is a per-slot (B,) or per-token (B, S) active mask.
+    ``tier`` ((B,) int32) and ``tier_margins`` ((n_tiers,) float32) route
+    each slot at its own error-bound tier, and the plan carries the
+    per-tier split.  ``residency`` ((n_resident,) int32 library ids) folds
+    the library-wide head's routing onto the resident slots; every layer
+    then executes against stacks gathered with the same vector.  The
+    reference's mesh branch comes with ROADMAP queue 1, item 10."""
     a = cfg.approx
     b, s, d = x.shape
     t = b * s
@@ -109,33 +139,50 @@ def make_tick_plan(cfg: ModelConfig, params, x: torch.Tensor,
                          "but these params have none")
     xt = x.reshape(t, d)
     logits = (xt @ router.to(xt.dtype)).float()
+    tr, tier_margins = _tier_args(cfg, tier, tier_margins, s)
     ec, ic = serve_caps(cfg, t)
     return make_dispatch_plan(
         logits, _row_mask_tokens(row_mask, s), exact_cap=ec, invoke_cap=ic,
-        backend=a.backend, block_t=a.block_t)
+        backend=a.backend, block_t=a.block_t, tier=tr,
+        tier_margins=tier_margins, residency=residency)
 
 
-def execute_plan(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor, plan):
+def execute_plan(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor, plan,
+                 residency: torch.Tensor | None = None):
     """This layer's ApproxFFN against a tick plan: the exact FFN on the
     plan's exact rows and one weight-switch launch over its class-sorted
-    rows; no router, sort or stats here.  x: (B, S, d) -> (B, S, d)."""
+    rows; no router, sort or stats here.  ``residency`` (library serving:
+    the vector the plan was built with) gathers the resident rows of the
+    library stacks first.  x: (B, S, d) -> (B, S, d)."""
     b, s, d = x.shape
+    stacks = (p.a_w1, p.a_b1, p.a_w2, p.a_b2)
+    if residency is not None:
+        stacks = gather_resident_stacks(*stacks, residency)
     out = execute_dispatch(plan, x.reshape(b * s, d),
                            lambda xb: ffn_fwd(cfg, p.ffn, xb),
-                           p.a_w1, p.a_b1, p.a_w2, p.a_b2,
-                           weights_prepadded=True)
+                           *stacks, weights_prepadded=True)
     return out.reshape(b, s, d)
 
 
 def approx_ffn_serve(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor,
-                     row_mask: torch.Tensor | None = None, plan=None):
+                     row_mask: torch.Tensor | None = None, plan=None,
+                     tier: torch.Tensor | None = None,
+                     tier_margins: torch.Tensor | None = None,
+                     residency: torch.Tensor | None = None):
     """Serving path with capacity dispatch.  x: (B, S, d) -> (out, aux).
 
     ``row_mask`` ((B,) or (B, S) bool) marks the ACTIVE rows; idle rows
-    are excluded from dispatch and from every invoke stat.  ``plan`` (a
-    tick plan from ``make_tick_plan``): the routing decision was made
-    once above the layers and this layer only executes against it
-    (``row_mask`` is ignored: the plan embeds it).  The engine is
+    are excluded from dispatch and from every invoke stat.  ``tier``
+    ((B,) int32) and ``tier_margins`` ((n_tiers,) float32): per-request
+    QoS, each slot routed at its own tier's exact-logit margin, the
+    invoke stats split per tier.  ``residency`` ((n_resident,) int32
+    library ids): the stacks and router hold the full library; the
+    resident rows are gathered per call (ops.gather_resident_stacks) and
+    library routing folds onto the resident slots.  ``plan`` (a tick plan
+    from ``make_tick_plan``): the routing decision was made once above the
+    layers and this layer only executes against it (``row_mask`` and
+    ``tier`` are ignored: the plan embeds them; ``residency`` only picks
+    the executed weights and must be the plan's).  The engine is
     ``runtime/dispatch.mcma_dispatch``; ``cfg.approx.backend`` picks the
     executor ("pallas" = switched CUDA kernel, "pallas_fused" = fused CUDA
     kernel, "xla" = eager oracle)."""
@@ -143,16 +190,18 @@ def approx_ffn_serve(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor,
     b, s, d = x.shape
     t = b * s
     if plan is not None:
-        return execute_plan(cfg, p, x, plan), _aux(plan_invoke_stats(plan),
-                                                   x.device)
+        return (execute_plan(cfg, p, x, plan, residency),
+                _aux(plan_invoke_stats(plan), x.device))
     xt = x.reshape(t, d)
+    tr, tier_margins = _tier_args(cfg, tier, tier_margins, s)
     ec, ic = serve_caps(cfg, t)
     logits = (xt @ p.router.to(x.dtype)).float()
     out, stats = mcma_dispatch(
         xt, logits, lambda xb: ffn_fwd(cfg, p.ffn, xb),
         p.a_w1, p.a_b1, p.a_w2, p.a_b2, exact_cap=ec, invoke_cap=ic,
         backend=a.backend, block_t=a.block_t,
-        row_mask=_row_mask_tokens(row_mask, s), weights_prepadded=True)
+        row_mask=_row_mask_tokens(row_mask, s), weights_prepadded=True,
+        tier=tr, tier_margins=tier_margins, residency=residency)
     return out.reshape(b, s, d), _aux(stats, x.device)
 
 

@@ -338,9 +338,15 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     last page is the trash page, the block table (B, n_pp) maps each
     slot's page index to a pool page (-1 = unallocated, written to the
     trash page), and attention runs over the gathered per-slot view,
-    the dense reduction shape.  Returns (out (B, S, d), new_cache).  On
-    decode the caller guarantees ``pos < Skv`` (model.decode checks it
-    once per step): the reference's dynamic-update-slice would clamp."""
+    the dense reduction shape.  Returns (out (B, S, d), new_cache).
+
+    A decode at ``pos >= Skv`` computes what the reference computes, with
+    no host read: on a dense cache the write lands on row ``Skv - 1``
+    (the reference's ``dynamic_update_slice`` clamps its start); on a
+    paged cache the page index clamps onto the block table's last entry
+    and the write lands at offset ``pos % page_size`` of that page (a -1
+    entry still sends it to the trash page); attention then covers every
+    position."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(cfg, q, positions)
@@ -359,17 +365,20 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         bt = cache["block_table"]
         page_size = ck.shape[1]
         skv = bt.shape[1] * page_size
-        pg, off = _page_targets(bt, pos[:, None], torch.ones_like(
-            pos[:, None], dtype=torch.bool), page_size, ck.shape[0] - 1)
-        ck[pg[:, 0], off[:, 0]] = k[:, 0].to(ck.dtype)
-        cv[pg[:, 0], off[:, 0]] = v[:, 0].to(cv.dtype)
+        pg_idx = (pos // page_size).clamp(max=bt.shape[1] - 1)
+        pg = torch.gather(bt, 1, pg_idx.long()[:, None])[:, 0]
+        pg = torch.where(pg >= 0, pg, ck.shape[0] - 1).long()
+        off = (pos % page_size).long()
+        ck[pg, off] = k[:, 0].to(ck.dtype)
+        cv[pg, off] = v[:, 0].to(cv.dtype)
         ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
         new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + 1}
     else:
         rows = torch.arange(b, device=x.device)
-        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
         skv = ck.shape[1]
+        row = pos.clamp(max=skv - 1).long()
+        ck[rows, row] = k[:, 0].to(ck.dtype)
+        cv[rows, row] = v[:, 0].to(cv.dtype)
         ak, av = ck, cv
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]

@@ -121,22 +121,29 @@ def init_model(key, cfg: ModelConfig, *, device=None) -> Model:
 
 
 def _dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, cache, *,
-                 serve=False, row_mask=None, dispatch_plan=None):
+                 serve=False, row_mask=None, dispatch_plan=None, tier=None,
+                 tier_margins=None, residency=None):
     """One transformer block.  Returns (x, new_cache, aux_loss, metrics).
 
     ``dispatch_plan`` (serve, ``route_scope="tick"``): the tick's plan,
     built above the layers; this block's ApproxFFN executes against it
-    and reports no metrics of its own (the step reports the plan's)."""
+    and reports no metrics of its own (the step reports the plan's).
+    ``tier``/``tier_margins`` (serve, layer scope): per-slot QoS tiers of
+    this block's own routing (a tick plan embeds them).  ``residency``
+    (serve, library): the (n_resident,) library ids whose weight rows
+    this block executes."""
     h, new_cache = L.attention_fwd(cfg, p.attn, L.norm_fwd(cfg, p.ln1, x),
                                    positions, cache)
     x = x + h
     f, aux, metrics = _ffn_part(cfg, p, L.norm_fwd(cfg, p.ln2, x), serve,
-                                row_mask, dispatch_plan)
+                                row_mask, dispatch_plan, tier, tier_margins,
+                                residency)
     return x + f, new_cache, aux, metrics
 
 
 def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None,
-              dispatch_plan=None):
+              dispatch_plan=None, tier=None, tier_margins=None,
+              residency=None):
     zero = torch.zeros((), dtype=torch.float32, device=xn.device)
     if not cfg.approx.enable:
         return L.ffn_fwd(cfg, p.ffn, xn), zero, {}
@@ -144,8 +151,11 @@ def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None,
         raise NotImplementedError("the ApproxFFN co-training path is not "
                                   "ported yet (ROADMAP queue 1, item 9)")
     if dispatch_plan is not None:
-        return execute_plan(cfg, p.approx, xn, dispatch_plan), zero, {}
-    y, a = approx_ffn_serve(cfg, p.approx, xn, row_mask=row_mask)
+        return execute_plan(cfg, p.approx, xn, dispatch_plan,
+                            residency), zero, {}
+    y, a = approx_ffn_serve(cfg, p.approx, xn, row_mask=row_mask,
+                            tier=tier, tier_margins=tier_margins,
+                            residency=residency)
     return y, a["loss"], _dispatch_metrics(a["invoke_stats"])
 
 
@@ -167,7 +177,8 @@ def _dispatch_metrics(st) -> dict:
             "off_set_exact_rows": st["off_set_exact_rows"].float()}
 
 
-def _tick_plan(cfg: ModelConfig, params: Model, x, row_mask, serve: bool):
+def _tick_plan(cfg: ModelConfig, params: Model, x, row_mask, serve: bool,
+               tier=None, tier_margins=None, residency=None):
     """The tick's dispatch plan under ``route_scope="tick"``, else None;
     an unknown scope raises instead of routing per layer."""
     if not (serve and cfg.approx.enable):
@@ -177,7 +188,8 @@ def _tick_plan(cfg: ModelConfig, params: Model, x, row_mask, serve: bool):
                          "(expected 'layer' or 'tick')")
     if cfg.approx.route_scope == "layer":
         return None
-    return make_tick_plan(cfg, params, x, row_mask)
+    return make_tick_plan(cfg, params, x, row_mask, tier=tier,
+                          tier_margins=tier_margins, residency=residency)
 
 
 def _step_metrics(plan, per_layer: list) -> dict:
@@ -367,17 +379,12 @@ def _decode_xlstm(cfg: ModelConfig, params: Model, cache, x):
     return x
 
 
-def _kv_length(cache) -> int:
-    """Positions a slot of a dense-family cache can hold: max_len (dense)
-    or n_pp x page_size (paged)."""
-    if "block_table" in cache:
-        return cache["block_table"].shape[1] * cache["k"].shape[2]
-    return cache["k"].shape[2]
-
-
 def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
            serve: bool = True, collect_metrics: bool = False,
-           row_mask: torch.Tensor | None = None):
+           row_mask: torch.Tensor | None = None,
+           tier: torch.Tensor | None = None,
+           tier_margins: torch.Tensor | None = None,
+           residency: torch.Tensor | None = None):
     """One decode step.  inputs: tokens (B, 1).  Returns (logits (B, V),
     cache), or (logits, cache, metrics) when ``collect_metrics`` — the
     ApproxFFN dispatch metrics (dense family: the layer mean, or under
@@ -388,13 +395,22 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     reference donates its cache and returns an updated one).  Dense
     family, dense or paged cache: ``row_mask`` ((B,) bool) marks the
     ACTIVE slots: idle slots are excluded from the dispatch and its
-    stats, and their ``pos`` holds; every slot's ``pos`` must be below
-    the cache length (checked here, one host sync; the reference would
-    clamp the write).  ``route_scope="tick"`` builds one DispatchPlan
-    from the tick-router head above the layers and every layer executes
-    against it.  xLSTM family, as in the reference: every slot's ``pos``
-    advances by 1 whatever ``row_mask``, and there is no cache end to
-    check."""
+    stats, and their ``pos`` holds.  A slot at or past the cache end
+    decodes as in the reference (``layers.attention_fwd`` clamps its
+    write); nothing here reads ``pos`` on the host.
+    ``route_scope="tick"`` builds one DispatchPlan from the tick-router
+    head above the layers and every layer executes against it.
+
+    ``tier`` ((B,) int32) and ``tier_margins`` ((n_tiers,) float32):
+    per-slot QoS tiers, each slot routed at its own tier's exact-logit
+    margin, and the metrics carry the per-tier split.  ``residency``
+    ((n_resident,) int32 library ids, ``approx.library_size > 0``):
+    routing covers the full library, folds onto the resident slots, and
+    every layer executes the residency-gathered weight rows.  Both are
+    tensor data: a new tier mix, margin or hot set needs no new step.
+
+    xLSTM family, as in the reference: every slot's ``pos`` advances by
+    1 whatever ``row_mask``, and there is no cache end."""
     x = L.embed_fwd(cfg, params.embed, inputs)
     pos = cache["pos"]
     per_layer, plan = [], None
@@ -402,16 +418,17 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
         x = _decode_xlstm(cfg, params, cache, x)
         cache["pos"] = pos + 1
     else:
-        skv = _kv_length(cache)
-        if int(pos.max()) >= skv:
-            raise ValueError(f"decode past the cache end: pos "
-                             f"{pos.tolist()} with max_len {skv}")
-        plan = _tick_plan(cfg, params, x, row_mask, serve)
+        plan = _tick_plan(cfg, params, x, row_mask, serve, tier,
+                          tier_margins, residency)
+        if plan is not None:
+            tier = tier_margins = None       # the plan embeds the tiers
         positions = pos[:, None]
         for i, blk in enumerate(params.blocks):
             x, _, _, m = _dense_block(cfg, blk, x, positions,
                                       _layer_cache(cache, i), serve=serve,
-                                      row_mask=row_mask, dispatch_plan=plan)
+                                      row_mask=row_mask, dispatch_plan=plan,
+                                      tier=tier, tier_margins=tier_margins,
+                                      residency=residency)
             per_layer.append(m)
         adv = 1 if row_mask is None else row_mask.to(torch.int32)
         cache["pos"] = (pos + adv).to(torch.int32)
@@ -425,7 +442,10 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
 def decode_chunk(cfg: ModelConfig, params: Model, cache,
                  tokens: torch.Tensor, n_valid: torch.Tensor, *,
                  serve: bool = True, collect_metrics: bool = False,
-                 row_mask: torch.Tensor | None = None):
+                 row_mask: torch.Tensor | None = None,
+                 tier: torch.Tensor | None = None,
+                 tier_margins: torch.Tensor | None = None,
+                 residency: torch.Tensor | None = None):
     """One chunked-PREFILL step against the decode cache layout (dense or
     paged).
 
@@ -438,7 +458,9 @@ def decode_chunk(cfg: ModelConfig, params: Model, cache,
     cache end, and padded tokens, write nothing.  The serve-mode dispatch
     (and the tick plan) runs on the B*S rows under a TOKEN mask (the slot
     is active and the token is below its ``n_valid``), so padded rows
-    never reach the router, the capacities or a stat."""
+    never reach the router, the capacities or a stat.  ``tier``,
+    ``tier_margins`` and ``residency`` as in ``decode`` (a slot's tier
+    holds for all its S tokens)."""
     topo = topology(cfg)
     assert topo.kind == "uniform" and not cfg.sliding_window, \
         "decode_chunk needs the uniform family with a dense KV cache " \
@@ -452,13 +474,18 @@ def decode_chunk(cfg: ModelConfig, params: Model, cache,
     tok_mask = off[None, :] < n_valid[:, None]
     if row_mask is not None:
         tok_mask = tok_mask & row_mask.to(torch.bool)[:, None]
-    plan = _tick_plan(cfg, params, x, tok_mask, serve)
+    plan = _tick_plan(cfg, params, x, tok_mask, serve, tier, tier_margins,
+                      residency)
+    if plan is not None:
+        tier = tier_margins = None           # the plan embeds the tiers
     per_layer = []
     for i, blk in enumerate(params.blocks):
         x, _, _, m = _dense_block(cfg, blk, x, positions,
                                   _layer_cache(cache, i, n_valid=n_valid),
                                   serve=serve, row_mask=tok_mask,
-                                  dispatch_plan=plan)
+                                  dispatch_plan=plan, tier=tier,
+                                  tier_margins=tier_margins,
+                                  residency=residency)
         per_layer.append(m)
     cache["pos"] = (pos + n_valid).to(torch.int32)
     return cache, (_step_metrics(plan, per_layer) if collect_metrics else {})

@@ -29,6 +29,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.rules import shard_capacity
 
 PALLAS_BACKENDS = ("pallas", "pallas_fused")
 DISPATCH_BACKENDS = ("xla",) + PALLAS_BACKENDS
@@ -183,7 +184,8 @@ class DispatchPlan:
 
 def make_dispatch_plan(logits: torch.Tensor,
                        row_mask: torch.Tensor | None = None, *,
-                       exact_cap: int, invoke_cap, backend: str = "xla",
+                       exact_cap: int | None = None, invoke_cap=None,
+                       operating_point=None, backend: str = "xla",
                        block_t: int = 128,
                        tier: torch.Tensor | None = None,
                        tier_margins: torch.Tensor | None = None,
@@ -192,10 +194,14 @@ def make_dispatch_plan(logits: torch.Tensor,
     """classify -> capacity -> class-sort, once, as a reusable plan.
 
     logits: (T, n_approx + 1) router scores (class 0 = exact); ``row_mask``
-    marks ACTIVE rows.  ``invoke_cap`` is an int shared by every class or
-    a length-n_approx tuple.  ``tier``/``tier_margins`` apply per-row QoS
-    margins and split the counts per tier; ``residency`` ((n_resident,)
-    library ids) folds full-library routing onto resident slots.
+    marks ACTIVE rows.  Capacities come from ``exact_cap``/``invoke_cap``
+    (an int shared by every class or a length-n_approx tuple) or from an
+    ``operating_point`` (runtime/autotune.OperatingPoint, applied to this
+    batch's row count through sharding/rules.shard_capacity with its
+    slack; its ``invoke_fracs`` give the per-class form).
+    ``tier``/``tier_margins`` apply per-row QoS margins and split the
+    counts per tier; ``residency`` ((n_resident,) library ids) folds
+    full-library routing onto resident slots.
     """
     if backend not in DISPATCH_BACKENDS:
         raise ValueError(f"unknown dispatch backend: {backend!r}")
@@ -208,6 +214,17 @@ def make_dispatch_plan(logits: torch.Tensor,
     else:
         library_size = 0
         n = logits.shape[-1] - 1
+    if operating_point is not None:
+        assert exact_cap is None and invoke_cap is None, \
+            "pass capacities OR an operating_point, not both"
+        pt = operating_point
+        exact_cap = shard_capacity(t, pt.exact_frac, slack=pt.shard_slack)
+        if pt.invoke_fracs:
+            invoke_cap = tuple(shard_capacity(t, f, slack=pt.shard_slack)
+                               for f in pt.class_fracs(n))
+        else:
+            invoke_cap = shard_capacity(t, pt.invoke_frac,
+                                        slack=pt.shard_slack)
     if isinstance(invoke_cap, list):
         invoke_cap = tuple(invoke_cap)
     class_caps = tuple(invoke_cap) if isinstance(invoke_cap, tuple) \

@@ -30,12 +30,27 @@ request's worst-case page count up front, so growth in flight can never
 run the pool dry, and the cost model prices pages.  ``route_scope="tick"``
 routes once per tick (models/approx_ffn.make_tick_plan).
 
+Per-request QoS (``qos_tiers``, ``qos_app``): a table of ascending
+error bounds, each with an exact-logit router margin
+(runtime/autotune.margins_from_bounds); ``submit`` snaps a request's
+``error_bound`` onto the table (or takes its ``tier``), the tier vector
+and the margins ride into every step as tensors, cost admission weighs
+tight tiers more, and the drain summary carries the ``per_tier`` ledger.
+An approximator library (``library``, a ``LibrarySpec``): the checkpoint
+holds ``library_size`` approximators, ``n_resident`` of them serve at a
+time, and a ``ResidencyController`` fed each decode tick's full-library
+demand (``lib_counts``) swaps the resident set, a new residency vector
+through the same step objects.  Capacity autotune (``autotune``): a
+``CapacityController`` walks a ladder of operating points from each
+decode tick's routed counts and dropped rows; each rung has its own
+decode and chunk step, built on first use and cached.  The controllers
+read each decode tick's counts on the host: one device read a tick,
+with the sampled tokens and ``pos``.
+
 The server runs where its parameters live.  The xLSTM family has no KV
 cache and no ApproxFFN (``--mcma-dispatch`` runs report invocation rate
-0).  Options of features not ported yet raise ``NotImplementedError``
-naming the ROADMAP item that ports them: QoS tiers (``qos_tiers``,
-``qos_app``; item 6b), library residency and autotune (``library``,
-``autotune``; item 6c) and the mesh (``mesh``; item 10).
+0).  ``mesh`` is not ported yet and raises ``NotImplementedError``
+naming ROADMAP queue 1, item 10.
 """
 from __future__ import annotations
 
@@ -48,6 +63,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.runtime import autotune as at
 from repro_torch.runtime import steps as steps_lib
 from repro_torch.runtime.options import ServeOptions
 
@@ -55,10 +71,6 @@ from repro_torch.runtime.options import ServeOptions
 # ROADMAP queue 1 item that ports each; a non-default value raises.
 _UNPORTED = {
     "mesh": "item 10 (multiple devices)",
-    "autotune": "item 6c (runtime/autotune.py)",
-    "qos_tiers": "item 6b (QoS tiers, with apps/ from item 4)",
-    "qos_app": "item 6b (QoS tiers, with apps/ from item 4)",
-    "library": "item 6c (library residency)",
 }
 
 
@@ -97,6 +109,12 @@ class DrainStats:
     dispatched_per_class: Optional[list] = None
     dropped_frac: Optional[float] = None
     served_invocation_rate: Optional[float] = None
+    per_tier: Optional[list] = None
+    autotune: Optional[dict] = None
+    # approximator-library residency (LibrarySpec deployments only)
+    lib_routed_per_class: Optional[list] = None   # (library_size + 1,)
+    off_set_exact_rows: Optional[float] = None    # off-set, served exact
+    residency: Optional[dict] = None              # the controller's summary
     # paged KV cache (kv_page_size > 0) only
     pages_in_use: Optional[int] = None     # pages held at drain end
     page_hwm: Optional[int] = None         # peak pages held
@@ -153,6 +171,20 @@ class DrainStats:
 _DRAIN_FIELDS = tuple(f.name for f in dataclasses.fields(DrainStats))
 
 
+def to_host(named: dict) -> dict:
+    """Named device tensors as numpy arrays of their shapes, in ONE
+    device read: gathered into one float64 vector (token ids, positions
+    and float32 counts are all exact in float64) and split back."""
+    parts = list(named.values())
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in parts]).cpu().numpy()
+    out, i = {}, 0
+    for k, t in zip(named, parts):
+        out[k] = flat[i:i + t.numel()].reshape(t.shape)
+        i += t.numel()
+    return out
+
+
 def _check_ported(o: ServeOptions):
     default = ServeOptions()
     for name, item in _UNPORTED.items():
@@ -177,6 +209,9 @@ class DecodeServer:
                              "(expected 'reject' or 'trim')")
         self.cfg, self.params = cfg, params
         self.device = next(params.parameters()).device
+        cfg = self._setup_qos(cfg, o)
+        cfg = self._setup_library(cfg, o)
+        self.cfg = cfg
         self.batch, self.max_len, self.eos = o.batch, o.max_len, o.eos
         self.greedy = o.greedy
         self.gen = torch.Generator(device=self.device).manual_seed(o.seed)
@@ -226,17 +261,32 @@ class DecodeServer:
         # acquisition and the unservable-prompt guard without a device
         # read, and is pinned against the device after every decode tick
         self._pos_host = np.zeros((self.batch,), np.int64)
-        step_kw = dict(use_mcma_dispatch=self.use_mcma_dispatch,
-                       with_stats=self.use_mcma_dispatch,
-                       route_scope=self.route_scope, backend=self.backend)
-        self.decode = steps_lib.make_decode_step(cfg, **step_kw)
-        self.chunk = steps_lib.make_prefill_chunk_step(cfg, **step_kw) \
-            if self.prefill_chunk else None
+        self.controller = self._make_controller(cfg, o)
+        # the decode-tick metrics read on the host (_read_tick)
+        self._tick_metrics = ("invocation", "dropped_rows", "dispatched",
+                              "class_counts")
+        if self.tier_bounds is not None:
+            self._tick_metrics += ("tier_counts", "tier_dispatched")
+        if self.residency_controller is not None:
+            self._tick_metrics += ("lib_counts", "off_set_exact_rows")
+        self._steps = {}             # ladder index -> decode step
+        self._chunk_steps = {}       # ladder index -> chunk step
+        self.decode = self._make_step(None)
+        self.chunk = self._make_chunk_step(None) if self.prefill_chunk \
+            else None
         self.invocation_sum = 0.0    # active-slot-weighted invocation sum
         self.active_sum = 0          # total active slots over all ticks
         self.dropped_sum = 0.0       # dropped rows over decode ticks
         self.dispatched_sum = None   # (n+1,) dispatched rows, decode ticks
         self.routed_sum = None       # (n+1,) routed rows, decode ticks
+        self.routed_history = []     # per-tick (n+1,) routed counts, the
+                                     # ladder_from_counts signal (bounded)
+        self.routed_history_cap = 4096
+        self.tier_routed_sum = None      # (n_tiers, n+1) per-tier routed
+        self.tier_dispatched_sum = None  # (n_tiers, n+1) per-tier served
+        self.lib_routed_sum = None       # (library_size+1,) library demand
+        self.off_set_sum = 0.0           # rows routed to off-set library
+                                         # classes (served exact)
         # prefill-chunk dispatch stats are kept apart: the invocation rate
         # above is the decode-phase signal
         self.prefill_invocation_sum = 0.0   # token-weighted, chunk ticks
@@ -258,6 +308,157 @@ class DecodeServer:
         self._phase_flip = False  # alternates prefill/decode when both ready
         self._submit_seq = 0
 
+    def _setup_qos(self, cfg: ModelConfig, o: ServeOptions) -> ModelConfig:
+        """The QoS tier table: ``qos_tiers`` True takes the config's
+        ``tier_bounds`` or the default (tight, base, loose) table around
+        the base bound (the ``qos_app``'s registry bound, else the
+        config's); a tuple of bounds is taken as given.  Each tier gets
+        the exact-logit margin ``margins_from_bounds`` assigns it, a
+        tensor input of every step.  Returns the config with the table."""
+        self.tier_bounds = None
+        self.qos_app = None
+        qos_tiers = o.qos_tiers
+        if o.qos_app is not None:
+            from repro_torch.apps.registry import get_app
+            self.qos_app = get_app(o.qos_app)
+            if qos_tiers is None:
+                qos_tiers = True
+        if not qos_tiers:
+            return cfg
+        assert o.use_mcma_dispatch, \
+            "per-request QoS tiers route through the dispatch engine; " \
+            "needs use_mcma_dispatch"
+        base = self.qos_app.error_bound if self.qos_app is not None \
+            else cfg.approx.error_bound
+        if qos_tiers is True:
+            qos_tiers = cfg.approx.tier_bounds \
+                or at.default_tier_bounds(base)
+        self.tier_bounds = tuple(sorted(float(b) for b in qos_tiers))
+        assert self.tier_bounds[0] > 0, self.tier_bounds
+        self.tier_margins = np.asarray(
+            at.margins_from_bounds(self.tier_bounds, base,
+                                   scale=o.qos_margin_scale), np.float32)
+        self._margins_dev = torch.from_numpy(self.tier_margins).to(
+            self.device)
+        # requests without a bound serve at the tier closest to the bound
+        # the router was trained at
+        self.default_tier = int(np.argmin(
+            [abs(b - base) for b in self.tier_bounds]))
+        return dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, n_tiers=len(self.tier_bounds),
+            tier_bounds=self.tier_bounds,
+            tier_margins=tuple(float(m) for m in self.tier_margins)))
+
+    def _setup_library(self, cfg: ModelConfig,
+                       o: ServeOptions) -> ModelConfig:
+        """Approximator-library residency: the checkpoint's full library
+        stays in ``params``; the serving ``n_approx`` becomes the spec's
+        resident-slot count (capacities and the ladder are per slot), and
+        the ``ResidencyController`` starts from the spec's initial set."""
+        self.library = o.library
+        self.residency_controller = None
+        self.residency = None
+        if self.library is None:
+            return cfg
+        spec = self.library
+        assert o.use_mcma_dispatch, \
+            "library residency routes through the dispatch engine; " \
+            "needs use_mcma_dispatch"
+        assert cfg.approx.n_live == spec.library_size, (
+            f"LibrarySpec.library_size={spec.library_size} must equal "
+            f"the checkpoint's trained approximator count "
+            f"(cfg.approx.n_live={cfg.approx.n_live})")
+        assert not cfg.approx.invoke_fracs \
+            or len(cfg.approx.invoke_fracs) == spec.n_resident, (
+                "per-class invoke_fracs are per resident SLOT "
+                f"(need {spec.n_resident}, got "
+                f"{len(cfg.approx.invoke_fracs)})")
+        self.residency_controller = at.ResidencyController(spec)
+        self._set_residency(spec.initial_residency())
+        return dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, n_approx=spec.n_resident,
+            library_size=spec.library_size))
+
+    def _set_residency(self, residency):
+        """Adopt a resident set; its device copy is refreshed only when
+        the set changed."""
+        new = np.asarray(residency, np.int32)
+        if self.residency is None or not np.array_equal(new,
+                                                        self.residency):
+            self._residency_dev = torch.from_numpy(new).to(self.device)
+        self.residency = new
+
+    def _make_controller(self, cfg: ModelConfig, o: ServeOptions):
+        """The capacity controller over ``default_ladder(cfg)`` (or the
+        given ladder), started at the static operating point when the
+        ladder holds it, else at the cheapest rung."""
+        if not o.autotune:
+            return None
+        assert o.use_mcma_dispatch, \
+            "autotune consumes invoke_stats; needs use_mcma_dispatch"
+        ladder = at.default_ladder(cfg) if o.autotune is True \
+            else tuple(o.autotune)
+        n = cfg.approx.n_approx
+        base = at.OperatingPoint(cfg.approx.exact_frac,
+                                 cfg.approx.invoke_frac,
+                                 cfg.approx.shard_slack)
+        kw = dict(o.autotune_kwargs or {})
+        if "start" not in kw and base in ladder:
+            kw["start"] = ladder.index(base)
+        return at.CapacityController(
+            ladder, lambda pt: at.point_caps(pt, self.batch, n),
+            drop_budget=o.drop_budget, **kw)
+
+    def _step_kw(self, point) -> dict:
+        return dict(use_mcma_dispatch=self.use_mcma_dispatch,
+                    with_stats=self.use_mcma_dispatch, operating_point=point,
+                    route_scope=self.route_scope, backend=self.backend)
+
+    def _make_step(self, point):
+        return steps_lib.make_decode_step(self.cfg, **self._step_kw(point))
+
+    def _make_chunk_step(self, point):
+        return steps_lib.make_prefill_chunk_step(self.cfg,
+                                                 **self._step_kw(point))
+
+    def _active_step(self):
+        """The decode step for this tick: the controller's current rung
+        when autotuning (built on first use, then cached), else the
+        static step."""
+        if self.controller is None:
+            return self.decode
+        idx = self.controller.index
+        if idx not in self._steps:
+            self._steps[idx] = self._make_step(self.controller.ladder[idx])
+        return self._steps[idx]
+
+    def _active_chunk_step(self):
+        """The chunk step at the decode step's rung (prefill runs at the
+        same operating point; its stats never feed the controller)."""
+        if self.controller is None:
+            return self.chunk
+        idx = self.controller.index
+        if idx not in self._chunk_steps:
+            self._chunk_steps[idx] = self._make_chunk_step(
+                self.controller.ladder[idx])
+        return self._chunk_steps[idx]
+
+    def _step_inputs(self) -> dict:
+        """The tick's tensor inputs beyond the tokens: the slots' tier
+        vector and the margins (QoS), the residency vector (library)."""
+        kw = {}
+        if self.tier_bounds is not None:
+            kw["tier"] = torch.from_numpy(self._tiers_arr()).to(self.device)
+            kw["tier_margins"] = self._margins_dev
+        if self.residency is not None:
+            kw["residency"] = self._residency_dev
+        return kw
+
+    def _tiers_arr(self) -> np.ndarray:
+        return np.asarray(
+            [self.default_tier if s is None or s.tier is None
+             else s.tier for s in self.slots], np.int32)
+
     def submit(self, req: Request):
         """Queue a request; per-request limits are validated HERE, loudly.
 
@@ -265,7 +466,15 @@ class DecodeServer:
         max_len`` must hold; overlong prompts raise under
         ``overflow="reject"`` or keep their LAST ``max_len - max_new``
         tokens under ``overflow="trim"``.  On a paged cache a request
-        whose worst case needs more pages than the pool holds raises."""
+        whose worst case needs more pages than the pool holds raises.
+
+        ``req.error_bound`` is checked against the tier table (anchored
+        on the registry app's bound under ``qos_app``): a bound tighter
+        than the tightest tier, or not positive and finite, raises; a
+        valid one snaps to the largest tier bound <= the request (served
+        at or tighter than asked; looser than every tier clamps to the
+        loosest).  ``req.tier`` picks a tier directly and must be in
+        range.  Either on a server without a tier table raises."""
         req.prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if req.prompt.size == 0:
             raise ValueError(f"request {req.rid}: empty prompt — a request "
@@ -273,10 +482,6 @@ class DecodeServer:
         if req.max_new < 1:
             raise ValueError(f"request {req.rid}: max_new {req.max_new} "
                              "must be >= 1")
-        if req.error_bound is not None or req.tier is not None:
-            raise NotImplementedError(
-                f"request {req.rid} carries a QoS error_bound/tier; QoS "
-                "tiers are not ported yet: ROADMAP queue 1, item 6b")
         budget = self.max_len - int(req.max_new)
         if req.prompt.size > budget:
             if self.overflow == "reject":
@@ -300,21 +505,62 @@ class DecodeServer:
                     f"the pool holds only {self.n_pages} "
                     f"(kv_page_size={self.page_size}); the request could "
                     "never be scheduled: raise kv_pages or shorten it")
+        self._validate_tier(req)
         req.arrival_tick = self.ticks
         req.arrival_s = time.time()
         req._seq = self._submit_seq          # FIFO tiebreak under "cost"
         self._submit_seq += 1
         self.queue.append(req)
 
+    def _validate_tier(self, req: Request):
+        """Snap ``req.error_bound`` onto the tier table, or range-check
+        ``req.tier`` (``submit``'s QoS contract)."""
+        if (req.error_bound is not None or req.tier is not None) \
+                and self.tier_bounds is None:
+            raise ValueError(
+                f"request {req.rid} carries a QoS error_bound/tier but this "
+                "server has no tier table: construct the DecodeServer with "
+                "ServeOptions(qos_tiers=...) (or qos_app=...) to serve "
+                "per-request quality")
+        if req.error_bound is not None:
+            eb = float(req.error_bound)
+            lo = self.tier_bounds[0]
+            app = f" (app '{self.qos_app.name}' registry quality bound " \
+                  f"{self.qos_app.error_bound})" if self.qos_app else ""
+            if not np.isfinite(eb) or eb <= 0.0:
+                raise ValueError(f"request {req.rid}: error_bound {eb!r} "
+                                 f"is not a positive finite relative "
+                                 f"error{app}")
+            if eb < lo - 1e-12:
+                raise ValueError(
+                    f"request {req.rid}: error_bound {eb} is tighter than "
+                    f"the tightest served tier {lo}: out of range for "
+                    f"tiers {self.tier_bounds}{app}")
+            req.tier = max(i for i, b in enumerate(self.tier_bounds)
+                           if b <= eb + 1e-12)
+        elif req.tier is not None:
+            if not 0 <= int(req.tier) < len(self.tier_bounds):
+                raise ValueError(
+                    f"request {req.rid}: tier {req.tier} out of range for "
+                    f"{len(self.tier_bounds)} tiers {self.tier_bounds}")
+            req.tier = int(req.tier)
+
     def _admission_cost(self, req: Request) -> float:
         """Cost-model admission key: the request's appetite for what
         constrains the server (prompt length on a dense cache, the
-        worst-case page count on a paged one) minus an aging credit, so
-        queue time eventually dominates any gap."""
+        worst-case page count on a paged one), scaled by its tier's (a
+        tight tier routes more rows to the exact FFN: the tightest costs
+        x1.5), minus an aging credit, so queue time eventually dominates
+        any gap."""
+        mult = 1.0
+        if self.tier_bounds is not None and len(self.tier_bounds) > 1:
+            tier = req.tier if req.tier is not None else self.default_tier
+            n = len(self.tier_bounds)
+            mult = 1.0 + 0.5 * (n - 1 - tier) / (n - 1)
         age = self.ticks - (req.arrival_tick or 0)
         work = float(self._pages_needed(req.prompt.size + int(req.max_new))) \
             if self.page_size else float(len(req.prompt))
-        return work - self.aging * age
+        return work * mult - self.aging * age
 
     def _pages_needed(self, tokens: int) -> int:
         """Worst-case page count for ``tokens`` cache positions."""
@@ -443,9 +689,9 @@ class DecodeServer:
                 self._ensure_slot_pages(i, int(self._pos_host[i])
                                         + int(nv[i]))
             self._sync_block_table()
-        self.cache, m = self.chunk(self.params, self.cache,
-                                   torch.from_numpy(toks).to(self.device),
-                                   torch.from_numpy(nv).to(self.device))
+        self.cache, m = self._active_chunk_step()(
+            self.params, self.cache, torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(nv).to(self.device), **self._step_inputs())
         self._pos_host += nv
         tokens = int(nv.sum())
         inv = None
@@ -482,34 +728,30 @@ class DecodeServer:
         inputs = torch.from_numpy(toks).to(self.device)
         mask = torch.tensor(active, device=self.device)
         n_active = sum(active)
-        inv = None
         if self.use_mcma_dispatch:
-            logits, self.cache, m = self.decode(self.params, self.cache,
-                                                inputs, mask)
-            # a family without an ApproxFFN (xLSTM) reports no metrics
-            if "invocation" in m:
-                inv = float(m["invocation"])
-                self.invocation_sum += inv * n_active
-                self.active_sum += n_active
-            if "dropped_rows" in m:
-                self.dropped_sum += float(m["dropped_rows"])
-                disp = m["dispatched"].double().cpu().numpy()
-                routed = m["class_counts"].double().cpu().numpy()
-                self.dispatched_sum = disp if self.dispatched_sum is None \
-                    else self.dispatched_sum + disp
-                self.routed_sum = routed if self.routed_sum is None \
-                    else self.routed_sum + routed
+            logits, self.cache, m = self._active_step()(
+                self.params, self.cache, inputs, mask, **self._step_inputs())
         else:
             logits, self.cache = self.decode(self.params, self.cache,
                                              inputs, mask)
-        self._log_tick("decode", n_active, inv)
+            m = {}
         if self.greedy:
             nxt = torch.argmax(logits, -1)
         else:
             probs = torch.softmax(logits.float(), -1)
             nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
-        nxt = nxt.cpu().numpy()
-        pos = self.cache["pos"].cpu().numpy()
+        host = self._read_tick(m, nxt, self.cache["pos"])
+        nxt, pos = host["next"].astype(np.int64), \
+            host["pos"].astype(np.int64)
+        inv = None
+        # a family without an ApproxFFN (xLSTM) reports no metrics
+        if "invocation" in host:
+            inv = float(host["invocation"])
+            self.invocation_sum += inv * n_active
+            self.active_sum += n_active
+        if "dropped_rows" in host:
+            self._observe_decode(host)
+        self._log_tick("decode", n_active, inv)
         for i in rows:
             self._pos_host[i] += 1
             # the mirror drives page acquisition: pin it to the device
@@ -531,6 +773,46 @@ class DecodeServer:
                 req.done = True
                 self.slots[i] = None
                 self._release_slot(i)
+
+    def _read_tick(self, m: dict, nxt: torch.Tensor,
+                   pos: torch.Tensor) -> dict:
+        """The decode tick's one device read: the sampled tokens, ``pos``
+        and the metrics the server and its controllers consume."""
+        return to_host({"next": nxt, "pos": pos,
+                        **{k: m[k] for k in self._tick_metrics if k in m}})
+
+    def _observe_decode(self, host: dict):
+        """Accumulate a decode tick's dispatch stats, the QoS ledger and
+        the library demand, and feed the controllers: the capacity
+        controller picks the next tick's rung, the residency controller
+        the next tick's resident set."""
+        dropped = float(host["dropped_rows"])
+        disp, routed = host["dispatched"], host["class_counts"]
+        self.dropped_sum += dropped
+        self.dispatched_sum = disp if self.dispatched_sum is None \
+            else self.dispatched_sum + disp
+        self.routed_sum = routed if self.routed_sum is None \
+            else self.routed_sum + routed
+        self.routed_history.append(routed)
+        if len(self.routed_history) > self.routed_history_cap:
+            del self.routed_history[0]
+        if "tier_counts" in host:
+            tc, td = host["tier_counts"], host["tier_dispatched"]
+            self.tier_routed_sum = tc if self.tier_routed_sum is None \
+                else self.tier_routed_sum + tc
+            self.tier_dispatched_sum = td \
+                if self.tier_dispatched_sum is None \
+                else self.tier_dispatched_sum + td
+        if self.controller is not None:
+            self.controller.observe({"class_counts": routed,
+                                     "dropped": dropped})
+        if self.residency_controller is not None and "lib_counts" in host:
+            lib = host["lib_counts"]
+            self.lib_routed_sum = lib if self.lib_routed_sum is None \
+                else self.lib_routed_sum + lib
+            self.off_set_sum += float(host["off_set_exact_rows"])
+            self._set_residency(self.residency_controller.observe(
+                {"lib_counts": lib}))
 
     def _log_tick(self, phase: str, tokens: int, invocation):
         self.tick_log.append((phase, tokens, invocation))
@@ -600,6 +882,18 @@ class DecodeServer:
                 stats.dropped_frac = self.dropped_sum / total
                 stats.served_invocation_rate = \
                     float(self.dispatched_sum[1:].sum()) / total
+            if self.tier_bounds is not None \
+                    and self.tier_routed_sum is not None:
+                stats.per_tier = self._per_tier()
+            if self.lib_routed_sum is not None:
+                # full-library demand against what the resident set could
+                # serve: off-set rows were served exact
+                stats.lib_routed_per_class = self.lib_routed_sum.tolist()
+                stats.off_set_exact_rows = self.off_set_sum
+        if self.controller is not None:
+            stats.autotune = self.controller.summary()
+        if self.residency_controller is not None:
+            stats.residency = self.residency_controller.summary()
         if self.page_size:
             stats.pages_in_use = self.pages_in_use
             stats.page_hwm = self.page_hwm
@@ -608,6 +902,41 @@ class DecodeServer:
                 self._held_page_ticks * self.page_size, 1)
         stats.kv_bytes_resident = self._kv_bytes_resident()
         return stats
+
+    def _per_tier(self) -> list:
+        """The drain summary's QoS ledger: routed rows, served and routed
+        invocation and dropped rows attributed to each error-bound tier."""
+        per = []
+        for k, bound in enumerate(self.tier_bounds):
+            routed_k = self.tier_routed_sum[k]
+            disp_k = self.tier_dispatched_sum[k]
+            rows = float(routed_k.sum())
+            dropped = float((routed_k - disp_k).sum())
+            per.append({
+                "tier": k,
+                "error_bound": float(bound),
+                "margin": float(self.tier_margins[k]),
+                "rows": rows,
+                "served_invocation_rate":
+                    float(disp_k[1:].sum()) / max(rows, 1.0),
+                "routed_invocation_rate":
+                    float(routed_k[1:].sum()) / max(rows, 1.0),
+                "dropped_rows": dropped,
+                "dropped_frac": dropped / max(rows, 1.0),
+            })
+        return per
+
+    def derived_ladder(self, **kwargs):
+        """``autotune.ladder_from_counts`` over this server's per-tick
+        routed counts: capacity rungs whose per-class budgets track the
+        observed class-count quantiles, the asymmetric ladder to deploy
+        for the next run of this mix."""
+        assert self.routed_history, \
+            "no served invoke stats yet (needs use_mcma_dispatch ticks)"
+        return at.ladder_from_counts(
+            np.asarray(self.routed_history), self.batch,
+            tier_margins=tuple(float(m) for m in self.tier_margins)
+            if self.tier_bounds is not None else (), **kwargs)
 
     def _kv_bytes_resident(self) -> int:
         """Peak resident KV-cache bytes: a dense cache reserves batch x

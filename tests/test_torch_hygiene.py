@@ -1,6 +1,7 @@
 """Rules of the PyTorch port that hold without the reference: it imports
 neither ``jax`` nor the JAX package, its entry points never drop to the
-CPU quietly, and serving options it has not ported raise."""
+CPU quietly, the serving option it has not ported (``mesh``) raises, and
+the QoS, library and autotune options serve."""
 import ast
 import dataclasses
 import pathlib
@@ -13,7 +14,7 @@ from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as M
-from repro_torch.runtime.options import ServeOptions
+from repro_torch.runtime.options import LibrarySpec, ServeOptions
 from repro_torch.runtime.server import DecodeServer, Request
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,8 +56,11 @@ def test_entry_points_without_device_raise_when_there_is_no_gpu(
             call()
 
 
-UNPORTED = {"mesh": object(), "autotune": True, "qos_tiers": True,
-            "qos_app": "bessel", "library": object()}
+UNPORTED = {"mesh": object()}
+# the options ported with QoS tiers, library residency and autotune
+QOS_LIBRARY_AUTOTUNE = {"autotune": True, "qos_tiers": True,
+                        "qos_app": "bessel",
+                        "library": LibrarySpec(library_size=6, n_resident=2)}
 SCHEDULER = {"kv_page_size": 4, "kv_pages": 8, "prefill_chunk": 4,
              "route_scope": "tick"}
 
@@ -69,6 +73,27 @@ def test_unported_serve_options_raise(field):
                                **{field: UNPORTED[field]})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         DecodeServer(cfg, params, options=opts)
+
+
+@pytest.mark.parametrize("field", sorted(QOS_LIBRARY_AUTOTUNE))
+def test_qos_library_autotune_options_are_served(field):
+    """The options that raised until QoS tiers, library residency and
+    autotune were ported now serve a request."""
+    cfg = _cfg()
+    if field == "library":
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, library_size=6))
+    opts = dataclasses.replace(ServeOptions(use_mcma_dispatch=True, batch=2,
+                                            max_len=16),
+                               **{field: QOS_LIBRARY_AUTOTUNE[field]})
+    srv = DecodeServer(cfg, M.init_model(0, cfg, device="cpu"), options=opts)
+    r = Request(rid=0, prompt=np.arange(1, 10), max_new=3)
+    srv.submit(r)
+    stats = srv.run_until_drained(100)
+    assert r.done and len(r.out) == 3 and stats["undrained_inflight"] == 0
+    key = {"autotune": "autotune", "qos_tiers": "per_tier",
+           "qos_app": "per_tier", "library": "residency"}[field]
+    assert key in stats
 
 
 @pytest.mark.parametrize("field", sorted(SCHEDULER))
@@ -91,7 +116,9 @@ def test_unported_archs_and_qos_requests_raise():
         get_config("olmo-1b")
     cfg = _cfg()
     srv = DecodeServer(cfg, M.init_model(0, cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # QoS is served now: a tiered request on a server without a tier
+    # table is refused as the reference refuses it
+    with pytest.raises(ValueError, match="no tier table"):
         srv.submit(Request(rid=0, prompt=np.ones(2), error_bound=0.1))
 
 

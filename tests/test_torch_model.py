@@ -100,8 +100,13 @@ def test_reset_slot_and_cache_end(models):
     toks = torch.ones((2, 1), dtype=torch.int32)
     for _ in range(2):
         _, cache = step(tparams, cache, toks)
-    with pytest.raises(ValueError, match="past the cache end"):
-        step(tparams, cache, toks)
+    # at the cache end the step decodes as the reference's does: logits,
+    # and the write clamped onto the last row (dynamic_update_slice)
+    k_before = cache["k"].clone()
+    lg, cache = step(tparams, cache, toks)
+    assert torch.isfinite(lg).all() and cache["pos"].tolist() == [3, 3]
+    assert torch.equal(cache["k"][:, :, 0], k_before[:, :, 0])
+    assert not torch.equal(cache["k"][:, :, 1], k_before[:, :, 1])
     TM.reset_slot(tcfg, cache, TM.init_cache(tcfg, 2, 2, device="cpu"), 0)
-    assert cache["pos"].tolist() == [0, 2]
+    assert cache["pos"].tolist() == [0, 3]
     assert not cache["k"][:, 0].any() and cache["k"][:, 1].any()
