@@ -69,16 +69,49 @@ Phases (any failure raises and the script exits non-zero):
   9. the xlstm smoke config in float32 on the card against the same
      parameters on the CPU: prefill 32 tokens, 8 decode ticks, logits
      within 1e-4 and equal greedy tokens;
-  10. a JSON line describing every kernel, then the result line.
+  10. training at full width ([train dense full width]): internlm2-1.8b
+     (24 layers, bf16, remat, the ApproxFFN of 3 approximators of 256
+     with the tick router, error bound 1.4 so that exact and approximator
+     labels both occur at a random init) through the Trainer, batch 8 x 512 with
+     grad_accum 2, 4 steps: ms per step (host clock ended by the step's
+     loss read, median of steps 2 to 4), tokens/s, peak memory, each
+     step's lm_loss, grad_norm, invocation, router_acc and
+     tick_router_acc (all finite), and one more step under the profiler
+     (kernel launches, device busy, idle share);
+  11. [train dense float32 parity]: the same config in float32 cut to 2
+     layers, batch 2 x 64, warmup 0, one train step on the card and one on
+     the CPU from the same state: invocation strictly between 0 and 1,
+     tick labels of at least two classes and equal on both, loss and
+     metrics within 1e-4 relative, each gradient (before the optimizer)
+     within 1e-4, the new parameters within 2 lr;
+  12. [train xlstm full width]: xlstm-1.3b (48 layers, bf16, remat) through
+     the Trainer, batch 4 x 256, 2 steps: slstm_scan launched
+     steps x grad_accum x groups x (1 + remat) = 2 x 1 x 6 x 2 times (the
+     forward, and the remat recompute of each sLSTM block in the
+     backward); ms per step and the backward's share; then
+     slstm_scan_trainable at the prefill shape (256, 8, 4, 512) and the
+     train shape (256, 4, 4, 512) on the card (the kernel phase also
+     holds slstm_scan at the train shape): its outputs within 1e-4 (f32)
+     or 2e-2 (bf16) of slstm_scan_plain's; its gradients with f32
+     weights within 3e-5 of autograd through slstm_scan_plain; with bf16
+     weights within 2e-2 of the plain version's in norm (its autograd
+     rounds the gradient of h to bf16 at every step), and elementwise of
+     autograd through the backward's own recurrence in float64;
+  13. [train resume]: the internlm2 smoke config on the card under
+     torch.use_deterministic_algorithms: saved at step 3, a new Trainer
+     resumes to step 6 and equals an uninterrupted run bitwise;
+  14. a JSON line describing every kernel, then the result line.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,6 +138,19 @@ SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
 SLSTM_WIDE_BATCH = [(16, 64, 4, 512), (4, 256, 4, 512)]
 XLSTM_PROMPT = (8, 256)              # prefill batch, prompt length
 WITNESS = dict(batch=2, seq=256, at=128)
+# the train phases: batch, sequence, microbatches, steps, warmup
+TRAIN_DENSE = dict(batch=8, seq=512, grad_accum=2, steps=4, warmup=2)
+TRAIN_PARITY = dict(n_layers=2, batch=2, seq=64, grad_accum=2, lr=3e-4)
+TRAIN_XLSTM = dict(batch=4, seq=256, grad_accum=1, steps=2, warmup=2)
+# the sLSTM's shape on the xLSTM train path: (seq, microbatch, H, hd)
+SLSTM_TRAIN = (TRAIN_XLSTM["seq"],
+               TRAIN_XLSTM["batch"] // TRAIN_XLSTM["grad_accum"], 4, 512)
+# the dense train phases' relative-error bound: at a random init every
+# error is above the config's 0.1, so every label would be exact; at 1.4
+# exact and approximator labels both occur (as in the CPU train tests)
+TRAIN_ERROR_BOUND = 1.4
+TRAIN_RESUME = dict(batch=4, seq=32, save_at=3, steps=6)
+SLSTM_GRAD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 
 def log(msg):
@@ -402,8 +448,9 @@ def mlp_kernel_phase(np, torch, flush):
 
 def slstm_kernel_phase(np, torch, flush):
     """slstm_scan against its PyTorch version over the sweeps (1e-5),
-    xlstm-1.3b's prefill and decode shapes (timed) and its width at larger
-    batches, with float32 and bfloat16 recurrent weights."""
+    xlstm-1.3b's prefill and decode shapes (timed), its width at larger
+    batches and its train shape, with float32 and bfloat16 recurrent
+    weights."""
     from repro_torch.kernels import slstm_scan as K
     from repro_torch.kernels.sweeps import SLSTM_SHAPES, slstm_inputs
     out = {}
@@ -412,6 +459,9 @@ def slstm_kernel_phase(np, torch, flush):
               for name, s in SLSTM_FULL.items()]
     cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), "wide")
               for s in SLSTM_WIDE_BATCH]
+    cases += [(SLSTM_TRAIN, slstm_inputs(*SLSTM_TRAIN,
+                                         wh_scale=SLSTM_TRAIN[3] ** -0.5),
+               "train")]
     for wdtype in ("float32", "bfloat16"):
         for shape, arrays, name in cases:
             xg, wh, *st = [torch.from_numpy(v).cuda() for v in arrays]
@@ -430,9 +480,9 @@ def slstm_kernel_phase(np, torch, flush):
                     g, w, rtol=tol, atol=tol,
                     msg=f"slstm_scan {shape} {wdtype} {what}")
             err = max_err(torch, (ys, *fin), (pys, *pfin))
-            if name in (None, "wide"):
-                log(f"  slstm_scan {shape} wh {wdtype}: max |kernel-plain| "
-                    f"{err:.3g}")
+            if name in (None, "wide", "train"):
+                log(f"  slstm_scan {name + ' ' if name else ''}{shape} wh "
+                    f"{wdtype}: max |kernel-plain| {err:.3g}")
                 continue
             ms, plain_ms, four = timed_pair(torch, kern, plain, flush,
                                             iters=10)
@@ -1225,7 +1275,425 @@ def smoke_reference_check(np, torch):
         f"{worst:.3g} of the CPU oracle, greedy tokens equal")
 
 
+def train_cfg(arch, **kw):
+    """A config as the train phases run it: remat on; the dense family
+    with the ApproxFFN (the config's 3 approximators of 256), the tick
+    router and TRAIN_ERROR_BOUND."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if cfg.family == "dense":
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, enable=True, route_scope="tick",
+            error_bound=TRAIN_ERROR_BOUND))
+    return dataclasses.replace(cfg, remat=True, **kw)
+
+
+class MetricsRecorder:
+    """Keeps the metrics of each step a Trainer takes."""
+
+    def __init__(self, trainer):
+        self.steps, inner = [], trainer.step_fn
+
+        def step(state, batch):
+            state, m = inner(state, batch)
+            self.steps.append(m)
+            return state, m
+        trainer.step_fn = step
+
+
+def tick_labels(torch, cfg, params, inputs):
+    """The train forward's tick labels: each token's competitive-label
+    votes summed over the layers, the first maximum (as ``forward``
+    computes them for the tick-router head)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        x = L.embed_fwd(cfg, params.embed, inputs)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        votes = 0
+        for blk in params.blocks:
+            x, _, _, m = M._dense_block(cfg, blk, x, pos, None, serve=False)
+            votes = votes + m["_label_votes"]
+    return votes.argmax(-1)
+
+
+def train_run(torch, cfg, shape, dev, tc_kw=None):
+    """A Trainer on the synthetic stream; returns it with its recorder."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=shape["seq"],
+                     global_batch=shape["batch"], seed=0)
+    tc = TrainerConfig(total_steps=shape["steps"], log_every=1,
+                       grad_accum=shape["grad_accum"],
+                       warmup=shape["warmup"], **(tc_kw or {}))
+    tr = Trainer(cfg, tc, ds, seed=0, device=dev)
+    return tr, MetricsRecorder(tr)
+
+
+def train_dense_full_width(np, torch, dev="cuda", cfg=None,
+                           shape=TRAIN_DENSE):
+    """internlm2-1.8b at full width through the Trainer; returns the
+    numbers it prints."""
+    from repro_torch.launch.profile_decode import profiled
+    from repro_torch.runtime import steps
+    cfg = cfg or train_cfg("internlm2-1.8b")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr, rec = train_run(torch, cfg, shape, dev)
+    n_params = sum(p.numel() for p in tr.state["params"].parameters())
+    log(f"  init {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"vocab={cfg.vocab}, {cfg.param_dtype}, remat {cfg.remat}, "
+        f"ApproxFFN {cfg.approx.n_approx} x {cfg.approx.d_hidden} "
+        f"({cfg.approx.route_scope} router), {n_params} parameters in "
+        f"{time.time() - t0:.1f} s")
+    tr.run()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    for h, m in zip(tr.history, rec.steps):
+        vals = {k: float(m[k]) for k in ("lm_loss", "grad_norm",
+                                          "invocation", "router_acc",
+                                          "tick_router_acc", "lr")}
+        log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms, loss "
+            f"{h['loss']:.4f}, " + ", ".join(f"{k} {v:.4g}"
+                                              for k, v in vals.items()))
+        if not all(np.isfinite([h["loss"], h["grad_norm"]])):
+            raise AssertionError(f"train dense: step {h['step']} loss or "
+                                 "grad norm not finite")
+    ms = statistics.median(h["dt"] for h in tr.history[1:]) * 1e3
+    tokens = shape["batch"] * shape["seq"]
+    batch = {k: v.to(dev) for k, v in
+             tr.ds.batch_at(shape["steps"]).items()}
+
+    def one():
+        tr.state, m = tr.step_fn(tr.state, batch)
+        float(m["loss"])
+    host_ms, wall_ms, kernels, _ = profiled(torch, one, 1)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(w in e.key for w in ("gemm", "nvjet", "cutlass",
+                                           "xmma"))) / 1e3
+    # the step's forward and backward alone; the rest is clip + AdamW
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    steps.loss_and_grads(cfg, tr.state["params"], batch,
+                         shape["grad_accum"])
+    sync()
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    out = dict(ms=ms, tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
+               launches=launches, busy_ms=busy, gemm_ms=gemm, fb_ms=fb_ms,
+               idle=max(0.0, 1 - busy / host_ms))
+    log(f"  {ms:.1f} ms a step (median of steps 2 to {shape['steps']}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
+    log(f"  one step profiled: {host_ms:.1f} ms (host clock), "
+        f"{wall_ms:.1f} ms under the profiler, device busy {busy:.1f} ms in "
+        f"{launches} kernel launches, idle share {out['idle']:.3f}; GEMM "
+        f"kernels {gemm:.1f} ms of the busy time; forward + backward alone "
+        f"{fb_ms:.1f} ms (host clock), the rest of a step clip + AdamW")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} "
+            f"launches  {e.key[:80]}")
+    return out
+
+
+def train_dense_parity(np, torch, dev="cuda", cfg=None, shape=TRAIN_PARITY):
+    """One float32 train step on the card and one on the CPU from the same
+    state: loss and metrics within 1e-4 relative, gradients within 1e-4,
+    new parameters within 2 lr.  Returns the largest differences."""
+    from repro_torch import convert
+    from repro_torch.runtime import steps
+    cfg = cfg or train_cfg("internlm2-1.8b", n_layers=shape["n_layers"],
+                           param_dtype="float32", act_dtype="float32")
+    cpu = steps.init_train_state(0, cfg, device="cpu")
+    card = convert.train_state_from_jax(
+        cfg, convert.train_state_to_tree(cfg, cpu), device=dev)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab, (shape["batch"], shape["seq"] + 1)).astype(np.int32)
+    step = steps.make_train_step(cfg, grad_accum=shape["grad_accum"],
+                                 base_lr=shape["lr"], warmup=0,
+                                 total_steps=10)
+    out = {}
+    for name, state, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        t = torch.from_numpy(toks).to(d)
+        batch = {"inputs": t[:, :-1], "labels": t[:, 1:]}
+        # the gradients the step computes, before its clip and update
+        # (which work in place)
+        _, _, g = steps.loss_and_grads(cfg, state["params"], batch,
+                                       shape["grad_accum"])
+        g = {k: v.cpu() for k, v in g.items()}
+        tick = tick_labels(torch, cfg, state["params"], batch["inputs"])
+        new, m = step(state, batch)
+        out[name] = ({k: v.cpu() for k, v in m.items()}, g,
+                     {k: p.detach().cpu() for k, p in
+                      new["params"].named_parameters()}, tick.cpu())
+    (cm, cg, cp, ct), (gm, gg, gp, gt) = out["cpu"], out["card"]
+    # the competitive labels are mixed: exact and approximator tokens,
+    # and at least two classes among the tick labels, equal on both
+    inv = float(cm["invocation"])
+    if not 0 < inv < 1:
+        raise AssertionError(f"train parity: invocation {inv}, the labels "
+                             "are not mixed")
+    if not torch.equal(gt, ct):
+        raise AssertionError("train parity: the card's tick labels differ "
+                             "from the CPU's")
+    classes = torch.bincount(ct.flatten(), minlength=cfg.approx.n_live + 1)
+    if (classes > 0).sum() < 2:
+        raise AssertionError(f"train parity: tick labels all one class "
+                             f"{classes.tolist()}")
+    worst = {"metric_rel": 0.0, "grad": 0.0, "param": 0.0}
+    for k in cm:
+        torch.testing.assert_close(gm[k], cm[k], rtol=1e-4, atol=1e-6,
+                                   msg=f"train parity metric {k}")
+        worst["metric_rel"] = max(worst["metric_rel"], (
+            (gm[k] - cm[k]).abs() / cm[k].abs().clamp(min=1e-30)).max()
+            .item())
+    lr = float(cm["lr"])
+    for k in cg:
+        torch.testing.assert_close(gg[k], cg[k], rtol=0, atol=1e-4,
+                                   msg=f"train parity grad {k}")
+        torch.testing.assert_close(gp[k], cp[k], rtol=0, atol=2 * lr,
+                                   msg=f"train parity param {k}")
+        worst["grad"] = max(worst["grad"], (gg[k] - cg[k]).abs().max()
+                            .item())
+        worst["param"] = max(worst["param"], (gp[k] - cp[k]).abs().max()
+                             .item())
+    log(f"  {cfg.n_layers} layers at full width, float32, "
+        f"{shape['batch']} x {shape['seq']}, grad_accum "
+        f"{shape['grad_accum']}, error bound {cfg.approx.error_bound}: "
+        f"invocation {inv:.4g}, tick labels by class {classes.tolist()} "
+        f"(equal on both); loss {float(cm['loss']):.6f} (CPU) "
+        f"{float(gm['loss']):.6f} (card); max relative metric difference "
+        f"{worst['metric_rel']:.3g} (gate 1e-4), max |gradient difference| "
+        f"{worst['grad']:.3g} (gate 1e-4), max |parameter difference| "
+        f"{worst['param']:.3g} (gate 2 lr = {2 * lr:.3g})")
+    return worst
+
+
+def slstm_grad_gate(np, torch, dev="cuda"):
+    """slstm_scan_trainable at xlstm-1.3b's prefill and train shapes,
+    random cotangents on all five outputs.  Its outputs (the kernel's)
+    against slstm_scan_plain's within SLSTM_TOL; its gradients against
+    autograd through slstm_scan_plain and through the recurrence in
+    float64.  float32 weights: gradients within 3e-5 of the plain
+    version's.  bfloat16 weights: within 2e-2 of the plain version's in
+    norm (||g - plain|| / ||plain||), the independent check, and within
+    2e-2 of the float64 ones elementwise.  The float64 witness is the
+    backward's own recurrence (``ref.slstm_scan_ref``, ``h`` unrounded)
+    at a higher precision, so it checks rounding only.  Autograd through
+    the plain version rounds the gradient of ``h`` to bfloat16 at each
+    step (the backward of its cast), so single elements of its gradients
+    stray from the float64 ones by far more than the trainable's do (the
+    phase prints both gaps for each gradient).  Returns {(shape, dtype):
+    max |trainable - plain| of the gradients}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.kernels.sweeps import slstm_inputs
+    names = ("xg", "wh", "h0", "c0", "n0", "m0")
+    out = {}
+    for shape in (SLSTM_FULL["prefill"], SLSTM_TRAIN):
+        arrays = slstm_inputs(*shape, wh_scale=shape[3] ** -0.5)
+        rng = np.random.default_rng(3)
+        s, b, h, hd = shape
+        cot = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(dev) for sh in ((s, b, h, hd),) + ((b, h, hd),) * 4]
+        for wdtype in ("float32", "bfloat16"):
+            grads, fwd = {}, {}
+            for name, fn, dt in (("trainable", K.slstm_scan_trainable, None),
+                                 ("plain", K.slstm_scan_plain, None),
+                                 ("float64", ref.slstm_scan_ref,
+                                  torch.float64)):
+                xg, wh, *st = [torch.from_numpy(v).to(dev) for v in arrays]
+                ins = [xg, wh.to(getattr(torch, wdtype)), *st]
+                ins = [(t if dt is None else t.to(dt)).requires_grad_()
+                       for t in ins]
+                ys, fin = fn(*ins)
+                fwd[name] = [t.detach() for t in (ys, *fin)]
+                grads[name] = [g.double() for g in torch.autograd.grad(
+                    (ys, *fin), ins, [c.to(ys.dtype) for c in cot])]
+            tol = SLSTM_TOL[wdtype]
+            for g, w, what in zip(fwd["trainable"], fwd["plain"],
+                                  ("ys", "h", "c", "n", "m")):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"slstm_scan_trainable {shape} "
+                                         f"{wdtype}: {what} not finite")
+                torch.testing.assert_close(
+                    g, w, rtol=tol, atol=tol,
+                    msg=f"slstm_scan_trainable {shape} {wdtype} {what}")
+            fwd_err = max_err(torch, fwd["trainable"], fwd["plain"])
+            tol = SLSTM_GRAD_TOL[wdtype]
+            errs = {}
+            for what, g, w, t64 in zip(names, grads["trainable"],
+                                       grads["plain"], grads["float64"]):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"slstm grad {shape} {wdtype} "
+                                         f"{what} not finite")
+                if wdtype == "float32":
+                    torch.testing.assert_close(
+                        g, w, rtol=tol, atol=tol,
+                        msg=f"slstm grad {shape} f32 {what}")
+                    continue
+                torch.testing.assert_close(
+                    g, t64, rtol=tol, atol=tol,
+                    msg=f"slstm grad {shape} bf16 {what} vs float64")
+                rel = ((g - w).norm() / w.norm().clamp(min=1e-30)).item()
+                if rel > tol:
+                    raise AssertionError(f"slstm grad {shape} bf16 {what}: "
+                                         f"norm error {rel:.3g} vs plain")
+                errs[what] = rel
+            gap = {(a, c): [(x - y).abs().max().item() for x, y in
+                            zip(grads[a], grads[c])]
+                   for a, c in (("trainable", "plain"),
+                                ("trainable", "float64"),
+                                ("plain", "float64"))}
+            out[shape, wdtype] = max(gap["trainable", "plain"])
+            extra = (f", norm error vs plain "
+                     f"{max(errs.values(), default=0):.3g} (gate {tol:g})")
+            log(f"  slstm_scan_trainable {shape} wh {wdtype}: outputs max "
+                f"|trainable - plain| {fwd_err:.3g} (gate "
+                f"{SLSTM_TOL[wdtype]:g}); grads max |trainable - plain| "
+                f"{out[shape, wdtype]:.3g}"
+                f"{f' (gate {tol:g})' if wdtype == 'float32' else extra}; "
+                f"per gradient {names}: |trainable - float64| "
+                f"{', '.join(f'{v:.3g}' for v in gap['trainable', 'float64'])}"
+                f"{'' if wdtype == 'float32' else f' (gate {tol:g})'}, "
+                f"|plain - float64| "
+                f"{', '.join(f'{v:.3g}' for v in gap['plain', 'float64'])}")
+    return out
+
+
+def train_xlstm_full_width(np, torch, dev="cuda", cfg=None,
+                           shape=TRAIN_XLSTM):
+    """xlstm-1.3b at full width through the Trainer, with the slstm_scan
+    launch count derived from the code; returns (numbers, launches)."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.models import model as M
+    cfg = cfg or train_cfg("xlstm-1.3b")
+    groups = M.topology(cfg).n_groups
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr, _ = train_run(torch, cfg, shape, dev)
+    K.slstm_scan.launches = 0
+    tr.run()
+    launches = K.slstm_scan.launches
+    # each microbatch runs every sLSTM block forward once through the
+    # kernel, and remat runs it again in the backward; the backward of
+    # the recurrence itself is a plain recompute (no launch)
+    want = shape["steps"] * shape["grad_accum"] * groups \
+        * (2 if cfg.remat else 1)
+    if launches != want:
+        raise AssertionError(f"train xlstm: {launches} slstm_scan launches, "
+                             f"want {want}")
+    for h in tr.history:
+        if not np.isfinite([h["loss"], h["grad_norm"]]).all():
+            raise AssertionError(f"train xlstm: step {h['step']} not finite")
+        log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms, loss "
+            f"{h['loss']:.4f}, grad_norm {h['grad_norm']:.4g}")
+    ms = statistics.median(h["dt"] for h in tr.history[1:]) * 1e3
+    # one microbatch's forward and backward apart, and the sLSTM
+    # backward alone at the train shape
+    params = tr.state["params"]
+    named = list(params.parameters())
+    bt = {k: v.to(dev) for k, v in tr.ds.batch_at(0).items()}
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    loss, _ = M.lm_loss(cfg, params, bt["inputs"], bt["labels"])
+    sync()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, named)
+    sync()
+    t2 = time.perf_counter()
+    fwd, bwd = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    d, h = cfg.d_model, cfg.n_heads
+    s, b = shape["seq"], shape["batch"] // shape["grad_accum"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xg = torch.randn((s, b, h, 4 * d // h), generator=gen, device=dev)
+    wh = (torch.randn((h, d // h, 4 * d // h), generator=gen, device=dev)
+          * (d // h) ** -0.5).to(cfg.pdtype)
+    st = [torch.zeros((b, h, d // h), device=dev) for _ in range(3)]
+    st.append(torch.full((b, h, d // h), -1e30, device=dev))
+    ins = [xg.requires_grad_(), wh.requires_grad_(), *st]
+    for _ in range(2):          # the second, warm
+        ys, _ = K.slstm_scan_trainable(*ins)
+        sync()
+        t0 = time.perf_counter()
+        torch.autograd.grad(ys.sum(), ins[:2])
+        sync()
+        slstm_bwd = (time.perf_counter() - t0) * 1e3
+    out = dict(ms=ms, tokens_per_s=shape["batch"] * s / ms * 1e3,
+               fwd_ms=fwd, bwd_ms=bwd, slstm_bwd_ms=slstm_bwd,
+               peak_bytes=torch.cuda.max_memory_allocated()
+               if dev == "cuda" else 0)
+    log(f"  {ms:.1f} ms a step, {out['tokens_per_s']:.0f} tokens/s; "
+        f"slstm_scan launches {launches} = {shape['steps']} steps x "
+        f"{shape['grad_accum']} x {groups} groups x "
+        f"{2 if cfg.remat else 1}; one microbatch: forward {fwd:.1f} ms, "
+        f"backward {bwd:.1f} ms (share {bwd / (fwd + bwd):.3f}); the sLSTM "
+        f"recompute backward at ({s}, {b}, {h}, {d // h}) {slstm_bwd:.1f} ms "
+        f"a group, {groups * slstm_bwd:.1f} ms of {groups} groups "
+        f"({groups * slstm_bwd / (fwd + bwd):.3f} of the microbatch); peak "
+        f"memory {out['peak_bytes']} B")
+    return out, launches
+
+
+def train_resume(np, torch, dev="cuda"):
+    """Saved at step 3, resumed by a new Trainer to step 6: bitwise equal
+    to an uninterrupted run, under deterministic algorithms (an op that
+    refuses them raises, and the phase fails)."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.convert import train_state_to_tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = smoke_config(get_config("internlm2-1.8b"))
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True, route_scope="tick"))
+    sh = TRAIN_RESUME
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=sh["seq"],
+                     global_batch=sh["batch"])
+    # the default warmup (20 steps) spans the run, so the learning rate
+    # does not depend on total_steps
+    tc = lambda total, d="": TrainerConfig(
+        total_steps=total, ckpt_every=sh["save_at"], log_every=100,
+        ckpt_dir=d)
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole = Trainer(cfg, tc(sh["steps"]), ds, seed=3, device=dev)
+        whole.run()
+        with tempfile.TemporaryDirectory() as d:
+            Trainer(cfg, tc(sh["save_at"], d), ds, seed=3, device=dev).run()
+            resumed = Trainer(cfg, tc(sh["steps"], d), ds, seed=3,
+                              device=dev)
+            if resumed.start_step != sh["save_at"]:
+                raise AssertionError(f"resume started at "
+                                     f"{resumed.start_step}")
+            resumed.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a = _leaves(train_state_to_tree(cfg, whole.state))
+    b = _leaves(train_state_to_tree(cfg, resumed.state))
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("train resume: the resumed state differs from "
+                             "the uninterrupted run's")
+    if int(resumed.state["step"]) != sh["steps"]:
+        raise AssertionError(f"train resume: step {resumed.state['step']}")
+    losses = ", ".join(f"{h['loss']:.4f}" for h in whole.history)
+    log(f"  smoke config, saved at step {sh['save_at']}, resumed to "
+        f"{sh['steps']}: {len(a)} tensors bitwise equal to the "
+        f"uninterrupted run (losses {losses}), deterministic algorithms on")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def main() -> int:
+    # cuBLAS reads this when CUDA initializes; [train resume] runs under
+    # torch.use_deterministic_algorithms, which needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1300,6 +1768,32 @@ def main() -> int:
 
     log("[smoke reference xlstm]")
     smoke_reference_xlstm(np, torch)
+    torch.cuda.empty_cache()
+
+    log("[train dense full width]")
+    t0 = time.time()
+    train_dense_full_width(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[train dense float32 parity]")
+    t0 = time.time()
+    train_dense_parity(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[train xlstm full width]")
+    t0 = time.time()
+    _, train_slstm = train_xlstm_full_width(np, torch)
+    torch.cuda.empty_cache()
+    slstm_grad_gate(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[train resume]")
+    t0 = time.time()
+    train_resume(np, torch)
+    log(f"  phase {time.time() - t0:.1f} s")
 
     # library_ms is null for all four: no single PyTorch call computes a
     # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh
@@ -1325,7 +1819,9 @@ def main() -> int:
              "src/repro/kernels/slstm_scan.py:94",
              slstm["prefill", "bfloat16"],
              [dict(run=f"xlstm {k}", launches=v)
-              for k, v in slstm_launches.items()])):
+              for k, v in slstm_launches.items()]
+             + [dict(run="xlstm train", steps=TRAIN_XLSTM["steps"],
+                     launches=train_slstm)])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

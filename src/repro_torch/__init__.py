@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the MCMA decode-serving path and the xLSTM
-family's prefill and decode.
+"""PyTorch/CUDA port of the MCMA decode-serving path, the xLSTM
+family's prefill and decode, and the training path of both (the MCMA
+co-training in the LM train step, AdamW, the Trainer and checkpoints).
 
 A second package beside the JAX reference (``repro``), with the same
 layout: ``repro/<pkg>/<mod>.py`` has its counterpart at

@@ -1,11 +1,14 @@
-"""Load a JAX checkpoint of the reference package into the port's model.
+"""Convert between the reference package's pytrees and the port's model
+and train state.
 
 The reference keeps matrices as ``(in, out)`` and the approximator stacks
 in serving form, and so does the port, so conversion is leaf by leaf with
 no transposes: the stacked ``blocks`` leaves (leading dim L) split into
-``blocks.<i>.*``, every other key maps to the same dotted name.  bfloat16
+``blocks.<i>.*`` (``mlstm`` into ``mlstm.<g>.<p>.*``, ``slstm`` into
+``slstm.<g>.*``), every other key maps to the same dotted name.  bfloat16
 leaves cross as their 16-bit patterns (``torch.from_numpy`` has no
-bfloat16).
+bfloat16).  ``train_state_to_tree`` goes the other way, to the
+reference's stacked layout, which is the checkpoints' on-disk layout.
 """
 from __future__ import annotations
 
@@ -27,11 +30,63 @@ def _flatten(tree, prefix=""):
 
 
 def to_torch(a) -> torch.Tensor:
-    """A numpy array (bfloat16 included) as a CPU tensor of the same dtype."""
+    """A numpy array (bfloat16 included) or a tensor as a CPU tensor of
+    the same dtype, which owns its storage."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", copy=True)
     a = np.array(a, order="C")          # a writable copy torch may own
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _stacked(cfg: ModelConfig) -> dict:
+    """Top-level key of each stacked reference leaf -> the leading dims
+    the port splits off."""
+    topo = topology(cfg)
+    return {"blocks": (cfg.n_layers,),
+            "mlstm": (topo.n_groups, topo.per_group),
+            "slstm": (topo.n_groups,)}
+
+
+def _split(cfg: ModelConfig, tree) -> dict:
+    """A reference pytree of the model's shape as {port name: CPU tensor}."""
+    stacked, out = _stacked(cfg), {}
+    for name, leaf in _flatten(tree):
+        t = to_torch(leaf)
+        head, _, rest = name.partition(".")
+        lead = stacked.get(head)
+        if lead is None:
+            out[name] = t
+            continue
+        assert t.shape[:len(lead)] == lead, (name, t.shape, lead)
+        for idx in np.ndindex(*lead):
+            out[".".join(map(str, (head, *idx, rest)))] = t[idx]
+    return out
+
+
+def _stack(cfg: ModelConfig, flat: dict) -> dict:
+    """{port name: tensor} back to the reference's nested, stacked pytree
+    of CPU tensors."""
+    stacked, groups, tree = _stacked(cfg), {}, {}
+    for name, t in flat.items():
+        head, *parts = name.split(".")
+        lead = stacked.get(head, ())
+        idx = tuple(int(i) for i in parts[:len(lead)])
+        key = (head, *parts[len(lead):])
+        groups.setdefault(key, {})[idx] = t.detach().cpu()
+    for key, by_idx in groups.items():
+        lead = stacked.get(key[0], ())
+        if lead:
+            leaf = torch.stack([by_idx[i] for i in np.ndindex(*lead)])
+            leaf = leaf.reshape(*lead, *leaf.shape[1:])
+        else:
+            leaf = by_idx[()]
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = leaf
+    return tree
 
 
 def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> Model:
@@ -40,23 +95,7 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> Model:
     Every leaf must land on a parameter of the same shape and dtype, and
     every parameter must be covered."""
     model = Model(cfg, resolve_device(device))
-    topo = topology(cfg)
-    # stacked leaves: top-level key -> the leading dims to split off
-    stacked = {"blocks": (cfg.n_layers,),
-               "mlstm": (topo.n_groups, topo.per_group),
-               "slstm": (topo.n_groups,)}
-    state = {}
-    for name, leaf in _flatten(tree):
-        t = to_torch(leaf)
-        head, _, rest = name.partition(".")
-        lead = stacked.get(head)
-        if lead is None:
-            state[name] = t
-            continue
-        assert t.shape[:len(lead)] == lead, (name, t.shape, lead)
-        for idx in np.ndindex(*lead):
-            key = ".".join(map(str, (head, *idx, rest)))
-            state[key] = t[idx]
+    state = _split(cfg, tree)
     own = dict(model.named_parameters())
     for name, t in state.items():
         if name in own and own[name].dtype != t.dtype:
@@ -64,3 +103,49 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> Model:
                             f"{own[name].dtype}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def decay_mask(cfg: ModelConfig, params: Model) -> dict[str, bool]:
+    """{name: whether AdamW decays it}: the reference decays a leaf of rank
+    >= 2, and its leaves are stacked over layers, so every per-layer
+    tensor (norm scales and biases included) is decayed and only the
+    unstacked 1-D leaves (``ln_f``) are exempt."""
+    stacked = _stacked(cfg)
+    return {name: p.ndim + len(stacked.get(name.partition(".")[0], ())) >= 2
+            for name, p in params.named_parameters()}
+
+
+def train_state_from_jax(cfg: ModelConfig, state, *, device=None) -> dict:
+    """The port's train state ``{"params": Model, "opt": {"m", "v"},
+    "step"}`` from a reference train state (``runtime/steps.
+    init_train_state``'s pytree, numpy or tensor leaves): the parameters
+    as ``params_from_jax`` loads them, trainable; the AdamW moments split
+    per layer like the parameters, float32 under the parameters' names;
+    ``step`` an int32 scalar tensor."""
+    dev = resolve_device(device)
+    params = params_from_jax(cfg, state["params"], device=dev)
+    params.requires_grad_(True)
+    own = dict(params.named_parameters())
+    opt = {}
+    for k in ("m", "v"):
+        flat = _split(cfg, state["opt"][k])
+        if flat.keys() != own.keys():
+            raise KeyError(f"opt[{k!r}] does not cover the parameters: "
+                           f"{sorted(flat.keys() ^ own.keys())[:4]}")
+        for name, t in flat.items():
+            if t.shape != own[name].shape or t.dtype != torch.float32:
+                raise TypeError(f"opt[{k!r}][{name!r}]: {t.dtype} "
+                                f"{tuple(t.shape)}")
+        opt[k] = {name: flat[name].to(dev) for name in own}
+    step = to_torch(state["step"]).to(device=dev, dtype=torch.int32)
+    return {"params": params, "opt": opt, "step": step.reshape(())}
+
+
+def train_state_to_tree(cfg: ModelConfig, state) -> dict:
+    """A port train state as the reference's pytree of CPU tensors
+    (stacked leaves, nested dicts): what ``train_state_from_jax`` reads
+    back, and the layout checkpoints are written in.  An unstacked leaf
+    of a state on the CPU shares its storage with the state."""
+    return {"params": _stack(cfg, dict(state["params"].named_parameters())),
+            "opt": {k: _stack(cfg, state["opt"][k]) for k in ("m", "v")},
+            "step": state["step"].detach().cpu()}

@@ -1,0 +1,78 @@
+"""Deterministic, seekable, shardable synthetic data pipeline (counterpart
+of ``repro/data/pipeline.py``).
+
+Every batch is a pure function of (seed, step, host_id): ``batch_at(step)``
+seeds a CPU ``torch.Generator`` from the three, so a restart replays no
+data and needs no pipeline checkpoint: after restoring the state at step
+k, training resumes with ``batch_at(k)`` and the run equals an
+uninterrupted one bitwise.  Per-host slicing (``host_id``/``n_hosts``)
+generates only the local rows.
+
+The stream is the reference's construction: Zipf-ish marginals with a
+Markov backbone (each token follows its predecessor through the fixed map
+``(prev * 31 + shift) % vocab`` with probability 1/2, else it is the Zipf
+draw).  It is drawn from a ``torch.Generator``, not from ``jax.random``,
+so its tokens differ from the reference's; tests that compare the two
+packages feed both the same batch.  The batch is made on the CPU, whatever
+device trains on it, so one seed gives one stream everywhere.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLM:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    host_id: int = 0
+    n_hosts: int = 1
+
+    @property
+    def local_batch(self) -> int:
+        assert self.global_batch % self.n_hosts == 0
+        return self.global_batch // self.n_hosts
+
+    def batch_at(self, step: int) -> dict:
+        return batch_at(self, step)
+
+
+def _generator(seed: int, step: int, host_id: int) -> torch.Generator:
+    """A CPU generator seeded from (seed, step, host_id): the reference
+    folds the step and the host into its key."""
+    state = np.random.SeedSequence([seed, step, host_id]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def _markov_tokens(gen, batch, seq_len, vocab):
+    """Zipf marginals + first-order Markov structure (learnable bigrams)."""
+    # Zipf-ish marginal via exponential transform of uniforms in [1e-6, 1)
+    u = torch.rand((batch, seq_len), generator=gen) * (1 - 1e-6) + 1e-6
+    ranks = torch.floor(torch.exp(u * math.log(float(vocab)))) - 1.0
+    base = ranks.to(torch.int32) % vocab
+    # Markov backbone: with p=0.5, token t+1 = f(token t), else the draw
+    follow = torch.rand((batch, seq_len), generator=gen) < 0.5
+    shift = int(torch.randint(1, 977, (), generator=gen))
+    toks = torch.empty_like(base)
+    prev = base[:, 0]
+    for t in range(seq_len):
+        prev = torch.where(follow[:, t], (prev * 31 + shift) % vocab,
+                           base[:, t])
+        toks[:, t] = prev
+    return toks
+
+
+def batch_at(ds: SyntheticLM, step: int) -> dict:
+    """{"inputs": (local_B, S) int32, "labels": (local_B, S) int32} on the
+    CPU; the labels are the inputs shifted by one."""
+    gen = _generator(ds.seed, step, ds.host_id)
+    toks = _markov_tokens(gen, ds.local_batch, ds.seq_len + 1, ds.vocab)
+    return {"inputs": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}

@@ -41,12 +41,13 @@ def slstm_scan_ref(xg, wh, h0, c0, n0, m0, clamp=8.0):
 
     xg: (S, B, H, 4*hd) f32 gate pre-activations (order [z|i|f|o] per head);
     wh: (H, hd, 4*hd); states: (B, H, hd) f32.  ``h`` enters the recurrent
-    product in f32 (the kernel rounds it to ``wh.dtype`` first)."""
+    product in f32 (the kernel rounds it to ``wh.dtype`` first).  Float64
+    inputs run the recurrence in float64 (a yardstick for gradients)."""
     s, b, h, hd4 = xg.shape
     assert hd4 % 4 == 0, (
         f"xg last dim must stack the 4 gate pre-activations, got {hd4}")
     hd = hd4 // 4
-    w = wh.float()
+    w = wh.to(torch.promote_types(xg.dtype, torch.float32))
     hp, cp, np_, mp = h0, c0, n0, m0
     ys = []
     for t in range(s):

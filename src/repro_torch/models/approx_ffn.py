@@ -15,14 +15,21 @@ tick-router head, and every layer executes against it).  Per-request QoS
 tiers add a per-tier margin to each row's exact-path logit; with an
 approximator library (``approx.library_size > 0``) the router heads are
 library-wide and a residency vector folds the library onto the resident
-slots, whose weight rows each layer gathers.  The co-training path and
-the sharded serve path are not ported yet (ROADMAP queue 1, items 9 and
-10).
+slots, whose weight rows each layer gathers.
+
+Training (``approx_ffn_train``) follows the paper's competitive
+co-training: the exact FFN runs on every token (the teacher, and the
+layer's output), every approximator runs on every token, each token's
+label is the approximator of least relative L2 error when that error is
+within ``error_bound`` and class 0 (exact) otherwise, the router trains on
+those labels and each approximator distils its own territory.  The sharded
+serve path is not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import LANE, _pad_to, gather_resident_stacks
@@ -68,6 +75,69 @@ def approx_stacks(cfg: ModelConfig, p: ApproxFFN):
     n = a.n_live
     return (p.a_w1[:n, :d, :a.d_hidden], p.a_b1[:n, :a.d_hidden],
             p.a_w2[:n, :a.d_hidden, :d], p.a_b2[:n, :d])
+
+
+def _apply_all_approx(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor):
+    """All approximators on all tokens.  x: (T, d) -> (n, T, d)."""
+    w1, b1, w2, b2 = approx_stacks(cfg, p)
+    h = torch.einsum("td,ndh->nth", x, w1.to(x.dtype))
+    h = torch.tanh(h + b1[:, None, :].to(x.dtype))
+    y = torch.einsum("nth,nhd->ntd", h, w2.to(x.dtype))
+    return y + b2[:, None, :].to(x.dtype)
+
+
+def _rel_err(y_hat: torch.Tensor, y: torch.Tensor, eps: float = 1e-6):
+    """Per-token relative L2 error (the competitive scheme's label
+    signal), in f32."""
+    d = (y_hat - y).float()
+    num = torch.sqrt((d * d).sum(-1))
+    yf = y.float()
+    return num / torch.sqrt((yf * yf).sum(-1)).clamp(min=eps)
+
+
+def approx_ffn_train(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor):
+    """Training path.  x: (B, S, d) -> (exact FFN out, aux dict).
+
+    aux: ``loss`` (router cross-entropy and distillation, weighted),
+    ``invocation`` (the share of tokens whose best approximator is within
+    the bound), ``router_acc`` and ``label_votes`` ((T, n+1) one-hot
+    competitive labels, which the model sums over layers to train the
+    tick-router head).  The stacks are read through their logical views
+    (``approx_stacks``), so the padding and the pseudo-class get zero
+    gradients."""
+    a = cfg.approx
+    n = a.n_live
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    exact = ffn_fwd(cfg, p.ffn, xt)                         # (T, d) teacher
+    approx = _apply_all_approx(cfg, p, xt)                  # (n, T, d)
+    errs = _rel_err(approx, exact[None])                    # (n, T)
+
+    # competitive labels: argmin error if under bound, else 0 (exact)
+    best = errs.argmin(0)
+    safe = errs.amin(0) <= a.error_bound
+    labels = torch.where(safe, best + 1, 0)
+
+    logits = (xt @ p.router.to(xt.dtype)).float()
+    logp = F.log_softmax(logits, -1)
+    router_loss = -logp.gather(1, labels[:, None]).mean()
+
+    # distillation: each approximator fits its territory (the teacher is
+    # not trained by it).  own[i, t] = token t's label is approximator i;
+    # an exact-labelled token (label - 1 = -1) owns no row
+    tgt = exact.detach().float()
+    own = (torch.arange(n, device=x.device)[:, None] == (labels - 1)[None]) \
+        .float() * safe.float()                             # (n, T)
+    sq = ((approx.float() - tgt[None]) ** 2).sum(-1)        # (n, T)
+    # territory tokens at weight 1; all tokens at small weight (exploration)
+    w = own + 0.05
+    distill = (sq * w).sum() / w.sum().clamp(min=1.0) / d
+
+    aux = {"loss": a.router_weight * router_loss + a.distill_weight * distill,
+           "invocation": safe.float().mean(),
+           "router_acc": (logits.argmax(-1) == labels).float().mean(),
+           "label_votes": F.one_hot(labels, n + 1).float()}
+    return exact.reshape(b, s, d), aux
 
 
 def serve_caps(cfg: ModelConfig, t_local: int):

@@ -25,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 
 
 def param(shape, dtype, device, gen=None, scale=None, fill=None):
-    """A frozen parameter: ``fill`` everywhere, normal(0, 1) * ``scale``
+    """A frozen parameter (training turns ``requires_grad`` on: runtime/
+    steps.init_train_state): ``fill`` everywhere, normal(0, 1) * ``scale``
     from ``gen``, or uninitialized storage when neither is given."""
     if fill is not None:
         t = torch.full(shape, fill, dtype=dtype, device=device)
@@ -189,8 +190,10 @@ def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     inside a loop over Q blocks.  q: (B, Sq, H, hd); k, v: (B, Skv, H, hd).
     ``q_offset``: absolute position of q[0].  The reference's plain-JAX
     version step for step (f32 scores, the ``-1e30`` mask, probabilities
-    cast to the value dtype, f32 accumulators); there is no backward to
-    checkpoint here, the port's forward serves only."""
+    cast to the value dtype, f32 accumulators).  The reference checkpoints
+    each block step for its backward; here autograd keeps the blocks'
+    activations, and a training model under ``cfg.remat`` recomputes the
+    whole transformer block instead (models/model.py)."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     qb, kb = min(cfg.q_block, sq), min(cfg.kv_block, skv)

@@ -1,17 +1,21 @@
 """Model assembly (counterpart of ``repro/models/model.py``), two families:
 
-  dense      : N x (attn + FFN)    (prefill forward, chunked prefill and
-                                    decode over a dense or paged KV cache)
-  ssm (xLSTM): G x ((k-1) mLSTM + 1 sLSTM)      (prefill forward + decode)
-               (k = ssm.slstm_every)
+  dense      : N x (attn + FFN)    (training and prefill forward,
+                                    chunked prefill and decode over a
+                                    dense or paged KV cache)
+  ssm (xLSTM): G x ((k-1) mLSTM + 1 sLSTM)      (training and prefill
+               (k = ssm.slstm_every)             forward + decode)
 
 Blocks are held in ``nn.ModuleList``s and applied in Python loops where
 the reference scans over stacked parameters.  ``Model``'s parameter names
 are the reference's pytree keys with the stacked leaves split per layer
 (``blocks.<i>.attn.wq``, ``mlstm.<g>.<p>.core.w_q``, ``slstm.<g>.ln.scale``),
-so ``convert.params_from_jax`` loads a JAX checkpoint leaf by leaf.  The
-MoE and hybrid families and training are not ported yet (ROADMAP queue 1,
-item 9).
+so ``convert.params_from_jax`` loads a JAX checkpoint leaf by leaf.
+``forward(serve=False)`` is the training forward: the ApproxFFN's
+co-training and the tick-router head's across-layer vote, with each block
+recomputed in the backward under ``cfg.remat``; ``lm_loss`` is the train
+step's loss.  The MoE and hybrid families are not ported yet (ROADMAP
+queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -19,13 +23,16 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm
 from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
-                                           execute_plan, make_tick_plan)
+                                           approx_ffn_train, execute_plan,
+                                           make_tick_plan)
 from repro_torch.runtime.dispatch import plan_invoke_stats
 
 
@@ -148,8 +155,12 @@ def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None,
     if not cfg.approx.enable:
         return L.ffn_fwd(cfg, p.ffn, xn), zero, {}
     if not serve:
-        raise NotImplementedError("the ApproxFFN co-training path is not "
-                                  "ported yet (ROADMAP queue 1, item 9)")
+        # train path: the per-token competitive labels go up as votes,
+        # summed over the layers to supervise the tick-router head
+        y, a = approx_ffn_train(cfg, p.approx, xn)
+        return y, a["loss"], {"invocation": a["invocation"],
+                              "router_acc": a["router_acc"],
+                              "_label_votes": a["label_votes"]}
     if dispatch_plan is not None:
         return execute_plan(cfg, p.approx, xn, dispatch_plan,
                             residency), zero, {}
@@ -225,6 +236,29 @@ def _slstm_block(cfg: ModelConfig, p: SLSTMBlock, x, state):
     return x + y, st
 
 
+def _maybe_remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``cfg.remat`` when
+    autograd records (the reference's ``jax.checkpoint`` of the block
+    body): the same values, fewer activations kept."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _tick_router_loss(cfg: ModelConfig, params: Model, x0, votes):
+    """The tick-router head's co-training: the label of each token is the
+    argmax of its competitive-label votes summed over the layers (the
+    first maximum on a tie), the head classifies the pre-layer hidden
+    state ``x0``.  Returns (loss, accuracy)."""
+    tick_labels = votes.argmax(-1)
+    t_logits = (x0.reshape(votes.shape[0], -1)
+                @ params.tick_router.to(x0.dtype)).float()
+    logp = F.log_softmax(t_logits, -1)
+    loss = -logp.gather(1, tick_labels[:, None]).mean()
+    acc = (t_logits.argmax(-1) == tick_labels).float().mean()
+    return loss, acc
+
+
 def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
             collect_cache: bool = False, serve: bool = False):
     """Full-sequence forward.  inputs: tokens (B, S).
@@ -236,24 +270,47 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
     ``pos = S``; ``pad_cache`` grows a dense one to decode room.  Dense
     family: ``serve=True`` runs each layer's ApproxFFN through the
     capacity dispatch, routing its own tokens (the reference builds no
-    tick plan here), with the layer-meaned dispatch metrics; the
-    training path (``serve=False`` with the ApproxFFN) is not ported yet
-    (ROADMAP queue 1, item 9).  ``serve`` changes nothing for the xLSTM
-    family (it has no ApproxFFN)."""
+    tick plan here), with the layer-meaned dispatch metrics.
+
+    ``serve=False`` is the training forward.  Each ApproxFFN runs its
+    co-training path (the exact FFN's output, the router and distillation
+    losses summed into ``aux_loss``, ``invocation`` and ``router_acc``
+    meaned over the layers), and the tick-router head trains on the
+    across-layer vote of the competitive labels, adding
+    ``router_weight`` x its cross-entropy to ``aux_loss`` with metrics
+    ``tick_router_loss`` and ``tick_router_acc``.  Under ``cfg.remat``
+    each block is recomputed in the backward.  ``serve`` changes nothing
+    for the xLSTM family (it has no ApproxFFN)."""
     x = L.embed_fwd(cfg, params.embed, inputs)
     b, s = x.shape[0], x.shape[1]
     metrics, cache = {}, None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if topology(cfg).kind == "uniform":
         positions = torch.arange(s, device=x.device)[None, :]
-        per_layer, ks, vs = [], [], []
+        x0, votes = x, None
+        per_layer, auxs, ks, vs = [], [], [], []
+
+        def block(blk, x):
+            x, kv, aux, m = _dense_block(cfg, blk, x, positions, None,
+                                         serve=serve)
+            return x, (kv["k"], kv["v"]) if collect_cache else (), aux, m
         for blk in params.blocks:
-            x, kv, _, m = _dense_block(cfg, blk, x, positions, None,
-                                       serve=serve)
+            x, kv, aux, m = _maybe_remat(cfg, block, blk, x)
+            if "_label_votes" in m:
+                v = m.pop("_label_votes")
+                votes = v if votes is None else votes + v
             per_layer.append(m)
+            auxs.append(aux)
             if collect_cache:
-                ks.append(kv["k"])
-                vs.append(kv["v"])
+                ks.append(kv[0])
+                vs.append(kv[1])
         metrics = _step_metrics(None, per_layer)
+        aux_total = torch.stack(auxs).sum()
+        if votes is not None:           # the train path's label votes
+            tick_loss, tick_acc = _tick_router_loss(cfg, params, x0, votes)
+            aux_total = aux_total + cfg.approx.router_weight * tick_loss
+            metrics = dict(metrics, tick_router_loss=tick_loss,
+                           tick_router_acc=tick_acc)
         if collect_cache:
             cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                      "pos": torch.full((b,), s, dtype=torch.int32,
@@ -263,9 +320,9 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
         for mblks, sblk in zip(params.mlstm, params.slstm):
             msts = []
             for blk in mblks:
-                x, st = _mlstm_block(cfg, blk, x, None)
+                x, st = _maybe_remat(cfg, _mlstm_block, cfg, blk, x, None)
                 msts.append(st)
-            x, sst = _slstm_block(cfg, sblk, x, None)
+            x, sst = _maybe_remat(cfg, _slstm_block, cfg, sblk, x, None)
             if collect_cache:
                 mstates.append(msts)
                 sstates.append(sst)
@@ -280,8 +337,23 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
                                        device=x.device)}
     x = L.norm_fwd(cfg, params.ln_f, x)
     logits = L.unembed_fwd(cfg, params.embed, x)
-    return logits, cache, torch.zeros((), dtype=torch.float32,
-                                      device=x.device), metrics
+    return logits, cache, aux_total, metrics
+
+
+def lm_loss(cfg: ModelConfig, params: Model, inputs: torch.Tensor,
+            labels: torch.Tensor):
+    """Next-token cross-entropy (+ the family's aux losses) of the
+    training forward.  labels: (B, S).  Returns (loss + aux, metrics with
+    ``lm_loss`` and ``aux_loss``).  The max is subtracted without a
+    gradient, and the label's logit is gathered where the reference
+    contracts with a one-hot (the same value)."""
+    logits, _, aux, metrics = forward(cfg, params, inputs)
+    logits = logits.float()
+    shifted = logits - logits.amax(-1, keepdim=True).detach()
+    lse = torch.logsumexp(shifted, -1)
+    picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    loss = (lse - picked).mean()
+    return loss + aux, dict(metrics, lm_loss=loss, aux_loss=aux)
 
 
 # ---------------------------------------------------------------------------

@@ -29,14 +29,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.slstm_scan import slstm_scan
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_trainable
 from repro_torch.models import layers as L
 
 I_CLAMP = 8.0  # clamp on the exponential input gate pre-activation
 
 
 def _const(values, dtype, device) -> nn.Parameter:
-    """A frozen parameter holding fixed initial ``values``."""
+    """A frozen parameter holding the initial ``values`` (training turns
+    ``requires_grad`` on, as for every parameter)."""
     t = torch.tensor(values, dtype=torch.float32).to(dtype=dtype,
                                                      device=device)
     return nn.Parameter(t, requires_grad=False)
@@ -210,7 +211,9 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     """x: (B, S, d) -> (y, new_state); the S-step recurrence is one
     ``slstm_scan`` call: on the GPU one cooperative launch that holds
     ``w_h`` in shared memory across its CTAs for all S steps, with one
-    barrier per step among the CTAs of a head."""
+    barrier per step among the CTAs of a head.  When autograd records, the
+    call goes through ``slstm_scan_trainable``: the same launch forward, a
+    recompute of the plain scan in the backward."""
     b, s, d = x.shape
     _, h, hd = slstm_dims(cfg)
     xg = x @ p.w_x.to(x.dtype) + p.b.to(x.dtype)        # (B, S, 4d)
@@ -219,9 +222,11 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
         .reshape(s, b, h, 4 * hd).float().contiguous()
     if state is None:
         state = init_slstm_state(cfg, b, device=x.device)
-    ys, (hf, cf, nf, mf) = slstm_scan(
-        xg, p.w_h.to(x.dtype).contiguous(),
-        *(state[k].contiguous() for k in ("h", "c", "n", "m")))
+    wh = p.w_h.to(x.dtype).contiguous()
+    scan = slstm_scan_trainable if torch.is_grad_enabled() and (
+        xg.requires_grad or wh.requires_grad) else slstm_scan
+    ys, (hf, cf, nf, mf) = scan(
+        xg, wh, *(state[k].contiguous() for k in ("h", "c", "n", "m")))
     y = ys.permute(1, 0, 2, 3).reshape(b, s, d).to(x.dtype)
     # post up/down FFN (GeGLU at ratio ~4/3, per the sLSTM block design);
     # the reference's gelu is the tanh approximation

@@ -1,6 +1,6 @@
-"""Serve-mode step functions (counterpart of the serve half of
-``repro/runtime/steps.py``).
+"""Step functions (counterpart of ``repro/runtime/steps.py``).
 
+``make_train_step(cfg)``   -> ``(state, batch) -> (state, metrics)``
 ``make_prefill_step(cfg)`` -> ``(params, batch) -> (last_logits, cache)``
 ``make_decode_step(cfg)``  -> ``(params, cache, inputs, row_mask=None,
 tier=None, tier_margins=None, residency=None) -> (logits, cache[,
@@ -8,7 +8,14 @@ metrics])``
 ``make_prefill_chunk_step(cfg)`` -> ``(params, cache, tokens, n_valid,
 row_mask=None, tier=None, tier_margins=None, residency=None) -> (cache,
 metrics)``.  PyTorch runs eagerly, so a step is
-a plain closure over the serve config, run under ``torch.no_grad``.
+a plain closure over the config; the serve steps run under
+``torch.no_grad``.
+
+The train step is microbatched forward and backward (gradients summed in
+float32 over ``grad_accum`` slices of the batch, then divided), global-norm
+clipping, the cosine learning rate and AdamW.  The train state is
+``{"params": Model, "opt": {"m", "v"}, "step"}`` and the step updates it
+in place: the moments and the parameters are written where they lie.
 """
 from __future__ import annotations
 
@@ -17,8 +24,94 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import decay_mask
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
+                               cosine_schedule)
 from repro_torch.runtime.dispatch import DISPATCH_BACKENDS
+
+
+def init_train_state(key, cfg: ModelConfig, *, device=None) -> dict:
+    """Random parameters from ``key`` (an int seed or a ``torch.Generator``)
+    with gradients on, zero float32 AdamW moments and step 0, on
+    ``device`` (default: the GPU, which must exist)."""
+    params = M.init_model(key, cfg, device=resolve_device(device))
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    return {"params": params, "opt": adamw_init(named),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=next(iter(named.values())).device)}
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int = 1):
+    """The train step's forward and backward: returns (loss, metrics,
+    {name: gradient}), all detached.  With ``grad_accum > 1`` the batch
+    splits into equal slices along B, the gradients are summed in float32
+    zeros and divided by ``grad_accum``, and the loss and every metric
+    are the mean of the slices' (equal slices: for a token-meaned metric,
+    the full-batch value)."""
+    named = dict(params.named_parameters())
+    inputs, labels = batch["inputs"], batch["labels"]
+
+    def grads_of(inp, lab):
+        loss, metrics = M.lm_loss(cfg, params, inp, lab)
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True)
+        gs = {k: torch.zeros_like(p) if g is None else g
+              for (k, p), g in zip(named.items(), gs)}
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
+
+    if grad_accum == 1:
+        return grads_of(inputs, labels)
+    mb = inputs.shape[0] // grad_accum
+    if mb * grad_accum != inputs.shape[0]:
+        raise ValueError(f"batch of {inputs.shape[0]} rows does not split "
+                         f"into grad_accum={grad_accum} equal slices")
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in named.items()}
+    lsum, ms = 0.0, []
+    for i in range(grad_accum):
+        sl = slice(i * mb, (i + 1) * mb)
+        loss, m, gs = grads_of(inputs[sl], labels[sl])
+        for k, g in gs.items():
+            acc[k].add_(g)
+        del gs
+        lsum = lsum + loss
+        ms.append(m)
+    for g in acc.values():
+        g.div_(grad_accum)
+    metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+    return lsum / grad_accum, metrics, acc
+
+
+def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
+                    base_lr: float = 3e-4, warmup: int = 200,
+                    total_steps: int = 10_000, max_grad_norm: float = 1.0):
+    """Returns train_step(state, batch) -> (state, metrics).  ``batch`` =
+    {"inputs": (B, S), "labels": (B, S)} on the state's device; B must
+    divide by grad_accum.  The metrics are the forward's (layer-meaned)
+    plus ``loss``, ``grad_norm`` (before clipping) and ``lr``, as tensors
+    on the device: reading one is the caller's host sync.  The cosine
+    schedule gives lr 0 at step 0 when ``warmup > 0``."""
+    decay = {}
+
+    def train_step(state, batch):
+        params = state["params"]
+        if not decay:       # the reference's rank rule, from its layout
+            decay.update(decay_mask(cfg, params))
+        loss, metrics, grads = loss_and_grads(cfg, params, batch,
+                                              grad_accum)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr = cosine_schedule(state["step"], base_lr=base_lr, warmup=warmup,
+                             total=total_steps)
+        adamw_update(dict(params.named_parameters()), grads, state["opt"],
+                     state["step"], lr=lr, decay=decay)
+        new_state = {"params": params, "opt": state["opt"],
+                     "step": state["step"] + 1}
+        return new_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -1,0 +1,378 @@
+"""The PyTorch port's training path against the JAX reference, on the
+smoke internlm2-1.8b config with the ApproxFFN and ``route_scope="tick"``
+(float32) and the smoke xlstm-1.3b, from converted parameters and the
+same numpy batch.
+
+Held: ``approx_ffn_train`` (output and loss within 3e-5; the competitive
+labels, ``safe`` and the votes exactly), the training forward (logits,
+aux and metrics within 3e-5; every layer's votes and the tick labels
+exactly), ``lm_loss`` gradients within 1e-4, one train step with
+``grad_accum`` 1 and 2 (metrics, gradients, AdamW moments within 1e-4,
+parameters within 2 * lr: Adam's first step moves an element whose
+gradient is within ulps of 0 by up to 2 * lr on a sign flip; the step
+counter exactly), the padded and pseudo-class stack entries exactly 0
+after steps, the xLSTM train step within 2e-4, remat changing nothing,
+and the launcher on the CPU.
+
+The smoke tests run with ``error_bound = 1.4``: at a random init the
+approximators' relative errors lie between 1.1 and 2.2, so the
+reference's bound of 0.1 would label every token exact; at 1.4 both
+kinds of label occur.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs.registry import get_config as jget_config  # noqa: E402
+from repro.configs.registry import smoke_config as jsmoke  # noqa: E402
+from repro.models import approx_ffn as JA  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.runtime import steps as JS  # noqa: E402
+from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
+from repro_torch.convert import (_split, params_from_jax,  # noqa: E402
+                                 train_state_from_jax)
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import approx_ffn as TA  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.runtime import steps as TS  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+B, S = 4, 32
+ERROR_BOUND = 1.4
+LR = 1e-3
+
+
+def _dense_cfgs(remat=False):
+    def f(cfg):
+        return dataclasses.replace(cfg, remat=remat,
+                                   approx=dataclasses.replace(
+                                       cfg.approx, enable=True,
+                                       route_scope="tick",
+                                       error_bound=ERROR_BOUND))
+    return (f(jsmoke(jget_config("internlm2-1.8b"))),
+            f(smoke_config(get_config("internlm2-1.8b"))))
+
+
+def _xlstm_cfgs():
+    return (jsmoke(jget_config("xlstm-1.3b")),
+            smoke_config(get_config("xlstm-1.3b")))
+
+
+def _batch(vocab, seed=0, b=B):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, S + 1)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+@pytest.fixture(scope="module")
+def dense():
+    jcfg, tcfg = _dense_cfgs()
+    jparams = JM.init_model(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, jparams
+
+
+def _port_params(tcfg, jparams):
+    model = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                            device="cpu")
+    return model.requires_grad_(True)
+
+
+def _close(got, want, tol, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
+                               atol=tol, err_msg=msg)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_approx_ffn_train_matches_jax(dense):
+    jcfg, tcfg, jparams = dense
+    model = _port_params(tcfg, jparams)
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["approx"])
+    x = np.random.default_rng(1).standard_normal(
+        (B, S, tcfg.d_model)).astype(np.float32)
+    jy, ja = JA.approx_ffn_train(jcfg, jp, jnp.asarray(x))
+    ty, ta = TA.approx_ffn_train(tcfg, model.blocks[0].approx, _t(x))
+    _close(ty.detach(), jy, 3e-5, "exact FFN output")
+    _close(ta["loss"].detach(), ja["loss"], 3e-5, "aux loss")
+    votes = ta["label_votes"].numpy()
+    np.testing.assert_array_equal(votes, np.asarray(ja["label_votes"]))
+    labels = votes.argmax(-1)
+    # the labels are mixed: exact tokens and at least two approximators
+    assert (labels == 0).any() and len(set(labels[labels > 0])) >= 2
+    assert float(ta["invocation"]) == float(ja["invocation"]) \
+        == np.mean(labels > 0)                          # safe, exactly
+    assert float(ta["router_acc"]) == float(ja["router_acc"])
+    # the competitive labels themselves, from the same errors
+    xt = x.reshape(-1, tcfg.d_model)
+    errs = TA._rel_err(TA._apply_all_approx(tcfg, model.blocks[0].approx,
+                                            _t(xt)),
+                       TL.ffn_fwd(tcfg, model.blocks[0].approx.ffn,
+                                  _t(xt))[None])
+    want = np.where(errs.amin(0).detach().numpy() <= ERROR_BOUND,
+                    errs.argmin(0).numpy() + 1, 0)
+    np.testing.assert_array_equal(labels, want)
+
+
+def _jax_votes(jcfg, jparams, inputs):
+    x = JL.embed_fwd(jcfg, jparams["embed"], jnp.asarray(inputs))
+    pos = jnp.arange(x.shape[1])[None, :]
+    out = []
+    for i in range(jcfg.n_layers):
+        blk = jax.tree.map(lambda a: a[i], jparams["blocks"])
+        x, _, _, m = JM._dense_block(jcfg, blk, x, pos, None, serve=False)
+        out.append(np.asarray(m["_label_votes"]))
+    return out
+
+
+def _port_votes(tcfg, model, inputs):
+    x = TL.embed_fwd(tcfg, model.embed, _t(inputs))
+    pos = torch.arange(x.shape[1])[None, :]
+    out = []
+    for blk in model.blocks:
+        x, _, _, m = TM._dense_block(tcfg, blk, x, pos, None, serve=False)
+        out.append(m["_label_votes"].numpy())
+    return out
+
+
+def test_forward_train_matches_jax(dense):
+    jcfg, tcfg, jparams = dense
+    model = _port_params(tcfg, jparams)
+    inputs, _ = _batch(tcfg.vocab)
+    jl, _, jaux, jm = JM.forward(jcfg, jparams, jnp.asarray(inputs))
+    with torch.no_grad():
+        tl, _, taux, tm = TM.forward(tcfg, model, _t(inputs))
+    _close(tl, jl, 3e-5, "logits")
+    _close(taux, jaux, 3e-5, "aux")
+    assert set(tm) == set(jm) == {"invocation", "router_acc",
+                                  "tick_router_loss", "tick_router_acc"}
+    for k in jm:
+        _close(tm[k], jm[k], 3e-5, k)
+    jv, tv = _jax_votes(jcfg, jparams, inputs), _port_votes(tcfg, model,
+                                                           inputs)
+    for a, b in zip(tv, jv):
+        np.testing.assert_array_equal(a, b)
+    tick = sum(tv).argmax(-1)
+    np.testing.assert_array_equal(tick, np.asarray(
+        jnp.argmax(sum(jnp.asarray(v) for v in jv), -1)))
+    assert len(set(tick)) >= 2, "tick labels all one class"
+
+
+def test_lm_loss_grads_match_jax(dense):
+    jcfg, tcfg, jparams = dense
+    model = _port_params(tcfg, jparams)
+    inputs, labels = _batch(tcfg.vocab, seed=2)
+    (jloss, jm), jg = jax.value_and_grad(
+        lambda p: JM.lm_loss(jcfg, p, jnp.asarray(inputs),
+                             jnp.asarray(labels)), has_aux=True)(jparams)
+    loss, tm = TM.lm_loss(tcfg, model, _t(inputs), _t(labels))
+    named = dict(model.named_parameters())
+    tg = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    _close(loss.detach(), jloss, 3e-5, "loss")
+    for k in ("lm_loss", "aux_loss"):
+        _close(tm[k].detach(), jm[k], 3e-5, k)
+    want = _split(tcfg, jax.tree.map(np.asarray, jg))
+    assert want.keys() == tg.keys()
+    for k, g in tg.items():
+        _close(g, want[k], 1e-4, k)
+
+
+def _jax_grads(jcfg, jparams, inputs, labels, grad_accum):
+    """The reference step's gradients: the microbatch mean."""
+    mb = inputs.shape[0] // grad_accum
+    acc = None
+    for i in range(grad_accum):
+        sl = slice(i * mb, (i + 1) * mb)
+        g = jax.grad(lambda p: JM.lm_loss(jcfg, p, jnp.asarray(inputs[sl]),
+                                          jnp.asarray(labels[sl]))[0])(
+            jparams)
+        acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
+    return jax.tree.map(lambda a: np.asarray(a / grad_accum), acc)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_matches_jax(dense, grad_accum):
+    jcfg, tcfg, _ = dense
+    jstate = JS.init_train_state(jax.random.PRNGKey(1), jcfg)
+    state = train_state_from_jax(tcfg, jax.tree.map(np.asarray, jstate),
+                                 device="cpu")
+    inputs, labels = _batch(tcfg.vocab, seed=3)
+    kw = dict(grad_accum=grad_accum, base_lr=LR, warmup=0, total_steps=10)
+    jstep = jax.jit(JS.make_train_step(jcfg, **kw))
+    batch = {"inputs": _t(inputs), "labels": _t(labels)}
+    _, _, tg = TS.loss_and_grads(tcfg, state["params"], batch, grad_accum)
+    want = _split(tcfg, _jax_grads(jcfg, jstate["params"], inputs, labels,
+                                   grad_accum))
+    for k, g in tg.items():
+        assert g.dtype == (torch.float32 if grad_accum > 1
+                           else state["params"].get_parameter(k).dtype)
+        _close(g, want[k], 1e-4, f"grad {k}")
+
+    jnew, jm = jstep(jstate, {"inputs": jnp.asarray(inputs),
+                              "labels": jnp.asarray(labels)})
+    new, tm = TS.make_train_step(tcfg, **kw)(state, batch)
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(np.asarray(tm[k]), np.asarray(jm[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    assert int(new["step"]) == int(jnew["step"]) == 1
+    assert new["step"].dtype == torch.int32
+    jn = jax.tree.map(np.asarray, jnew)
+    for k in ("m", "v"):
+        want = _split(tcfg, jn["opt"][k])
+        for name, t in new["opt"][k].items():
+            _close(t, want[name], 1e-4, f"{k} {name}")
+    want = _split(tcfg, jn["params"])
+    lr = float(jm["lr"])
+    for name, p in new["params"].named_parameters():
+        _close(p.detach(), want[name], 2 * lr, name)
+
+
+def test_padding_and_pseudo_class_stay_zero(dense):
+    """The serving-form stacks are trained through their logical views:
+    the lane padding and the zero pseudo-class get zero gradients, zero
+    moments, no decay, and stay exactly 0 step after step."""
+    _, tcfg, _ = dense
+    state = TS.init_train_state(0, tcfg, device="cpu")
+    step = TS.make_train_step(tcfg, base_lr=1e-2, warmup=0, total_steps=10)
+    inputs, labels = _batch(tcfg.vocab, seed=4)
+    batch = {"inputs": _t(inputs), "labels": _t(labels)}
+    a, d, n = tcfg.approx, tcfg.d_model, tcfg.approx.n_live
+    for _ in range(3):
+        state, _ = step(state, batch)
+    for i, blk in enumerate(state["params"].blocks):
+        p = blk.approx
+        logical = TA.approx_stacks(tcfg, p)
+        moved = [t.detach().clone() for t in logical]
+        for name, full in (("a_w1", p.a_w1), ("a_b1", p.a_b1),
+                           ("a_w2", p.a_w2), ("a_b2", p.a_b2)):
+            keys = (f"blocks.{i}.approx.{name}",)
+            pad = full.detach().clone()
+            idx = {"a_w1": (slice(None, n), slice(None, d),
+                            slice(None, a.d_hidden)),
+                   "a_b1": (slice(None, n), slice(None, a.d_hidden)),
+                   "a_w2": (slice(None, n), slice(None, a.d_hidden),
+                            slice(None, d)),
+                   "a_b2": (slice(None, n), slice(None, d))}[name]
+            pad[idx] = 0
+            assert pad.shape[0] == n + 1 and pad.shape[-1] % 128 == 0
+            assert torch.count_nonzero(pad) == 0, (i, name)
+            for mom in ("m", "v"):
+                mm = state["opt"][mom][keys[0]].clone()
+                mm[idx] = 0
+                assert torch.count_nonzero(mm) == 0, (i, name, mom)
+        # and the logical blocks did train
+        assert all(torch.count_nonzero(t) for t in moved[::2])
+    assert int(state["step"]) == 3
+
+
+def test_remat_changes_nothing():
+    """``cfg.remat`` recomputes each block in the backward: the loss and
+    every gradient are bitwise those without it (dense with the ApproxFFN
+    and xLSTM through ``slstm_scan_trainable``)."""
+    inputs, labels = _batch(512, seed=5)
+    batch = {"inputs": _t(inputs), "labels": _t(labels)}
+    for base in (_dense_cfgs()[1], _xlstm_cfgs()[1]):
+        out = {}
+        for remat in (False, True):
+            cfg = dataclasses.replace(base, remat=remat)
+            state = TS.init_train_state(0, cfg, device="cpu")
+            out[remat] = TS.loss_and_grads(cfg, state["params"], batch, 2)
+        assert torch.equal(out[True][0], out[False][0])
+        for k, g in out[False][2].items():
+            assert torch.equal(out[True][2][k], g), (base.name, k)
+
+
+def test_xlstm_train_step_matches_jax():
+    jcfg, tcfg = _xlstm_cfgs()
+    jstate = JS.init_train_state(jax.random.PRNGKey(2), jcfg)
+    state = train_state_from_jax(tcfg, jax.tree.map(np.asarray, jstate),
+                                 device="cpu")
+    inputs, labels = _batch(tcfg.vocab, seed=6, b=2)
+    kw = dict(base_lr=LR, warmup=0, total_steps=10)
+    batch = {"inputs": _t(inputs), "labels": _t(labels)}
+    _, _, tg = TS.loss_and_grads(tcfg, state["params"], batch)
+    want = _split(tcfg, _jax_grads(jcfg, jstate["params"], inputs, labels,
+                                   1))
+    assert want.keys() == tg.keys()
+    for k, g in tg.items():
+        _close(g, want[k], 2e-4, f"grad {k}")
+    jnew, jm = jax.jit(JS.make_train_step(jcfg, **kw))(
+        jstate, {"inputs": jnp.asarray(inputs), "labels": jnp.asarray(labels)})
+    new, tm = TS.make_train_step(tcfg, **kw)(state, batch)
+    assert set(tm) == set(jm)
+    for k in jm:
+        _close(tm[k], jm[k], 2e-4, k)
+    want = _split(tcfg, jax.tree.map(np.asarray, jnew["params"]))
+    for name, p in new["params"].named_parameters():
+        _close(p.detach(), want[name], 2 * LR, name)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "xlstm-1.3b"])
+def test_train_launcher_runs_on_cpu(arch):
+    out = launch_train.main(["--arch", arch, "--smoke", "--approx",
+                             "--device", "cpu", "--steps", "3", "--batch",
+                             "2", "--seq-len", "32", "--grad-accum", "2"])
+    assert out["steps"] == 3 and math.isfinite(out["final_loss"])
+
+
+def test_train_entry_points_without_device_raise_when_there_is_no_gpu(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _dense_cfgs()
+    ds = SyntheticLM(vocab=tcfg.vocab, seq_len=S, global_batch=2)
+    for call in (lambda: TS.init_train_state(0, tcfg),
+                 lambda: Trainer(tcfg, TrainerConfig(total_steps=1), ds),
+                 lambda: launch_train.main(["--smoke", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_unported_train_options_raise():
+    _, tcfg = _dense_cfgs()
+    ds = SyntheticLM(vocab=tcfg.vocab, seq_len=S, global_batch=2)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Trainer(tcfg, TrainerConfig(total_steps=1), ds, mesh=object(),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        launch_train.main(["--arch", "olmo-1b", "--smoke", "--device",
+                           "cpu"])
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(dense):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    jcfg, tcfg, _ = dense
+    jstate = JS.init_train_state(jax.random.PRNGKey(1), jcfg)
+    tree = jax.tree.map(np.asarray, jstate)
+    inputs, labels = _batch(tcfg.vocab, seed=3)
+    kw = dict(grad_accum=2, base_lr=LR, warmup=0, total_steps=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = train_state_from_jax(tcfg, tree, device=dev)
+        batch = {"inputs": _t(inputs).to(dev), "labels": _t(labels).to(dev)}
+        _, _, g = TS.loss_and_grads(tcfg, state["params"], batch, 2)
+        new, m = TS.make_train_step(tcfg, **kw)(state, batch)
+        out[dev] = ({k: v.cpu() for k, v in g.items()},
+                    {k: v.cpu() for k, v in m.items()},
+                    {k: p.detach().cpu()
+                     for k, p in new["params"].named_parameters()})
+    (cg, cm, cp), (gg, gm, gp) = out["cpu"], out["cuda"]
+    for k in cm:
+        _close(gm[k], cm[k], 1e-4, k)
+    for k in cg:
+        _close(gg[k], cg[k], 1e-4, k)
+        _close(gp[k], cp[k], 2 * LR, k)
