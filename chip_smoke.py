@@ -100,13 +100,33 @@ Phases (any failure raises and the script exits non-zero):
   13. [train resume]: the internlm2 smoke config on the card under
      torch.use_deterministic_algorithms: saved at step 3, a new Trainer
      resumes to step 6 and equals an uninterrupted run bitwise;
-  14. a JSON line describing every kernel, then the result line.
+  14. [paper pipeline full width]: the paper's co-training at the
+     reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
+     the paper topologies; 1500 epochs, 3 approximators, 5 iterations, lr
+     3e-3), float32 on the card: blackscholes through the methods of
+     benchmarks/bench_paper.run_app that fit the phase's 150 s (one-pass,
+     MCMA complementary and competitive; iterative and MCCA only in the
+     CPU tests) with the Fig. 8 cost normalisation,
+     each method's seconds, train_mlp calls and epochs/s, every metric in
+     range and MCMA-competitive's invocation at least one-pass's - 0.02;
+     the dispatched test rows through the switched_mlp kernel
+     (ops.switched_apply) under the three 6->8->1 approximators, within
+     3e-5 of apply_mlp under each row's approximator and of
+     switched_mlp_plain; bessel's competitive MCMA and the example twin's
+     kernel step (layers 0 and 1 of each 2->4->4->1) within 3e-5 of
+     ref.switched_mlp_ref and of the plain version, timed with its bound;
+     train_mlp on the card within 1e-4 of the CPU from one init (1 and 10
+     epochs, both losses, weighted, 4,096 rows) and one train_mcma
+     iteration's labels and classes differing on at most 0.5 % of rows;
+  15. a JSON line describing every kernel (switched_mlp's
+     launches_by_run with the two paper runs), then the result line.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -151,6 +171,16 @@ SLSTM_TRAIN = (TRAIN_XLSTM["seq"],
 TRAIN_ERROR_BOUND = 1.4
 TRAIN_RESUME = dict(batch=4, seq=32, save_at=3, steps=6)
 SLSTM_GRAD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+# the paper pipeline at the reference's paper settings
+# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32); block_t as in
+# examples/approx_bessel.py
+PAPER = dict(epochs=1500, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
+             block_t=128, seed=0)
+# card against CPU: 10 epochs keep two implementations' RMSprop
+# trajectories at ulp distance (past about 100 epochs elements with a
+# near-zero gradient take different signs and the runs drift apart)
+PAPER_PARITY = dict(rows=4096, epochs=(1, 10), mcma_epochs=10, tol=1e-4,
+                    max_label_diff=0.005)
 
 
 def log(msg):
@@ -304,13 +334,33 @@ def switch_inputs(np, torch, rng, t, n, d, dh, dtype):
     return x, w
 
 
+def switch_bound(torch, dtype, x, cls, w):
+    """The least time for the weight switch's function on one dispatch:
+    rows ``x`` under classes ``cls`` through stacks ``w`` (w1, b1, w2,
+    b2), at the widths these tensors have.  Bytes: each row read and its
+    output written once, the class vector, and the weights of the classes
+    ``cls`` uses; FLOP: 2 * rows * (d_in * d_h + d_h * d_out).  Given the
+    logical dispatch this is the bound; given a kernel's padded operands
+    (per-row classes) it is what that layout moves.  Returns (ms,
+    "bytes" or "operations", bytes, FLOP)."""
+    t, d_in = x.shape
+    d_h, d_out = w[2].shape[1:]
+    w_bytes = sum(wt[c].numel() * wt.element_size()
+                  for c in torch.unique(cls).tolist() for wt in w)
+    n_bytes = t * (d_in + d_out) * x.element_size() \
+        + cls.numel() * cls.element_size() + w_bytes
+    flops = 2 * t * (d_in * d_h + d_h * d_out)
+    return (*bound(dtype, n_bytes, flops), n_bytes, flops)
+
+
 def time_switch_case(np, torch, flush, x, cls, w, blk, dtype, label,
                      timed=True):
     """Both switch kernels on one dispatch (rows ``x`` under classes
     ``cls``, stacks ``w`` with the pseudo-class last) against their plain
-    twins, then timed (plain, kernel, kernel, plain) with the bound from
-    the bytes and operations this case needs.  Returns {kernel: numbers};
-    with ``timed`` False only the check and its error."""
+    twins, then timed (plain, kernel, kernel, plain) with the bound of
+    the dispatch (``switch_bound``: both kernels compute one function).
+    Returns {kernel: numbers}; with ``timed`` False only the check and
+    its error."""
     from repro_torch.kernels import fused_dispatch, switched_mlp
     t = x.shape[0]
     err, (xp, rows, tile_cls, weights) = check_kernels(
@@ -323,34 +373,23 @@ def time_switch_case(np, torch, flush, x, cls, w, blk, dtype, label,
             f"|kernel-plain| switched {err['switched_mlp']:.3g}, fused "
             f"{err['switched_mlp_fused']:.3g}")
         return {k: dict(max_abs_err=v) for k, v in err.items()}
-    w_bytes = sum(wt[c].numel() * wt.element_size()
-                  for c in classes for wt in weights)
-    flops = tile_cls.numel() * blk * 2 * (
-        weights[0].shape[1] * weights[0].shape[2]
-        + weights[2].shape[1] * weights[2].shape[2])
-    d_out_p = weights[2].shape[2]
-    esz = xp.element_size()
-    sw_bytes = xp.numel() * esz + 4 * tile_cls.numel() + w_bytes \
-        + xp.shape[0] * d_out_p * esz
-    fu_bytes = x.numel() * esz + 4 * (rows.numel() + tile_cls.numel()) \
-        + w_bytes + (t + 1) * d_out_p * esz
+    b_ms, b_by, n_bytes, flops = switch_bound(torch, dtype, x, cls, w)
     run = {
         "switched_mlp": (
             lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,
                                               block_t=blk),
             lambda: switched_mlp.switched_mlp_plain(xp, tile_cls, *weights,
-                                                    block_t=blk), sw_bytes),
+                                                    block_t=blk)),
         "switched_mlp_fused": (
             lambda: fused_dispatch.switched_mlp_fused(
                 x, rows, tile_cls, *weights, block_t=blk),
             lambda: fused_dispatch.switched_mlp_fused_plain(
-                x, rows, tile_cls, *weights, block_t=blk), fu_bytes),
+                x, rows, tile_cls, *weights, block_t=blk)),
     }
     out = {}
-    for name, (kern, plain, n_bytes) in run.items():
+    for name, (kern, plain) in run.items():
         ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern, plain,
                                                     flush)
-        b_ms, b_by = bound(dtype, n_bytes, flops)
         out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by)
         log(f"  {name} {dtype} {label} ({t} rows, t_pad={xp.shape[0]}, "
@@ -1684,6 +1723,320 @@ def train_resume(np, torch, dev="cuda"):
         f"uninterrupted run (losses {losses}), deterministic algorithms on")
 
 
+def paper_stacks(m):
+    """The Bessel example twin's ``switch_stacks``: layers 0 and 1 of each
+    of ``m``'s approximators, stacked as the weight switch's (w1, b1, w2,
+    b2)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" \
+        / "approx_bessel_torch.py"
+    spec = importlib.util.spec_from_file_location("approx_bessel_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example.switch_stacks(m)
+
+
+def paper_switch(torch, m, xte, label):
+    """The paper runtime's weight switch: the test rows MCMA's classifier
+    dispatches, each through ``ops.switched_apply`` (the switched_mlp
+    kernel) under its approximator's layers 0 and 1.  Returns (the
+    dispatched rows, their classes, the stacks, the kernel's output)."""
+    from repro_torch.kernels import ops
+    cls = m.classify(xte)
+    disp = cls < m.n_approx
+    xd, cd = xte[disp].contiguous(), cls[disp].contiguous()
+    if xd.shape[0] == 0:
+        raise AssertionError(f"{label}: the classifier dispatched no row")
+    w = paper_stacks(m)
+    return xd, cd, w, ops.switched_apply(xd, cd, *w,
+                                         block_t=PAPER["block_t"])
+
+
+def paper_switch_vs_plain(torch, xd, cd, w, flush, label):
+    """The switched_mlp kernel against switched_mlp_plain on the paper
+    runtime's operands (these launches are comparisons, not the path's);
+    with ``flush`` also timed (plain, kernel, kernel, plain) with the
+    bound of the dispatch at the approximators' own widths
+    (``switch_bound``), the same count over the 128-padded operands
+    beside it.  Returns the numbers."""
+    from repro_torch.kernels import ops, switched_mlp
+    blk = PAPER["block_t"]
+    xp, _, tile_cls, weights, _, _ = ops.kernel_operands(xd, cd, *w,
+                                                         block_t=blk)
+    kern = lambda: switched_mlp.switched_mlp(xp, tile_cls, *weights,  # noqa
+                                             block_t=blk)
+    plain = lambda: switched_mlp.switched_mlp_plain(  # noqa: E731
+        xp, tile_cls, *weights, block_t=blk)
+    y, y_plain = kern(), plain()
+    torch.testing.assert_close(y, y_plain, rtol=TOL["float32"],
+                               atol=TOL["float32"],
+                               msg=f"{label}: switched_mlp vs plain")
+    out = dict(rows=xd.shape[0], t_pad=xp.shape[0],
+               max_abs_err=(y - y_plain).abs().max().item())
+    if flush is None:
+        return out
+    b_ms, b_by, n_bytes, flops = switch_bound(torch, "float32", xd, cd, w)
+    pad_ms, pad_by, pad_bytes, pad_flops = switch_bound(
+        torch, "float32", xp, tile_cls.repeat_interleave(blk), weights)
+    ms, plain_ms, (p1, k1, k2, p2) = timed_pair(torch, kern, plain, flush)
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               padded_bound_ms=pad_ms)
+    dims = " -> ".join(str(d) for d in (*w[0].shape[1:], w[2].shape[2]))
+    pad = " -> ".join(str(d) for d in (*weights[0].shape[1:],
+                                       weights[2].shape[2]))
+    log(f"  switched_mlp float32 {label} ({xd.shape[0]} rows, {dims}; "
+        f"t_pad={xp.shape[0]}, {pad} padded): kernel {k1:.4f}/{k2:.4f} ms, "
+        f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+        f"{n_bytes} B, {flops} FLOP; {ms / b_ms:.0f}x), over the padded "
+        f"operands {pad_ms:.5f} ms ({pad_by}: {pad_bytes} B, {pad_flops} "
+        f"FLOP), max |kernel-plain| {out['max_abs_err']:.3g}")
+    return out
+
+
+def paper_launch_gate(run):
+    """A paper run sends its dispatched rows through one switched_mlp
+    launch (the methods themselves train with plain torch)."""
+    if run["launches"] != 1:
+        raise AssertionError(f"{run['run']}: switched_mlp launched "
+                             f"{run['launches']} times, not once")
+
+
+def paper_methods(torch, app, data):
+    """The methods of benchmarks/bench_paper.run_app that the card runs
+    (one-pass and both MCMA schemes; iterative and MCCA would take the
+    phase past its 150 s, PERF.md §4, and the CPU tests hold them) at the
+    paper's settings, each timed (host clock, ended by its metrics'
+    reads) with its train_mlp calls, and the Fig. 8 cost normalisation
+    against one-pass.  Returns ({method: model}, {method: Metrics},
+    {method: CostReport})."""
+    from repro_torch.core import npu_model, train_mcma, train_one_pass
+    from repro_torch.core.mlp import train_mlp
+    xtr, ytr, xte, yte = data
+    p, n = PAPER, PAPER["n_approx"]
+    kw = dict(epochs=p["epochs"], lr=p["lr"])
+    gen = lambda i: torch.Generator(device="cuda").manual_seed(  # noqa
+        p["seed"] + i)
+    runs = {
+        # bench_paper.run_app's keys: ks[0] for one-pass, ks[3] for both
+        # MCMA schemes
+        "one-pass": lambda: train_one_pass(app, gen(0), xtr, ytr, **kw),
+        "mcma-complementary": lambda: train_mcma(
+            app, gen(3), xtr, ytr, n_approx=n, scheme="complementary",
+            iters=p["iters"], **kw),
+        "mcma-competitive": lambda: train_mcma(
+            app, gen(3), xtr, ytr, n_approx=n, scheme="competitive",
+            iters=p["iters"], **kw),
+    }
+    models, rows, costs, timing = {}, {}, {}, {}
+    for name, run in runs.items():
+        calls = train_mlp.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[name] = run()
+        rows[name] = models[name].evaluate(xte, yte)
+        timing[name] = (time.perf_counter() - t0, train_mlp.calls - calls)
+    for name, met in rows.items():
+        multi = name.startswith("mcma")
+        costs[name] = npu_model.cost(
+            app, met.invocation, n_approx=n if multi else 1, multiclass=multi,
+            switch_rate=p["switch_rate"] if multi else 0.0)
+    base = costs["one-pass"]
+    for name, met in rows.items():
+        s, calls = timing[name]
+        log(f"  {app.name} {name:18s} inv={met.invocation:.4f} "
+            f"err/bound={met.err_norm:.4f} recall={met.recall:.4f} "
+            f"false_pos={met.false_pos:.4f} "
+            f"speedup={costs[name].speedup_vs(base):.4f} "
+            f"energy={costs[name].energy_reduction_vs(base):.4f} | "
+            f"{s:.2f} s, {calls} train_mlp calls, "
+            f"{calls * p['epochs'] / s:.0f} epochs/s")
+    return models, rows, costs
+
+
+def paper_gates(torch, app, models, rows, costs, xte):
+    """Every metric finite and in its range, the headline (MCMA-competitive
+    invocation >= one-pass's - 0.02), ``history`` of ``iters`` entries and
+    ``classify`` in [0, n]."""
+    base = costs["one-pass"]
+    for name, met in rows.items():
+        shares = [met.invocation, met.true_invocation, met.recall,
+                  met.false_neg, met.false_pos, *met.dispatch_frac]
+        ratios = [met.err_norm, costs[name].speedup_vs(base),
+                  costs[name].energy_reduction_vs(base)]
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in shares) \
+                or not all(math.isfinite(v) and v >= 0.0 for v in ratios):
+            raise AssertionError(f"{app.name} {name}: a metric is out of "
+                                 f"range: {met}, cost {costs[name]}")
+    inv_mcma = rows["mcma-competitive"].invocation
+    inv_op = rows["one-pass"].invocation
+    if inv_mcma < inv_op - 0.02:
+        raise AssertionError(f"{app.name}: MCMA-competitive invocation "
+                             f"{inv_mcma} < one-pass {inv_op} - 0.02")
+    for name, m in models.items():
+        if not name.startswith("mcma"):
+            continue
+        cls = m.classify(xte)
+        if len(m.history) != PAPER["iters"] or not all(
+                0.0 <= h <= 1.0 for h in m.history) \
+                or int(cls.min()) < 0 or int(cls.max()) > m.n_approx:
+            raise AssertionError(f"{app.name} {name}: history {m.history}, "
+                                 f"classes {int(cls.min())}..{int(cls.max())}")
+        log(f"  {app.name} {name} invocation by iteration: "
+            + " ".join(f"{h:.4f}" for h in m.history))
+
+
+def paper_card_vs_cpu(np, torch):
+    """train_mlp on the card and on the CPU from one init (made on the
+    CPU), on 4,096 blackscholes rows with per-sample weights, for 1 and 10
+    epochs, both losses: parameters within 1e-4.  Then one train_mcma
+    iteration (competitive, 10 epochs) on each from the same CPU
+    generator: its labels and the classifier's classes counted where they
+    differ, at most 0.5 % of the rows."""
+    from repro_torch.apps import get_app, make_dataset
+    from repro_torch.core import init_mlp, train_mcma, train_mlp
+    from repro_torch.core.mcma import _labels_competitive
+    c = PAPER_PARITY
+    app = get_app("blackscholes")
+    x, y, _, _ = make_dataset(app, torch.Generator().manual_seed(11),
+                              c["rows"], 16)
+    w = torch.from_numpy(np.random.default_rng(11).random(c["rows"])
+                         .astype(np.float32))
+    labels = (y[:, 0] > y[:, 0].median()).to(torch.int32)
+    for loss, spec, target in (("mse", app.approx_spec, y),
+                               ("xent", app.cls_spec(2), labels)):
+        p0 = init_mlp(torch.Generator().manual_seed(12), spec)
+        for epochs in c["epochs"]:
+            got = {dev: train_mlp(p0, x.to(dev), target.to(dev), spec,
+                                  weights=w.to(dev), loss=loss,
+                                  epochs=epochs, lr=PAPER["lr"])
+                   for dev in ("cpu", "cuda")}
+            err = max((a[k].cpu() - b[k]).abs().max().item()
+                      for a, b in zip(got["cuda"], got["cpu"])
+                      for k in ("w", "b"))
+            log(f"  train_mlp {loss} {epochs} epoch(s), {c['rows']} rows: "
+                f"card within {err:.3g} of the CPU")
+            if err > c["tol"]:
+                raise AssertionError(f"train_mlp {loss} {epochs}: card "
+                                     f"{err} from the CPU > {c['tol']}")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd, yd = x.to(dev), y.to(dev)
+        m = train_mcma(app, torch.Generator().manual_seed(13), xd, yd,
+                       n_approx=3, scheme="competitive", iters=1,
+                       epochs=c["mcma_epochs"], lr=PAPER["lr"])
+        lab = _labels_competitive(m.approximator_errors(xd, yd),
+                                  app.error_bound)
+        out[dev] = (lab.cpu(), m.classify(xd).cpu(), m.history)
+    n_lab = int((out["cpu"][0] != out["cuda"][0]).sum())
+    n_cls = int((out["cpu"][1] != out["cuda"][1]).sum())
+    by_class = torch.bincount(out["cpu"][0], minlength=4).tolist()
+    log(f"  train_mcma 1 iteration ({c['mcma_epochs']} epochs): labels "
+        f"differ on {n_lab}, classes on {n_cls} of {c['rows']} rows "
+        f"(CPU labels by class {by_class}); invocation card "
+        f"{out['cuda'][2]} CPU {out['cpu'][2]}")
+    limit = c["max_label_diff"] * c["rows"]
+    if n_lab > limit or n_cls > limit:
+        raise AssertionError(f"train_mcma: {n_lab} labels / {n_cls} "
+                             f"classes differ between card and CPU > "
+                             f"{limit}")
+
+
+def paper_pipeline_full_width(np, torch):
+    """[paper pipeline full width]: the reference's paper settings on the
+    card (the Fig. 6 sizes, the paper topologies, 1500 epochs, n 3, 5
+    iterations, lr 3e-3), float32.  (1) blackscholes: one-pass and both
+    MCMA schemes of bench_paper.run_app with the Fig. 8 costs, gated, then
+    the dispatched test rows through the switched_mlp kernel under the
+    three 6->8->1 approximators (two layers: the kernel computes each
+    whole), within
+    3e-5 of apply_mlp under each row's approximator and of
+    switched_mlp_plain; (2) bessel: competitive MCMA, then the example
+    twin's kernel step (layers 0 and 1 of each 2->4->4->1) within 3e-5 of
+    ref.switched_mlp_ref and of the plain version, timed; (3) the card
+    against the CPU.  Returns the kernels line's runs for switched_mlp."""
+    from repro_torch.apps import get_app, make_dataset
+    from repro_torch.core import apply_mlp, train_mcma
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.switched_mlp import switched_mlp
+    tol = dict(rtol=TOL["float32"], atol=TOL["float32"])
+    by_run = []
+
+    app = get_app("blackscholes")
+    data = make_dataset(app, torch.Generator(device="cuda").manual_seed(
+        PAPER["seed"]), app.n_train, app.n_test)
+    log(f"  blackscholes: {app.n_train} train / {app.n_test} test rows, "
+        f"{app.approx_topo} approximators, {app.cls_topo} classifier")
+    switched_mlp.launches = 0
+    t0 = time.perf_counter()
+    models, rows, costs = paper_methods(torch, app, data)
+    xd, cd, w, got = paper_switch(torch, models["mcma-competitive"],
+                                  data[2], "blackscholes")
+    torch.cuda.synchronize()
+    by_run.append(dict(run="paper blackscholes", rows=xd.shape[0],
+                       launches=switched_mlp.launches))
+    paper_launch_gate(by_run[-1])
+    log(f"  blackscholes run {time.perf_counter() - t0:.1f} s")
+    paper_gates(torch, app, models, rows, costs, data[2])
+    m = models["mcma-competitive"]
+    want = torch.zeros_like(got)
+    for i, a in enumerate(m.a_params):
+        want[cd == i] = apply_mlp(a, xd[cd == i], app.approx_spec)
+    torch.testing.assert_close(got, want, **tol,
+                               msg="blackscholes switch vs apply_mlp")
+    sw = paper_switch_vs_plain(torch, xd, cd, w, None, "blackscholes")
+    log(f"  blackscholes switch: {xd.shape[0]} dispatched rows, "
+        f"{by_run[-1]['launches']} launch; kernel within "
+        f"{(got - want).abs().max().item():.3g} of apply_mlp, "
+        f"{sw['max_abs_err']:.3g} of switched_mlp_plain")
+    del models, data
+
+    app = get_app("bessel")
+    xtr, ytr, xte, yte = make_dataset(
+        app, torch.Generator(device="cuda").manual_seed(PAPER["seed"] + 1),
+        app.n_train, app.n_test)
+    switched_mlp.launches = 0
+    t0 = time.perf_counter()
+    m = train_mcma(app, torch.Generator(device="cuda").manual_seed(
+        PAPER["seed"] + 11), xtr, ytr, n_approx=PAPER["n_approx"],
+        scheme="competitive", iters=PAPER["iters"], epochs=PAPER["epochs"],
+        lr=PAPER["lr"])
+    met = m.evaluate(xte, yte)
+    xd, cd, w, got = paper_switch(torch, m, xte, "bessel")
+    torch.cuda.synchronize()
+    by_run.append(dict(run="paper bessel", rows=xd.shape[0],
+                       launches=switched_mlp.launches))
+    paper_launch_gate(by_run[-1])
+    log(f"  bessel competitive ({time.perf_counter() - t0:.1f} s): "
+        f"{met.row()}; invocation by iteration "
+        + " ".join(f"{h:.4f}" for h in m.history)
+        + "; territory shares " + " ".join(f"{f:.4f}"
+                                           for f in met.dispatch_frac))
+    shares = [met.invocation, met.recall, met.false_pos, *met.dispatch_frac]
+    if not all(math.isfinite(v) and 0 <= v <= 1 for v in shares) \
+            or len(m.history) != PAPER["iters"]:
+        raise AssertionError(f"bessel: {met}, history {m.history}")
+    want = ref.switched_mlp_ref(xd, cd, *w)
+    torch.testing.assert_close(got, want, **tol,
+                               msg="bessel switch vs switched_mlp_ref")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    sw = paper_switch_vs_plain(torch, xd, cd, w, flush, "bessel")
+    del flush
+    by_run[-1].update(ms=sw["ms"], plain_ms=sw["plain_ms"],
+                      bound_ms=sw["bound_ms"], bound_by=sw["bound_by"],
+                      padded_bound_ms=sw["padded_bound_ms"],
+                      max_abs_err=max(sw["max_abs_err"],
+                                      (got - want).abs().max().item()))
+    log(f"  bessel switch: {xd.shape[0]} dispatched rows, "
+        f"{by_run[-1]['launches']} launch; kernel "
+        f"within {(got - want).abs().max().item():.3g} of "
+        f"switched_mlp_ref, {sw['max_abs_err']:.3g} of switched_mlp_plain")
+    del xtr, ytr, xte, yte, m
+    torch.cuda.empty_cache()
+
+    paper_card_vs_cpu(np, torch)
+    return by_run
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -1795,6 +2148,12 @@ def main() -> int:
     train_resume(np, torch)
     log(f"  phase {time.time() - t0:.1f} s")
 
+    log("[paper pipeline full width]")
+    t0 = time.time()
+    paper_runs = paper_pipeline_full_width(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
     # library_ms is null for all four: no single PyTorch call computes a
     # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh
     # + addmm) or the recurrence (a loop of steps)
@@ -1804,6 +2163,7 @@ def main() -> int:
     switch_runs = {b: [dict(run=f"slice 1 {b}", ticks=results[b]["ticks"],
                             launches=results[b]["launches"])]
                    + feature_launches[b] for b in ("pallas", "pallas_fused")}
+    switch_runs["pallas"] += paper_runs
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",

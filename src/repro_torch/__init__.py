@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of the MCMA decode-serving path, the xLSTM
-family's prefill and decode, and the training path of both (the MCMA
-co-training in the LM train step, AdamW, the Trainer and checkpoints).
+family's prefill and decode, the training path of both (the MCMA
+co-training in the LM train step, AdamW, the Trainer and checkpoints),
+and the paper pipeline (``core/``: one-pass, iterative, MCCA and MCMA
+co-training of the benchmark apps, quality metrics, the NPU cost model).
 
 A second package beside the JAX reference (``repro``), with the same
 layout: ``repro/<pkg>/<mod>.py`` has its counterpart at

@@ -1,5 +1,5 @@
-"""Convert between the reference package's pytrees and the port's model
-and train state.
+"""Convert between the reference package's pytrees and the port's model,
+train state and paper-MLP parameters.
 
 The reference keeps matrices as ``(in, out)`` and the approximator stacks
 in serving form, and so does the port, so conversion is leaf by leaf with
@@ -149,3 +149,20 @@ def train_state_to_tree(cfg: ModelConfig, state) -> dict:
     return {"params": _stack(cfg, dict(state["params"].named_parameters())),
             "opt": {k: _stack(cfg, state["opt"][k]) for k in ("m", "v")},
             "step": state["step"].detach().cpu()}
+
+
+def mlp_params_from_jax(params, *, device=None) -> list:
+    """A paper MLP's parameters (``core/mlp.py``'s list of ``{"w": (in,
+    out), "b": (out,)}``, numpy or tensor leaves, e.g. ``[{k:
+    np.asarray(v) ...} ...]`` of a JAX pytree) as the port's, on
+    ``device``: the same layout, leaf by leaf."""
+    dev = resolve_device(device)
+    return [{k: to_torch(layer[k]).to(dev) for k in ("w", "b")}
+            for layer in params]
+
+
+def mlp_params_to_numpy(params) -> list:
+    """The port's paper-MLP parameters as the reference's list of ``{"w",
+    "b"}`` numpy arrays (what ``jnp.asarray`` takes back)."""
+    return [{k: layer[k].detach().cpu().numpy() for k in ("w", "b")}
+            for layer in params]

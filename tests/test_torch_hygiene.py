@@ -1,7 +1,8 @@
-"""Rules of the PyTorch port that hold without the reference: it imports
-neither ``jax`` nor the JAX package, its entry points never drop to the
-CPU quietly, the serving option it has not ported (``mesh``) raises, and
-the QoS, library and autotune options serve."""
+"""Rules of the PyTorch port that hold without the reference: it (and its
+example twins) imports neither ``jax`` nor the JAX package, its entry
+points never drop to the CPU quietly, the serving option it has not
+ported (``mesh``) raises, and the QoS, library and autotune options
+serve."""
 import ast
 import dataclasses
 import pathlib
@@ -19,7 +20,8 @@ from repro_torch.runtime.server import DecodeServer, Request
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+       ROOT / "examples" / "approx_bessel_torch.py"]
 
 
 def _imports(path):

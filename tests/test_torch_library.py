@@ -1,6 +1,6 @@
 """Approximator-library residency in the PyTorch port, against the JAX
-reference: the single-device cases of tests/test_library.py (without
-``train_library``, which comes with the paper pipeline) rerun on the port.
+reference: the single-device cases of tests/test_library.py rerun on the
+port, ``train_library``'s smoke case included.
 
 Both packages get the same numpy inputs and, at the engine level, the
 SAME router logits: ``lib_counts``, ``off_set_exact_rows`` and every
@@ -405,3 +405,22 @@ def test_server_library_requires_matching_config():
         DecodeServer(tcfg, tp, options=ServeOptions(
             library=LibrarySpec(library_size=6, n_resident=2),
             use_mcma_dispatch=False))
+
+
+# ---------------------------------------------------------------------------
+# train_library: error-clustered co-training at library scale
+# ---------------------------------------------------------------------------
+
+def test_train_library_smoke():
+    from repro_torch.apps.registry import get_app, make_dataset
+    from repro_torch.core.mcma import train_library
+    app = get_app("fft")
+    x, y, xt, yt = make_dataset(app, torch.Generator().manual_seed(0), 256,
+                                128)
+    m = train_library(app, torch.Generator().manual_seed(1), x, y,
+                      library_size=4, iters=2, epochs=40, lr=1e-2)
+    assert m.n_approx == 4
+    assert len(m.history) == 2
+    cls = m.classify(xt)
+    assert cls.dtype == torch.int32
+    assert int(cls.min()) >= 0 and int(cls.max()) <= 4   # library classes + nC
