@@ -69,7 +69,37 @@ Phases (any failure raises and the script exits non-zero):
   9. the xlstm smoke config in float32 on the card against the same
      parameters on the CPU: prefill 32 tokens, 8 decode ticks, logits
      within 1e-4 and equal greedy tokens;
-  10. training at full width ([train dense full width]): internlm2-1.8b
+  10. [serve hybrid full width]: zamba2-2.7b (54 Mamba2 layers in 9
+     groups of 6, each followed by the one shared attention+FFN block,
+     d 2560, bf16, MCMA n 3, d_hidden 256, block_t 128, tick scope)
+     served through DecodeServer (8 requests of 16 + 16 tokens; the
+     requested prefill chunk falls back to token by token) on both kernel
+     backends: equal greedy tokens, each kernel launched 9 times a tick
+     (one per application of the shared block), ms per tick, tokens/s,
+     invocation and peak memory; the first tick's switch inputs held to
+     the plain twins at d 2560 (2e-2); the zamba2 smoke config on the
+     card against the CPU (1e-4); in float32 (the weights upcast, no
+     depth cut) every Mamba2 block and shared-block application, fed the
+     full forward's own inputs, gives prefill(128) + 16 one-token steps
+     within 2e-3 of its forward over 256 tokens; the whole stack's
+     forward vs prefill + decode gap is printed beside the forward's own
+     noise under a batch change (at a random init the 54 float32 layers
+     amplify rounding to O(1): not gated);
+  11. [serve stablelm full width]: stablelm-1.6b (LayerNorm with bias,
+     qkv biases, 25 % rotary, 32 heads of 64, bf16, MCMA) on phase 5's
+     stream and serving configuration on both backends: equal tokens, 24
+     launches and one plan a tick, the dense cache's tokens and tick log
+     equal to the paged cache's, then phase 4's oracle witness at tick
+     scope (float32 within 1e-4 of the "xla" oracle; the bf16 gaps are
+     printed, not gated);
+  12. [archs full width]: olmo-1b, stablelm-3b and musicgen-large (which
+     takes embeddings) at full width and internvl2-76b at full width cut
+     to 4 of its 80 layers (the 80 do not fit one card), bf16, MCMA: a
+     (2, 128) forward with one switch launch a layer and 4 decode steps at
+     tick scope with one a layer a step, logits finite; at d 2560
+     (stablelm-3b) and d 8192 (internvl2-76b) one decode step's switch
+     inputs held to the plain twins and timed against the bound;
+  13. training at full width ([train dense full width]): internlm2-1.8b
      (24 layers, bf16, remat, the ApproxFFN of 3 approximators of 256
      with the tick router, error bound 1.4 so that exact and approximator
      labels both occur at a random init) through the Trainer, batch 8 x 512 with
@@ -78,13 +108,13 @@ Phases (any failure raises and the script exits non-zero):
      step's lm_loss, grad_norm, invocation, router_acc and
      tick_router_acc (all finite), and one more step under the profiler
      (kernel launches, device busy, idle share);
-  11. [train dense float32 parity]: the same config in float32 cut to 2
+  14. [train dense float32 parity]: the same config in float32 cut to 2
      layers, batch 2 x 64, warmup 0, one train step on the card and one on
      the CPU from the same state: invocation strictly between 0 and 1,
      tick labels of at least two classes and equal on both, loss and
      metrics within 1e-4 relative, each gradient (before the optimizer)
      within 1e-4, the new parameters within 2 lr;
-  12. [train xlstm full width]: xlstm-1.3b (48 layers, bf16, remat) through
+  15. [train xlstm full width]: xlstm-1.3b (48 layers, bf16, remat) through
      the Trainer, batch 4 x 256, 2 steps: slstm_scan launched
      steps x grad_accum x groups x (1 + remat) = 2 x 1 x 6 x 2 times (the
      forward, and the remat recompute of each sLSTM block in the
@@ -97,10 +127,10 @@ Phases (any failure raises and the script exits non-zero):
      weights within 2e-2 of the plain version's in norm (its autograd
      rounds the gradient of h to bf16 at every step), and elementwise of
      autograd through the backward's own recurrence in float64;
-  13. [train resume]: the internlm2 smoke config on the card under
+  16. [train resume]: the internlm2 smoke config on the card under
      torch.use_deterministic_algorithms: saved at step 3, a new Trainer
      resumes to step 6 and equals an uninterrupted run bitwise;
-  14. [paper pipeline full width]: the paper's co-training at the
+  17. [paper pipeline full width]: the paper's co-training at the
      reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
      the paper topologies; 1500 epochs, 3 approximators, 5 iterations, lr
      3e-3), float32 on the card: blackscholes through the methods of
@@ -118,8 +148,10 @@ Phases (any failure raises and the script exits non-zero):
      train_mlp on the card within 1e-4 of the CPU from one init (1 and 10
      epochs, both losses, weighted, 4,096 rows) and one train_mcma
      iteration's labels and classes differing on at most 0.5 % of rows;
-  15. a JSON line describing every kernel (switched_mlp's
-     launches_by_run with the two paper runs), then the result line.
+  18. a JSON line describing every kernel (the switch kernels'
+     launches_by_run with the runs of phases 10 to 12 and, for
+     switched_mlp, the two paper runs; their ``at_widths`` the d 2560
+     and d 8192 timings of phase 12), then the result line.
 """
 from __future__ import annotations
 
@@ -179,6 +211,18 @@ PAPER = dict(epochs=1500, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
 # card against CPU: 10 epochs keep two implementations' RMSprop
 # trajectories at ulp distance (past about 100 epochs elements with a
 # near-zero gradient take different signs and the runs drift apart)
+# [serve hybrid full width]: zamba2-2.7b; the float32 witness forwards
+# (batch, seq) and decodes ``decode`` tokens one by one from a prefill of
+# ``at``
+HYBRID = "zamba2-2.7b"
+HYBRID_WITNESS = dict(batch=2, seq=256, at=128, decode=16)
+STABLELM = "stablelm-1.6b"
+# [archs full width]: (arch, layers kept or None for all); a (batch, seq)
+# forward, then ``decode`` steps at tick scope
+ARCHS_FULL = (("olmo-1b", None), ("stablelm-3b", None),
+              ("musicgen-large", None), ("internvl2-76b", 4))
+ARCHS_RUN = dict(batch=2, seq=128, decode=4)
+ARCHS_TIMED = ("stablelm-3b", "internvl2-76b")   # d 2560 and d 8192
 PAPER_PARITY = dict(rows=4096, epochs=(1, 10), mcma_epochs=10, tol=1e-4,
                     max_label_diff=0.005)
 
@@ -795,14 +839,15 @@ def kernel_rounding_approximator(xb, w1, b1, w2, b2):
     return (h.float() @ w2.float() + b2.float()).to(xb.dtype)
 
 
-def oracle_witness(torch, cfg, params, srv, reqs):
+def oracle_witness(torch, cfg, params, srv, reqs, gate_bf16=True):
     """Hold the full-width decode step to the independent "xla" oracle
     (per-class capacity buffers, no class sort, no kernel).
 
     bf16: the kernel backends agree bitwise; their gap to the oracle is
-    printed, then the oracle is given the kernels' rounding and the gap
-    must shrink at least tenfold.  float32 (the same weights upcast, in
-    place): logits within 1e-4 of the oracle, greedy tokens equal."""
+    printed, then the oracle is given the kernels' rounding and (with
+    ``gate_bf16``) the gap must shrink at least tenfold.  float32 (the
+    same weights upcast, in place): logits within 1e-4 of the oracle,
+    greedy tokens equal."""
     from repro_torch.runtime import dispatch
     base = {k: v.clone() for k, v in srv.cache.items()}
     toks = torch.tensor([[r.out[-1]] for r in reqs], dtype=torch.int32,
@@ -846,7 +891,7 @@ def oracle_witness(torch, cfg, params, srv, reqs):
                                    atol=1e-4, msg=f"float32 {b} vs xla")
         if not torch.equal(lg32[b].argmax(-1), lg32["xla"].argmax(-1)):
             raise AssertionError(f"float32 {b}: greedy tokens differ")
-    if not gap_kr * 10 <= gap:
+    if gate_bf16 and not gap_kr * 10 <= gap:
         raise AssertionError(f"bf16: the oracle with the kernels' rounding "
                              f"is {gap_kr} from pallas, the plain oracle "
                              f"{gap}")
@@ -2037,6 +2082,385 @@ def paper_pipeline_full_width(np, torch):
     return by_run
 
 
+class SwitchCapture:
+    """Records the operands of the first ``execute_dispatch`` call against
+    prepadded stacks (a tick plan's) that the serving path makes: its
+    rows, their classes with the pseudo-class last, and the logical
+    slices of the stacks; through every module binding of it."""
+
+    def __enter__(self):
+        from repro_torch.models import approx_ffn
+        from repro_torch.runtime import dispatch
+        self.mods, self.real, self.args = (approx_ffn, dispatch), \
+            dispatch.execute_dispatch, None
+
+        def capture(plan, x, exact_fn, w1, b1, w2, b2, **kw):
+            if self.args is None and kw.get("weights_prepadded"):
+                d, dh = x.shape[1], w2.shape[1]
+                self.args = (x.detach().clone(), plan.eff.clone(),
+                             [w1[:, :d, :dh].clone(), b1[:, :dh].clone(),
+                              w2[:, :dh, :d].clone(), b2[:, :d].clone()])
+            return self.real(plan, x, exact_fn, w1, b1, w2, b2, **kw)
+        for m in self.mods:
+            m.execute_dispatch = capture
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.execute_dispatch = self.real
+
+
+def approx_cfg(arch, **over):
+    """``arch`` at full width with the ApproxFFN on (the config's 3
+    approximators of 256, block_t 128), ``over`` replacing fields of its
+    ApproxConfig."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True, **over))
+
+
+def init_logged(torch, cfg, what=""):
+    from repro_torch.models import model as M
+    t0 = time.time()
+    params = M.init_model(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"  init {cfg.name}{what}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd} (kv {cfg.n_kv_heads}), d_ff="
+        f"{cfg.d_ff}, vocab={cfg.vocab}, {cfg.param_dtype}, {n} "
+        f"parameters in {time.time() - t0:.1f} s")
+    return params
+
+
+def serve_hybrid(np, torch):
+    """Full-width zamba2-2.7b with MCMA at tick scope through DecodeServer
+    on both kernel backends (the requested prefill chunk falls back to
+    token by token); the first tick's switch inputs against the plain
+    twins at d 2560; the float32 forward against prefill + token-by-token
+    decode.  Returns the runs' launch records."""
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    from repro_torch.models import model as M
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = approx_cfg(HYBRID, route_scope="tick")
+    topo = M.topology(cfg)
+    params = init_logged(torch, cfg, f" ({topo.n_groups} groups of "
+                                     f"{topo.per_group} Mamba2 + the shared "
+                                     "block)")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"])
+               .astype(np.int32) for _ in range(SERVE["n_requests"])]
+    kernels = {"pallas": switched_mlp.switched_mlp,
+               "pallas_fused": fused_dispatch.switched_mlp_fused}
+    results = {}
+    for backend in kernels:
+        srv = DecodeServer(cfg, params, options=ServeOptions(
+            batch=SERVE["batch"], max_len=SERVE["max_len"],
+            use_mcma_dispatch=True, backend=backend, route_scope="tick",
+            prefill_chunk=SCHED["prefill_chunk"]))
+        if srv.prefill_chunk != 0:
+            raise AssertionError("hybrid: the server chunks prompts")
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE["max_new"])
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        with SwitchCapture() as cap:
+            t0 = time.time()
+            stats = srv.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = {b: k.launches for b, k in kernels.items()}
+        if not all(r.done and not r.aborted for r in reqs):
+            raise AssertionError(f"hybrid {backend}: server did not drain")
+        want = topo.n_groups * stats["ticks"]
+        if launches[backend] != want or sum(launches.values()) != want:
+            raise AssertionError(f"hybrid {backend}: launches {launches}, "
+                                 f"want {want} of {backend} alone")
+        n_tok = sum(len(r.out) for r in reqs)
+        results[backend] = dict(tokens=[r.out for r in reqs],
+                                launches=launches[backend],
+                                ticks=stats["ticks"], first=cap.args)
+        log(f"  serve {backend}: {stats['ticks']} decode ticks "
+            f"({stats['prefill_ticks']} prefill), {n_tok} tokens, "
+            f"{wall * 1e3 / stats['ticks']:.2f} ms/tick, "
+            f"{n_tok / wall:.1f} tokens/s, invocation rate "
+            f"{stats['invocation_rate']:.4f}, launches {launches[backend]} = "
+            f"{topo.n_groups} x {stats['ticks']}, kv_bytes_resident "
+            f"{stats['kv_bytes_resident']}, peak memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        del srv
+    if results["pallas"]["tokens"] != results["pallas_fused"]["tokens"]:
+        raise AssertionError("hybrid: greedy tokens differ between pallas "
+                             "and pallas_fused")
+    log("  greedy tokens equal across pallas and pallas_fused")
+    x, cls, w = results["pallas"]["first"]
+    time_switch_case(np, torch, None, x, cls, w, cfg.approx.block_t,
+                     "bfloat16", f"{cfg.name} first tick d {cfg.d_model}",
+                     timed=False)
+    smoke_reference_hybrid(np, torch)
+
+    hybrid_witness(np, torch, cfg, params, rng)
+    return {b: dict(run=f"{HYBRID} serve {b}", ticks=r["ticks"],
+                    launches=r["launches"]) for b, r in results.items()}
+
+
+def hybrid_witness(np, torch, cfg, params, rng):
+    """The float32 witness of the hybrid's decode path at full width and
+    depth (the weights upcast in place; they fit the card, no depth
+    cut).  End to end, forward over 256 tokens against prefill(128) + 16
+    decode steps is printed beside the forward's own noise under a batch
+    change (row 0 alone against the batch of 2): at a random init the
+    54-layer float32 stack amplifies rounding to O(1) on the logits, so
+    that gap is not gated.  Gated within 2e-3, each block teacher-forced:
+    every Mamba2 block and every application of the shared block is fed
+    the full forward's own inputs to it, and its chunked output at
+    positions 128..143 is held to prefill(128) + one-token steps (the
+    Mamba2 state update; the shared block's KV cache at the group's
+    positions)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    params.float()
+    wb, ws, at, nd = (HYBRID_WITNESS[k] for k in
+                      ("batch", "seq", "at", "decode"))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (wb, ws))
+                            .astype(np.int32)).cuda()
+    with torch.no_grad():
+        full, _, _, _ = M.forward(cfg32, params, toks)
+        row0, _, _, _ = M.forward(cfg32, params, toks[:1])
+        _, cache, _, _ = M.forward(cfg32, params, toks[:, :at],
+                                   collect_cache=True)
+        cache = M.pad_cache(cfg32, cache, ws)
+        e2e = []
+        for i in range(nd):
+            got, cache = M.decode(cfg32, params, cache,
+                                  toks[:, at + i:at + i + 1], serve=False)
+            e2e.append((got - full[:, at + i]).abs().max().item())
+        if cache["pos"].tolist() != [at + nd] * wb:
+            raise AssertionError(f"hybrid witness pos "
+                                 f"{cache['pos'].tolist()}")
+        noise = (row0[0] - full[0]).abs().max().item()
+        log(f"  float32 end to end, all {cfg.n_layers} layers: forward({ws}) "
+            f"at {at}..{at + nd - 1} vs prefill({at}) + {nd} decode steps, "
+            f"max |diff| {max(e2e):.4g} (per step "
+            f"{', '.join(f'{g:.3g}' for g in e2e)}); the forward's own "
+            f"batch-change noise {noise:.4g}; logits span "
+            f"{full.min().item():.3g}..{full.max().item():.3g} (not gated)")
+        gaps = {"mamba": 0.0, "shared": 0.0}
+        x = L.embed_fwd(cfg32, params.embed, toks)
+        positions = torch.arange(ws, device=x.device)[None, :]
+        for g, mblks in enumerate(params.mamba):
+            for blk in mblks:
+                want, _ = M._mamba_block(cfg32, blk, x, None)
+                _, st = M._mamba_block(cfg32, blk, x[:, :at], None)
+                for i in range(nd):
+                    got, st = M._mamba_block(cfg32, blk,
+                                             x[:, at + i:at + i + 1], st)
+                    gaps["mamba"] = max(gaps["mamba"], witness_close(
+                        torch, got[:, 0], want[:, at + i],
+                        f"mamba {g} step {i}"))
+                x = want
+            want, _, _, _ = M._dense_block(cfg32, params.shared, x,
+                                           positions, None)
+            _, kv, _, _ = M._dense_block(cfg32, params.shared, x[:, :at],
+                                         positions[:, :at], None)
+            lc = M.pad_cache(cfg32, {"k": kv["k"][None], "v": kv["v"][None],
+                                     "pos": cache["pos"] * 0 + at}, ws)
+            lc = M._layer_cache(lc, 0)
+            for i in range(nd):
+                got, lc, _, _ = M._dense_block(
+                    cfg32, params.shared, x[:, at + i:at + i + 1],
+                    lc["pos"][:, None], lc)
+                gaps["shared"] = max(gaps["shared"], witness_close(
+                    torch, got[:, 0], want[:, at + i],
+                    f"shared block, group {g}, step {i}"))
+            x = want
+    log(f"  float32 witness, each of the {cfg.n_layers} Mamba2 blocks and "
+        f"{len(params.mamba)} shared-block applications fed the forward's "
+        f"inputs: prefill({at}) + {nd} steps vs forward({ws}) within 2e-3, "
+        f"max |diff| Mamba2 {gaps['mamba']:.4g}, shared {gaps['shared']:.4g}")
+
+
+def witness_close(torch, got, want, what):
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3,
+                               msg=f"hybrid witness: {what}")
+    return (got - want).abs().max().item()
+
+
+def smoke_reference_hybrid(np, torch):
+    """The float32 zamba2 smoke config with MCMA at tick scope on the card
+    (both kernel backends) against the same parameters on the CPU (the
+    plain versions, the "xla" oracle): a prefill of 32 tokens, then 8
+    decode ticks with two idle slots; logits within 1e-4, greedy tokens
+    equal, the backends bitwise equal."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    cfg = smoke_config(get_config(HYBRID))
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True, route_scope="tick"))
+    params = M.init_model(0, cfg, device="cuda")
+    cpu_params = copy.deepcopy(params).cpu()
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (8, 32)).astype(np.int32))
+    mask = torch.tensor([True] * 6 + [False] * 2)
+    runs = {}
+    for dev, backend in (("cpu", "xla"), ("cuda", "pallas"),
+                         ("cuda", "pallas_fused")):
+        p = cpu_params if dev == "cpu" else params
+        with torch.no_grad():
+            lg, cache, _, _ = M.forward(cfg, p, toks.to(dev),
+                                        collect_cache=True)
+        cache = M.pad_cache(cfg, cache, 48)
+        lg = lg[:, -1]
+        step = steps.make_decode_step(cfg, use_mcma_dispatch=True,
+                                      backend=backend)
+        out = [lg.float().cpu()]
+        for _ in range(8):
+            nxt = lg.argmax(-1).to(torch.int32)[:, None]
+            lg, cache = step(p, cache, nxt, mask.to(dev))
+            out.append(lg.float().cpu())
+        runs[dev, backend] = torch.stack(out)
+    ref = runs["cpu", "xla"]
+    for key, lg in runs.items():
+        torch.testing.assert_close(lg, ref, rtol=1e-4, atol=1e-4,
+                                   msg=f"hybrid smoke {key} vs cpu")
+        if not torch.equal(lg.argmax(-1), ref.argmax(-1)):
+            raise AssertionError(f"hybrid smoke {key}: greedy tokens "
+                                 "differ")
+    if not torch.equal(runs["cuda", "pallas"],
+                       runs["cuda", "pallas_fused"]):
+        raise AssertionError("hybrid smoke: pallas and pallas_fused differ")
+    log(f"  zamba2 smoke config f32, prefill 32 + 8 ticks at tick scope: "
+        f"card within {(runs['cuda', 'pallas'] - ref).abs().max().item():.3g}"
+        f" of the CPU oracle, greedy tokens equal, backends bitwise equal")
+
+
+def serve_stablelm(np, torch):
+    """Full-width stablelm-1.6b on the scheduler's stream (tick scope,
+    chunk 64, paged) on both backends, the dense cache's tokens and tick
+    log equal to the paged cache's, and the float32 oracle witness.
+    Returns the runs' launch records by backend."""
+    import types
+    cfg = approx_cfg(STABLELM)
+    params = init_logged(torch, cfg)
+    prompts = stream_prompts(np, cfg)
+    runs = {b: run_stream(torch, cfg, params, prompts,
+                          f"{cfg.name} {b} tick/chunk 64/paged 16",
+                          backend=b)
+            for b in ("pallas", "pallas_fused")}
+    if runs["pallas"]["tokens"] != runs["pallas_fused"]["tokens"]:
+        raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                             "pallas and pallas_fused")
+    dense = run_stream(torch, cfg, params, prompts,
+                       f"{cfg.name} pallas dense cache", kv_page_size=0)
+    if dense["tokens"] != runs["pallas"]["tokens"] or \
+            dense["tick_log"] != runs["pallas"]["tick_log"]:
+        raise AssertionError(f"{cfg.name}: the dense cache's tokens or "
+                             "tick log differ from the paged cache's")
+    log(f"  tokens equal across backends; dense cache == paged cache "
+        f"(tokens and tick log); {cfg.n_layers} launches a tick")
+    # the float32 witness gates; the bf16 gaps are printed (one or two
+    # bf16 ulps of the logits either way at this model: not gated)
+    reqs = [types.SimpleNamespace(out=t) for t in dense["tokens"]]
+    oracle_witness(torch, dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, route_scope="tick")), params, dense["srv"], reqs,
+        gate_bf16=False)
+    out = {"pallas": [], "pallas_fused": []}
+    for label, r in (("paged", runs["pallas"]), ("dense", dense),
+                     ("paged", runs["pallas_fused"])):
+        for b, n in r["launches"].items():
+            if n:
+                out[b].append(dict(run=f"{cfg.name} stream {b} {label}",
+                                   ticks=r["stats"]["ticks"], launches=n))
+    return out
+
+
+def archs_full_width(np, torch):
+    """olmo-1b, stablelm-3b and musicgen-large at full width and
+    internvl2-76b at full width cut to 4 of its 80 layers, bf16, MCMA
+    on: a (2, 128) forward (layer scope, one switch launch a layer) and 4
+    decode steps at tick scope (one a layer a step), logits finite; at d
+    2560 and d 8192 one decode step's switch inputs held to the plain
+    twins and timed.  Returns (launch records, {d: timings})."""
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    b, s, nd = ARCHS_RUN["batch"], ARCHS_RUN["seq"], ARCHS_RUN["decode"]
+    records, timed = [], {}
+    for arch, keep in ARCHS_FULL:
+        cfg = approx_cfg(arch)
+        what = ""
+        if keep:
+            what = f" (cut to {keep} of its {cfg.n_layers} layers)"
+            cfg = dataclasses.replace(cfg, n_layers=keep)
+        params = init_logged(torch, cfg, what)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        if cfg.input_mode == "embeddings":
+            x = torch.randn((b, s + nd, cfg.d_model), generator=gen,
+                            device="cuda").to(cfg.adtype)
+        else:
+            x = torch.randint(0, cfg.vocab, (b, s + nd), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        prefill = steps.make_prefill_step(steps.mcma_serve_config(cfg))
+        step = steps.make_decode_step(cfg, use_mcma_dispatch=True,
+                                      backend="pallas", route_scope="tick")
+        torch.cuda.synchronize()
+        switched_mlp.switched_mlp.launches = 0
+        fused_dispatch.switched_mlp_fused.launches = 0
+        t0 = time.time()
+        last, cache = prefill(params, {"inputs": x[:, :s]})
+        torch.cuda.synchronize()
+        t_fwd = time.time() - t0
+        n_fwd = switched_mlp.switched_mlp.launches
+        cache = M.pad_cache(cfg, cache, s + nd)
+        switched_mlp.switched_mlp.launches = 0
+        times = []
+        with SwitchCapture() as cap:
+            for i in range(nd):
+                t0 = time.time()
+                lg, cache = step(params, cache, x[:, s + i:s + i + 1])
+                torch.cuda.synchronize()
+                times.append((time.time() - t0) * 1e3)
+                if not torch.isfinite(lg.float()).all():
+                    raise AssertionError(f"{arch}: decode logits not finite")
+        n_dec = switched_mlp.switched_mlp.launches
+        if fused_dispatch.switched_mlp_fused.launches:
+            raise AssertionError(f"{arch}: the fused kernel launched")
+        if last.shape != (b, cfg.vocab) or \
+                not torch.isfinite(last.float()).all():
+            raise AssertionError(f"{arch}: forward logits malformed")
+        if n_fwd != cfg.n_layers or n_dec != cfg.n_layers * nd:
+            raise AssertionError(f"{arch}: {n_fwd} launches in the forward, "
+                                 f"{n_dec} in {nd} decode steps; want "
+                                 f"{cfg.n_layers} and {cfg.n_layers * nd}")
+        if cache["pos"].tolist() != [s + nd] * b:
+            raise AssertionError(f"{arch}: pos {cache['pos'].tolist()}")
+        log(f"  {arch}: forward ({b}, {s}) {t_fwd * 1e3:.2f} ms with "
+            f"{n_fwd} switch launches; {nd} decode steps at tick scope "
+            f"{', '.join(f'{t:.2f}' for t in times)} ms, {n_dec} launches "
+            f"= {cfg.n_layers} x {nd}; logits finite")
+        records += [dict(run=f"{arch} forward", launches=n_fwd),
+                    dict(run=f"{arch} decode", ticks=nd, launches=n_dec)]
+        if arch in ARCHS_TIMED:
+            xk, cls, w = cap.args
+            flush = torch.empty(256 * 2**20, dtype=torch.uint8,
+                                device="cuda")
+            timed[cfg.d_model] = time_switch_case(
+                np, torch, flush, xk, cls, w, cfg.approx.block_t,
+                "bfloat16", f"{arch} decode step d {cfg.d_model}")
+            del flush
+        del params, cache, last, lg, x
+        torch.cuda.empty_cache()
+    return records, timed
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2123,6 +2547,24 @@ def main() -> int:
     smoke_reference_xlstm(np, torch)
     torch.cuda.empty_cache()
 
+    log("[serve hybrid full width]")
+    t0 = time.time()
+    hybrid_runs = serve_hybrid(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[serve stablelm full width]")
+    t0 = time.time()
+    stablelm_runs = serve_stablelm(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[archs full width]")
+    t0 = time.time()
+    arch_runs, widths = archs_full_width(np, torch)
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
     log("[train dense full width]")
     t0 = time.time()
     train_dense_full_width(np, torch)
@@ -2163,7 +2605,9 @@ def main() -> int:
     switch_runs = {b: [dict(run=f"slice 1 {b}", ticks=results[b]["ticks"],
                             launches=results[b]["launches"])]
                    + feature_launches[b] for b in ("pallas", "pallas_fused")}
-    switch_runs["pallas"] += paper_runs
+    for b in ("pallas", "pallas_fused"):
+        switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b]
+    switch_runs["pallas"] += arch_runs + paper_runs
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",
@@ -2191,6 +2635,10 @@ def main() -> int:
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None})
+        if name in ("switched_mlp", "switched_mlp_fused"):
+            # one decode step's inputs at d 2560 and d 8192
+            rows[-1]["at_widths"] = [dict(d_model=d, **nums[name])
+                                     for d, nums in sorted(widths.items())]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

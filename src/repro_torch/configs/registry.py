@@ -1,8 +1,8 @@
 """Architecture registry (counterpart of ``repro/configs/registry.py``).
 
-The port holds the dense decoder ``internlm2-1.8b`` and the xLSTM
-``xlstm-1.3b``; the other architectures of the reference arrive with their
-model families (ROADMAP queue 1, item 9).
+Every architecture of the reference but the two MoE ones
+(``mixtral-8x7b``, ``moonshot-v1-16b-a3b``), which arrive with the MoE
+family and sliding-window attention (ROADMAP queue 1, item 9c).
 """
 from __future__ import annotations
 
@@ -13,7 +13,13 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -23,7 +29,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ported: {ARCH_IDS}); the "
-            "other families come with ROADMAP queue 1, item 9")
+            "MoE family comes with ROADMAP queue 1, item 9c")
     return importlib.import_module(_MODULES[arch]).CONFIG
 
 

@@ -4,11 +4,14 @@ train state and paper-MLP parameters.
 The reference keeps matrices as ``(in, out)`` and the approximator stacks
 in serving form, and so does the port, so conversion is leaf by leaf with
 no transposes: the stacked ``blocks`` leaves (leading dim L) split into
-``blocks.<i>.*`` (``mlstm`` into ``mlstm.<g>.<p>.*``, ``slstm`` into
-``slstm.<g>.*``), every other key maps to the same dotted name.  bfloat16
-leaves cross as their 16-bit patterns (``torch.from_numpy`` has no
-bfloat16).  ``train_state_to_tree`` goes the other way, to the
-reference's stacked layout, which is the checkpoints' on-disk layout.
+``blocks.<i>.*`` (``mlstm`` and ``mamba`` into ``<head>.<g>.<p>.*``,
+``slstm`` into ``slstm.<g>.*``), every other key (the hybrid's unstacked
+``shared`` block too) maps to the same dotted name.  A parameterless
+norm (olmo's ``nonparam_ln``) is an empty dict in the reference and
+nothing here.  bfloat16 leaves cross as their 16-bit patterns
+(``torch.from_numpy`` has no bfloat16).  ``train_state_to_tree`` goes the
+other way, to the reference's stacked layout with its empty dicts, which
+is the checkpoints' on-disk layout.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import Norm
 from repro_torch.models.model import Model, topology
 
 
@@ -46,6 +50,7 @@ def _stacked(cfg: ModelConfig) -> dict:
     topo = topology(cfg)
     return {"blocks": (cfg.n_layers,),
             "mlstm": (topo.n_groups, topo.per_group),
+            "mamba": (topo.n_groups, topo.per_group),
             "slstm": (topo.n_groups,)}
 
 
@@ -65,9 +70,20 @@ def _split(cfg: ModelConfig, tree) -> dict:
     return out
 
 
-def _stack(cfg: ModelConfig, flat: dict) -> dict:
+def _empty_paths(cfg: ModelConfig, params: Model) -> set:
+    """Key paths, stacked indices dropped, of the parameterless norms:
+    the reference's empty dicts."""
+    stacked, out = _stacked(cfg), set()
+    for name, mod in params.named_modules():
+        if isinstance(mod, Norm) and not list(mod.parameters()):
+            head, *parts = name.split(".")
+            out.add((head, *parts[len(stacked.get(head, ())):]))
+    return out
+
+
+def _stack(cfg: ModelConfig, flat: dict, empty: set) -> dict:
     """{port name: tensor} back to the reference's nested, stacked pytree
-    of CPU tensors."""
+    of CPU tensors, with an empty dict at each path of ``empty``."""
     stacked, groups, tree = _stacked(cfg), {}, {}
     for name, t in flat.items():
         head, *parts = name.split(".")
@@ -86,6 +102,11 @@ def _stack(cfg: ModelConfig, flat: dict) -> dict:
         for k in key[:-1]:
             node = node.setdefault(k, {})
         node[key[-1]] = leaf
+    for key in empty:
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = {}
     return tree
 
 
@@ -109,7 +130,8 @@ def decay_mask(cfg: ModelConfig, params: Model) -> dict[str, bool]:
     """{name: whether AdamW decays it}: the reference decays a leaf of rank
     >= 2, and its leaves are stacked over layers, so every per-layer
     tensor (norm scales and biases included) is decayed and only the
-    unstacked 1-D leaves (``ln_f``) are exempt."""
+    unstacked 1-D leaves (``ln_f``, the hybrid's ``shared`` norms and
+    biases) are exempt."""
     stacked = _stacked(cfg)
     return {name: p.ndim + len(stacked.get(name.partition(".")[0], ())) >= 2
             for name, p in params.named_parameters()}
@@ -146,8 +168,11 @@ def train_state_to_tree(cfg: ModelConfig, state) -> dict:
     (stacked leaves, nested dicts): what ``train_state_from_jax`` reads
     back, and the layout checkpoints are written in.  An unstacked leaf
     of a state on the CPU shares its storage with the state."""
-    return {"params": _stack(cfg, dict(state["params"].named_parameters())),
-            "opt": {k: _stack(cfg, state["opt"][k]) for k in ("m", "v")},
+    empty = _empty_paths(cfg, state["params"])
+    return {"params": _stack(cfg, dict(state["params"].named_parameters()),
+                             empty),
+            "opt": {k: _stack(cfg, state["opt"][k], empty)
+                    for k in ("m", "v")},
             "step": state["step"].detach().cpu()}
 
 

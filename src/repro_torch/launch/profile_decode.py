@@ -1,17 +1,21 @@
 """Where a decode tick's time goes, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--arch internlm2-1.8b | xlstm-1.3b] [--backend pallas] \\
+        [--arch internlm2-1.8b | stablelm-1.6b | xlstm-1.3b |
+        zamba2-2.7b] [--backend pallas] \\
         [--route-scope layer | tick] [--prefill-chunk 64] \\
         [--qos] [--library-size 6 --n-resident 3] [--autotune] \\
         [--ticks 6] [--seed 0]
 
 Builds the full-width model (all layers, random weights from ``--seed``,
-batch 8, max_len 256).  internlm2-1.8b runs through a ``DecodeServer``
-with MCMA dispatch on ``--backend`` at ``--route-scope``, 8 requests
-admitted into its slots, and each tick is the server's own: its step at
-the autotuner's rung, its tensor inputs, its one device read and its
-controllers (``profile_server``).  xlstm-1.3b runs its bare decode step.
+batch 8, max_len 256).  The dense archs (internlm2-1.8b, stablelm-1.6b)
+run through a ``DecodeServer`` with MCMA dispatch on ``--backend`` at
+``--route-scope``, 8 requests admitted into its slots, and each tick is
+the server's own: its step at the autotuner's rung, its tensor inputs,
+its one device read and its controllers (``profile_server``).
+xlstm-1.3b runs its bare decode step; zamba2-2.7b its bare decode step
+with MCMA dispatch on ``--backend`` at ``--route-scope`` (the shared
+block's ApproxFFN).
 Then:
   * times ``--ticks`` decode ticks with the host clock (each ended by a
     synchronize), and counts the host-device synchronizations one tick
@@ -21,11 +25,11 @@ Then:
     device time is its kernels' time, so adding both would count it
     twice), the kernel launches per tick, the idle share, the top kernels
     by device time and the top operators by calls.
-With ``--prefill-chunk`` S > 0 (internlm2-1.8b) it then does the same for
-``--ticks`` prefill-chunk ticks of S tokens in each of the 8 slots (the
-server's chunk step from position 0, the invocation rate read as the
-server reads it).  For xlstm-1.3b it does the same for ``--ticks``
-prefills of an (8, 256) prompt batch.
+With ``--prefill-chunk`` S > 0 (the dense archs) it then does the same
+for ``--ticks`` prefill-chunk ticks of S tokens in each of the 8 slots
+(the server's chunk step from position 0, the invocation rate read as the
+server reads it).  For xlstm-1.3b and zamba2-2.7b it does the same for
+``--ticks`` prefills of an (8, 256) prompt batch.
 
 The serve-time features are the server's options: ``--qos`` serves the
 default tier table with the 8 slots' tiers round-robin over it;
@@ -90,14 +94,15 @@ def report(what, host_ms, wall_ms, kernels, ops, n):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b",
-                    choices=("internlm2-1.8b", "xlstm-1.3b"))
+                    choices=("internlm2-1.8b", "stablelm-1.6b",
+                             "xlstm-1.3b", "zamba2-2.7b"))
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "pallas_fused", "xla"))
     ap.add_argument("--route-scope", default="layer",
                     choices=("layer", "tick"))
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="also profile prefill-chunk ticks of this many "
-                         "tokens per slot (internlm2-1.8b)")
+                         "tokens per slot (the dense archs)")
     ap.add_argument("--qos", action="store_true",
                     help="a mixed-tier batch on the default tier table")
     ap.add_argument("--library-size", type=int, default=0,
@@ -127,8 +132,15 @@ def main(argv=None):
     if cfg.family == "dense":
         profile_server(args, np, torch, cfg, dev, b, rng)
         return
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, enable=True))
+        step = steps.make_decode_step(cfg, use_mcma_dispatch=True,
+                                      backend=args.backend,
+                                      route_scope=args.route_scope)
+    else:
+        step = steps.make_decode_step(cfg)
     params = M.init_model(args.seed, cfg, device=dev)
-    step = steps.make_decode_step(cfg)
     cache = M.init_cache(cfg, b, 256, device=dev)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))
                             .astype(np.int32)).to(dev)
@@ -141,10 +153,14 @@ def main(argv=None):
 
     for _ in range(3):
         tick()
+    label = "" if cfg.family != "hybrid" else (
+        f", backend {args.backend}, route_scope {args.route_scope}")
     measure(torch, f"{cfg.name} {cfg.n_layers} layers, decode tick, batch "
-            f"{b}", tick, args.ticks)
+            f"{b}{label}", tick, args.ticks)
     del cache
-    prefill = steps.make_prefill_step(cfg)
+    prefill = steps.make_prefill_step(
+        steps.mcma_serve_config(cfg, backend=args.backend)
+        if cfg.approx.enable else cfg)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 256))
                               .astype(np.int32)).to(dev)
     prefill(params, {"inputs": prompt})

@@ -9,12 +9,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         [--smoke] [--device cpu]
 
+``--arch`` takes every ported architecture that reads tokens: the dense
+ones (internlm2-1.8b, olmo-1b, stablelm-1.6b, stablelm-3b), xlstm-1.3b and
+the zamba2-2.7b hybrid (MCMA on its shared block); musicgen-large and
+internvl2-76b take embeddings, which the server does not feed.
+
 Runs on the GPU unless ``--device cpu`` is given; the weights are random,
 from ``--seed``.  Prompts load ``--prefill-chunk`` tokens per prefill
 tick (default 16, as the reference's CLI; 0 = token by token; the xLSTM
-family always feeds token by token).  With ``--qos`` the requests cycle
-through the tier table's bounds and the default tier, and the per-tier
-ledger is printed; ``--library-size`` builds a library model and prints
+and hybrid families always feed token by token).  With ``--qos`` the
+requests cycle through the tier table's bounds and the default tier, and
+the per-tier ledger is printed; ``--library-size`` builds a library model and prints
 the swaps; ``--autotune`` prints the rung trajectory and the ladder the
 served counts suggest.
 """

@@ -1,13 +1,13 @@
 """Training launcher.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --approx --smoke --steps 50 --ckpt-dir runs/ck [--device cpu]
 
 Drives the ``Trainer`` on one device: the GPU unless ``--device cpu`` is
 given.  ``--smoke`` selects the reduced config; ``--approx`` enables the
-MCMA ApproxFFN layer (with its tick-router head).  The port trains
-``internlm2-1.8b`` and ``xlstm-1.3b``; the other architectures come with
-their families (ROADMAP queue 1, item 9), and ``--mesh`` with item 10.
+MCMA ApproxFFN layer (with its tick-router head).  The port trains every
+ported architecture on token inputs; the MoE family comes with ROADMAP
+queue 1, item 9c, and ``--mesh`` with item 10.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import dataclasses
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--approx", action="store_true",
                     help="enable the MCMA ApproxFFN layer")

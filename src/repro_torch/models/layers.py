@@ -1,5 +1,7 @@
 """Shared LM layers (counterpart of ``repro/models/layers.py``): the norms,
-RoPE, embeddings, the gated FFN and GQA attention: blockwise flash
+RoPE (partial rotary included), embeddings (tied or not, token or
+embedding inputs), the FFN (gated or not, four activations) and GQA
+attention (with or without qkv biases): blockwise flash
 attention over a full sequence, chunked prefill and single-step decode
 over a dense or paged KV cache.
 
@@ -43,15 +45,13 @@ def param(shape, dtype, device, gen=None, scale=None, fill=None):
 # ---------------------------------------------------------------------------
 
 class Norm(nn.Module):
-    """rmsnorm: a scale; layernorm: a scale and a bias."""
+    """rmsnorm: a scale; layernorm: a scale and a bias; nonparam_ln
+    (olmo): no parameters (the reference's empty dict)."""
 
     def __init__(self, cfg: ModelConfig, shape_d: int, device):
         super().__init__()
-        if cfg.norm not in ("rmsnorm", "layernorm"):
-            raise NotImplementedError(
-                f"norm {cfg.norm!r} is not ported yet (ROADMAP queue 1, "
-                "item 9)")
-        self.scale = param((shape_d,), cfg.pdtype, device, fill=1.0)
+        if cfg.norm in ("rmsnorm", "layernorm"):
+            self.scale = param((shape_d,), cfg.pdtype, device, fill=1.0)
         if cfg.norm == "layernorm":
             self.bias = param((shape_d,), cfg.pdtype, device, fill=0.0)
 
@@ -66,7 +66,9 @@ def norm_fwd(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     y = ((xf - mu) * torch.rsqrt(var + 1e-6)).to(x.dtype)
-    return y * p.scale.to(x.dtype) + p.bias.to(x.dtype)
+    if cfg.norm == "layernorm":
+        y = y * p.scale.to(x.dtype) + p.bias.to(x.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -100,37 +102,43 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Embed(nn.Module):
+    """The token table ``tok`` (vocab, d) and, unless the embeddings are
+    tied, the output projection ``unembed`` (d, vocab)."""
+
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.tie_embeddings or cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                "tied embeddings and embedding inputs are not ported yet "
-                "(ROADMAP queue 1, item 9)")
         self.tok = param((cfg.vocab, cfg.d_model), cfg.pdtype, device, gen,
                          0.02)
-        self.unembed = param((cfg.d_model, cfg.vocab), cfg.pdtype, device,
-                             gen, 0.02)
+        if not cfg.tie_embeddings:
+            self.unembed = param((cfg.d_model, cfg.vocab), cfg.pdtype,
+                                 device, gen, 0.02)
 
 
-def embed_fwd(cfg: ModelConfig, p: Embed, tokens: torch.Tensor):
-    return p.tok[tokens.long()].to(cfg.adtype)
+def embed_fwd(cfg: ModelConfig, p: Embed, inputs: torch.Tensor):
+    """Tokens (B, S), or under ``input_mode="embeddings"`` precomputed
+    embeddings (B, S, d) taken as they are, in the activation dtype."""
+    if cfg.input_mode == "embeddings":
+        return inputs.to(cfg.adtype)
+    return p.tok[inputs.long()].to(cfg.adtype)
 
 
 def unembed_fwd(cfg: ModelConfig, p: Embed, x: torch.Tensor):
-    return x @ p.unembed.to(x.dtype)
+    w = p.tok.T if cfg.tie_embeddings else p.unembed
+    return x @ w.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Dense FFN
 # ---------------------------------------------------------------------------
 
+# jax.nn.gelu defaults to the tanh approximation
+_ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu, "tanh": torch.tanh}
+
+
 class FFN(nn.Module):
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.act not in ("silu", "swiglu"):
-            raise NotImplementedError(
-                f"FFN activation {cfg.act!r} is not ported yet (ROADMAP "
-                "queue 1, item 9)")
         d, f = cfg.d_model, cfg.d_ff
         s_in, s_out = d ** -0.5, f ** -0.5
         self.w_in = param((d, f), cfg.pdtype, device, gen, s_in)
@@ -140,11 +148,12 @@ class FFN(nn.Module):
 
 
 def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
+    act = _ACT[cfg.act if cfg.act != "swiglu" else "silu"]
     h = x @ p.w_in.to(x.dtype)
     if cfg.gated_ffn:
-        h = F.silu(x @ p.w_gate.to(x.dtype)) * h
+        h = act(x @ p.w_gate.to(x.dtype)) * h
     else:
-        h = F.silu(h)
+        h = act(h)
     return h @ p.w_out.to(x.dtype)
 
 
@@ -155,10 +164,10 @@ def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.qkv_bias or cfg.sliding_window:
+        if cfg.sliding_window:
             raise NotImplementedError(
-                "qkv biases and sliding-window attention are not ported yet "
-                "(ROADMAP queue 1, item 9)")
+                "sliding-window attention is not ported yet: it comes with "
+                "the MoE family (ROADMAP queue 1, item 9c)")
         d, hd = cfg.d_model, cfg.hd
         nh, nkv = cfg.n_heads, cfg.n_kv_heads
         s = d ** -0.5
@@ -167,14 +176,24 @@ class Attention(nn.Module):
         self.wv = param((d, nkv * hd), cfg.pdtype, device, gen, s)
         self.wo = param((nh * hd, d), cfg.pdtype, device, gen,
                         (nh * hd) ** -0.5)
+        if cfg.qkv_bias:
+            self.bq = param((nh * hd,), cfg.pdtype, device, fill=0.0)
+            self.bk = param((nkv * hd,), cfg.pdtype, device, fill=0.0)
+            self.bv = param((nkv * hd,), cfg.pdtype, device, fill=0.0)
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+    """The projections, the biases (``qkv_bias``) added before the head
+    reshape."""
     b, s, _ = x.shape
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    return q, k, v
+    q, k, v = (x @ p.wq.to(x.dtype), x @ p.wk.to(x.dtype),
+               x @ p.wv.to(x.dtype))
+    if cfg.qkv_bias:
+        q, k, v = (q + p.bq.to(x.dtype), k + p.bk.to(x.dtype),
+                   v + p.bv.to(x.dtype))
+    return (q.reshape(b, s, cfg.n_heads, cfg.hd),
+            k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
+            v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
 
 def _repeat_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:

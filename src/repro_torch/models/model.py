@@ -1,21 +1,25 @@
-"""Model assembly (counterpart of ``repro/models/model.py``), two families:
+"""Model assembly (counterpart of ``repro/models/model.py``):
 
-  dense      : N x (attn + FFN)    (training and prefill forward,
-                                    chunked prefill and decode over a
-                                    dense or paged KV cache)
-  ssm (xLSTM): G x ((k-1) mLSTM + 1 sLSTM)      (training and prefill
-               (k = ssm.slstm_every)             forward + decode)
+  dense / audio / vlm : N x (attn + FFN)   (training and prefill forward,
+                                           chunked prefill and decode over
+                                           a dense or paged KV cache)
+  ssm (xLSTM)         : G x ((k-1) mLSTM + 1 sLSTM)   (k = ssm.slstm_every)
+  hybrid (zamba2)     : G x (k Mamba2 + the SHARED attn/FFN block)  (k =
+                        attn_every; one parameter set applied at every
+                        group boundary, with a KV cache per group)
 
 Blocks are held in ``nn.ModuleList``s and applied in Python loops where
 the reference scans over stacked parameters.  ``Model``'s parameter names
 are the reference's pytree keys with the stacked leaves split per layer
-(``blocks.<i>.attn.wq``, ``mlstm.<g>.<p>.core.w_q``, ``slstm.<g>.ln.scale``),
-so ``convert.params_from_jax`` loads a JAX checkpoint leaf by leaf.
+(``blocks.<i>.attn.wq``, ``mlstm.<g>.<p>.core.w_q``, ``slstm.<g>.ln.scale``,
+``mamba.<g>.<p>.core.w_xz``; ``shared.*`` is not stacked), so
+``convert.params_from_jax`` loads a JAX checkpoint leaf by leaf.
 ``forward(serve=False)`` is the training forward: the ApproxFFN's
 co-training and the tick-router head's across-layer vote, with each block
 recomputed in the backward under ``cfg.remat``; ``lm_loss`` is the train
-step's loss.  The MoE and hybrid families are not ported yet (ROADMAP
-queue 1, item 9).
+step's loss.  Inputs are tokens (B, S), or embeddings (B, S, d) under
+``input_mode="embeddings"``.  The MoE family and sliding-window attention
+are not ported yet (ROADMAP queue 1, item 9c).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import xlstm
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
                                            approx_ffn_train, execute_plan,
                                            make_tick_plan)
@@ -37,20 +41,19 @@ from repro_torch.runtime.dispatch import plan_invoke_stats
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "ssm") or cfg.moe.n_experts \
-            or cfg.parallel_block:
+    if cfg.moe.n_experts or cfg.sliding_window:
         raise NotImplementedError(
-            f"model family {cfg.family!r} (moe={cfg.moe.n_experts}, "
-            f"parallel_block={cfg.parallel_block}) is not ported yet; the "
-            "port serves the dense and xLSTM families (ROADMAP queue 1, "
-            "item 9)")
+            f"{cfg.name}: the MoE family (moe={cfg.moe.n_experts}) and "
+            f"sliding-window attention (sliding_window="
+            f"{cfg.sliding_window}) are not ported yet (ROADMAP queue 1, "
+            "item 9c)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """How layers group into block stacks for a family."""
 
-    kind: str            # "uniform" | "xlstm" (the hybrid is not ported)
+    kind: str            # "uniform" | "xlstm" | "hybrid"
     n_groups: int = 0
     per_group: int = 0   # inner homogeneous run length
 
@@ -60,6 +63,10 @@ def topology(cfg: ModelConfig) -> Topology:
         k = cfg.ssm.slstm_every
         assert cfg.n_layers % k == 0, (cfg.n_layers, k)
         return Topology("xlstm", cfg.n_layers // k, k - 1)
+    if cfg.family == "hybrid":
+        k = cfg.attn_every or 6
+        assert cfg.n_layers % k == 0, (cfg.n_layers, k)
+        return Topology("hybrid", cfg.n_layers // k, k)
     return Topology("uniform", cfg.n_layers, 1)
 
 
@@ -89,6 +96,13 @@ class SLSTMBlock(nn.Module):
         self.core = xlstm.SLSTM(cfg, device, gen)
 
 
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, gen=None):
+        super().__init__()
+        self.ln = L.Norm(cfg, cfg.d_model, device)
+        self.core = mamba2.Mamba(cfg, device, gen)
+
+
 class Model(nn.Module):
     """The LM's parameters.  Built without a generator the storage is
     uninitialized (for loading); ``init_model`` initializes it."""
@@ -108,8 +122,19 @@ class Model(nn.Module):
             self.slstm = nn.ModuleList(SLSTMBlock(cfg, device, gen)
                                        for _ in range(topo.n_groups))
             return
-        self.blocks = nn.ModuleList(DenseBlock(cfg, device, gen)
-                                    for _ in range(cfg.n_layers))
+        if topo.kind == "hybrid":
+            # mamba.<g>.<p>: G groups of P Mamba2 blocks, then ONE shared
+            # attention+FFN block applied after every group (Zamba2)
+            self.mamba = nn.ModuleList(
+                nn.ModuleList(MambaBlock(cfg, device, gen)
+                              for _ in range(topo.per_group))
+                for _ in range(topo.n_groups))
+            self.shared = DenseBlock(dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, n_experts=0)),
+                device, gen)
+        else:
+            self.blocks = nn.ModuleList(DenseBlock(cfg, device, gen)
+                                        for _ in range(cfg.n_layers))
         if cfg.approx.enable:
             # tick-router head (route_scope="tick"), carried so that
             # conversion of a reference checkpoint is total
@@ -138,9 +163,15 @@ def _dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, cache, *,
     ``tier``/``tier_margins`` (serve, layer scope): per-slot QoS tiers of
     this block's own routing (a tick plan embeds them).  ``residency``
     (serve, library): the (n_resident,) library ids whose weight rows
-    this block executes."""
-    h, new_cache = L.attention_fwd(cfg, p.attn, L.norm_fwd(cfg, p.ln1, x),
-                                   positions, cache)
+    this block executes.  ``cfg.parallel_block``: the FFN runs beside the
+    attention on the same ``ln1`` input, one residual (stablelm-2 style)."""
+    xn = L.norm_fwd(cfg, p.ln1, x)
+    h, new_cache = L.attention_fwd(cfg, p.attn, xn, positions, cache)
+    if cfg.parallel_block:
+        f, aux, metrics = _ffn_part(cfg, p, xn, serve, row_mask,
+                                    dispatch_plan, tier, tier_margins,
+                                    residency)
+        return x + h + f, new_cache, aux, metrics
     x = x + h
     f, aux, metrics = _ffn_part(cfg, p, L.norm_fwd(cfg, p.ln2, x), serve,
                                 row_mask, dispatch_plan, tier, tier_margins,
@@ -236,6 +267,11 @@ def _slstm_block(cfg: ModelConfig, p: SLSTMBlock, x, state):
     return x + y, st
 
 
+def _mamba_block(cfg: ModelConfig, p: MambaBlock, x, state):
+    y, st = mamba2.mamba_fwd(cfg, p.core, L.norm_fwd(cfg, p.ln, x), state)
+    return x + y, st
+
+
 def _maybe_remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, recomputed in the backward under ``cfg.remat`` when
     autograd records (the reference's ``jax.checkpoint`` of the block
@@ -261,16 +297,19 @@ def _tick_router_loss(cfg: ModelConfig, params: Model, x0, votes):
 
 def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
             collect_cache: bool = False, serve: bool = False):
-    """Full-sequence forward.  inputs: tokens (B, S).
+    """Full-sequence forward.  inputs: tokens (B, S), or embeddings (B,
+    S, d) under ``input_mode="embeddings"``.
 
     Returns (logits (B, S, V), cache-or-None, aux_loss, metrics).  With
     ``collect_cache`` the cache is the decode cache after S tokens, laid
     out as init_cache lays it out with max_len S (dense family: the
-    post-RoPE K/V of every layer; xLSTM: every block's final state), and
-    ``pos = S``; ``pad_cache`` grows a dense one to decode room.  Dense
-    family: ``serve=True`` runs each layer's ApproxFFN through the
-    capacity dispatch, routing its own tokens (the reference builds no
-    tick plan here), with the layer-meaned dispatch metrics.
+    post-RoPE K/V of every layer; xLSTM: every block's final state;
+    hybrid: every Mamba2 block's final state and the shared block's K/V
+    of every group), and ``pos = S``; ``pad_cache`` grows the K/V to
+    decode room.  Dense and hybrid families: ``serve=True`` runs each
+    ApproxFFN application through the capacity dispatch, routing its own
+    tokens (the reference builds no tick plan here), with the dispatch
+    metrics meaned over the layers (hybrid: over the groups).
 
     ``serve=False`` is the training forward.  Each ApproxFFN runs its
     co-training path (the exact FFN's output, the router and distillation
@@ -285,16 +324,27 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
     b, s = x.shape[0], x.shape[1]
     metrics, cache = {}, None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    if topology(cfg).kind == "uniform":
+    topo = topology(cfg)
+    pos_s = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    if topo.kind in ("uniform", "hybrid"):
         positions = torch.arange(s, device=x.device)[None, :]
         x0, votes = x, None
-        per_layer, auxs, ks, vs = [], [], [], []
+        per_layer, auxs, ks, vs, mstates = [], [], [], [], []
 
         def block(blk, x):
             x, kv, aux, m = _dense_block(cfg, blk, x, positions, None,
                                          serve=serve)
             return x, (kv["k"], kv["v"]) if collect_cache else (), aux, m
-        for blk in params.blocks:
+        # uniform: each layer's own block; hybrid: each group's Mamba2
+        # run, then the one shared block
+        groups = [((), blk) for blk in params.blocks] \
+            if topo.kind == "uniform" \
+            else [(mblks, params.shared) for mblks in params.mamba]
+        for mblks, blk in groups:
+            msts = []
+            for mblk in mblks:
+                x, st = _maybe_remat(cfg, _mamba_block, cfg, mblk, x, None)
+                msts.append(st["h"])
             x, kv, aux, m = _maybe_remat(cfg, block, blk, x)
             if "_label_votes" in m:
                 v = m.pop("_label_votes")
@@ -304,6 +354,7 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
             if collect_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
+                mstates.append(msts)
         metrics = _step_metrics(None, per_layer)
         aux_total = torch.stack(auxs).sum()
         if votes is not None:           # the train path's label votes
@@ -313,8 +364,10 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
                            tick_router_acc=tick_acc)
         if collect_cache:
             cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                     "pos": torch.full((b,), s, dtype=torch.int32,
-                                       device=x.device)}
+                     "pos": pos_s}
+            if topo.kind == "hybrid":
+                cache["mamba"] = {"h": torch.stack([torch.stack(g)
+                                                    for g in mstates])}
     else:
         mstates, sstates = [], []
         for mblks, sblk in zip(params.mlstm, params.slstm):
@@ -333,8 +386,7 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
                                for k in ("c", "n")},
                      "slstm": {k: torch.stack([st[k] for st in sstates])
                                for k in ("h", "c", "n", "m")},
-                     "pos": torch.full((b,), s, dtype=torch.int32,
-                                       device=x.device)}
+                     "pos": pos_s}
     x = L.norm_fwd(cfg, params.ln_f, x)
     logits = L.unembed_fwd(cfg, params.embed, x)
     return logits, cache, aux_total, metrics
@@ -368,7 +420,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     of ``layers.init_attn_cache`` (the reference's pools stop at
     kv_pages), plus ONE ``block_table`` (batch, max_len // page_size)
     shared by every layer.  xLSTM: the mLSTM states (G, P, batch, ...)
-    and the sLSTM states (G, batch, ...), whatever ``max_len``.  All with
+    and the sLSTM states (G, batch, ...), whatever ``max_len``.  Hybrid:
+    the Mamba2 states ``mamba.h`` (G, P, batch, H, P_hd, N) and the shared
+    block's k/v of every group (G, batch, max_len, Kh, hd).  All with
     ``pos`` (batch,) int32."""
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -389,19 +443,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return cache
     c = L.init_attn_cache(cfg, batch, max_len, dev, page_size=page_size,
                           n_pages=kv_pages)
-    c["k"] = c["k"][None].repeat(cfg.n_layers, *([1] * c["k"].ndim))
-    c["v"] = c["v"][None].repeat(cfg.n_layers, *([1] * c["v"].ndim))
+    n = cfg.n_layers if topo.kind == "uniform" else topo.n_groups
+    c["k"] = c["k"][None].repeat(n, *([1] * c["k"].ndim))
+    c["v"] = c["v"][None].repeat(n, *([1] * c["v"].ndim))
+    if topo.kind == "hybrid":
+        h = mamba2.init_mamba_state(cfg, batch, dev)["h"]
+        c["mamba"] = {"h": h.expand(topo.n_groups, topo.per_group,
+                                    *h.shape).clone()}
     return c
 
 
 def _batch_dim(head: str, paged: bool = False):
-    """Batch dim of a cache leaf under top-level key ``head``: k/v (L, B,
-    ...) -> 1, or None for a paged cache's shared pools; mlstm states (G,
-    P, B, ...) -> 2; slstm states (G, B, ...) -> 1; pos, block_table ->
-    0."""
+    """Batch dim of a cache leaf under top-level key ``head``: k/v (L or
+    G, B, ...) -> 1, or None for a paged cache's shared pools; mlstm and
+    mamba states (G, P, B, ...) -> 2; slstm states (G, B, ...) -> 1; pos,
+    block_table -> 0."""
     if head in ("k", "v"):
         return None if paged else 1
-    return {"mlstm": 2, "slstm": 1}.get(head, 0)
+    return {"mlstm": 2, "mamba": 2, "slstm": 1}.get(head, 0)
 
 
 def reset_slot(cfg: ModelConfig, cache, fresh, slot: int):
@@ -424,9 +483,10 @@ def reset_slot(cfg: ModelConfig, cache, fresh, slot: int):
 
 
 def pad_cache(cfg: ModelConfig, cache, max_len: int):
-    """Grow a prefill-built dense cache's KV length to ``max_len`` (decode
-    room), zero-filled.  No-op for an xLSTM cache and for a paged cache (a
-    fixed pool: its capacity is kv_pages, not a per-slot length)."""
+    """Grow a prefill-built cache's KV length (axis 2 of the dense and
+    the hybrid family's k/v) to ``max_len`` (decode room), zero-filled.
+    No-op for an xLSTM cache and for a paged cache (a fixed pool: its
+    capacity is kv_pages, not a per-slot length)."""
     if "k" not in cache or "block_table" in cache:
         return cache
     pad = max_len - cache["k"].shape[2]
@@ -457,11 +517,13 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
            tier: torch.Tensor | None = None,
            tier_margins: torch.Tensor | None = None,
            residency: torch.Tensor | None = None):
-    """One decode step.  inputs: tokens (B, 1).  Returns (logits (B, V),
-    cache), or (logits, cache, metrics) when ``collect_metrics`` — the
-    ApproxFFN dispatch metrics (dense family: the layer mean, or under
-    ``route_scope="tick"`` the one tick plan's stats; empty for the xLSTM
-    family, which has no ApproxFFN).
+    """One decode step.  inputs: tokens (B, 1), or embeddings (B, 1, d)
+    under ``input_mode="embeddings"``.  Returns (logits (B, V), cache), or
+    (logits, cache, metrics) when ``collect_metrics`` — the ApproxFFN
+    dispatch metrics (dense family: the layer mean; hybrid: the mean over
+    the shared block's applications; under ``route_scope="tick"`` the one
+    tick plan's stats; empty for the xLSTM family, which has no
+    ApproxFFN).
 
     The cache is updated IN PLACE and returned with ``pos`` advanced (the
     reference donates its cache and returns an updated one).  Dense
@@ -482,11 +544,18 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     tensor data: a new tier mix, margin or hot set needs no new step.
 
     xLSTM family, as in the reference: every slot's ``pos`` advances by
-    1 whatever ``row_mask``, and there is no cache end."""
+    1 whatever ``row_mask``, and there is no cache end.
+
+    Hybrid family, as in the reference: one tick plan (tick scope) serves
+    every application of the shared block, whose k/v are those of the
+    group (``cache["k"][g]``); ``row_mask`` excludes idle slots from the
+    dispatch, but every slot's ``pos`` advances by 1 and every slot's
+    Mamba2 state steps (a recycled slot is reset on admission)."""
     x = L.embed_fwd(cfg, params.embed, inputs)
     pos = cache["pos"]
     per_layer, plan = [], None
-    if topology(cfg).kind == "xlstm":
+    kind = topology(cfg).kind
+    if kind == "xlstm":
         x = _decode_xlstm(cfg, params, cache, x)
         cache["pos"] = pos + 1
     else:
@@ -495,14 +564,23 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
         if plan is not None:
             tier = tier_margins = None       # the plan embeds the tiers
         positions = pos[:, None]
-        for i, blk in enumerate(params.blocks):
+        if kind == "uniform":
+            groups = [((), blk) for blk in params.blocks]
+        else:
+            groups = [(mblks, params.shared) for mblks in params.mamba]
+            mh = cache["mamba"]["h"]
+        for i, (mblks, blk) in enumerate(groups):
+            for j, mblk in enumerate(mblks):
+                x, new = _mamba_block(cfg, mblk, x, {"h": mh[i, j]})
+                mh[i, j] = new["h"]
             x, _, _, m = _dense_block(cfg, blk, x, positions,
                                       _layer_cache(cache, i), serve=serve,
                                       row_mask=row_mask, dispatch_plan=plan,
                                       tier=tier, tier_margins=tier_margins,
                                       residency=residency)
             per_layer.append(m)
-        adv = 1 if row_mask is None else row_mask.to(torch.int32)
+        adv = 1 if row_mask is None or kind == "hybrid" \
+            else row_mask.to(torch.int32)
         cache["pos"] = (pos + adv).to(torch.int32)
     x = L.norm_fwd(cfg, params.ln_f, x)
     logits = L.unembed_fwd(cfg, params.embed, x)[:, 0]

@@ -12,9 +12,9 @@ prompt S tokens per tick through the (B, S) chunk step
 alternates prefill ticks with decode ticks while both have work.  Only
 the final prompt token goes through the decode step, so the first
 sampled token comes from the same decode step as in token-by-token
-serving (``prefill_chunk=0``).  The xLSTM family cannot address its
-state positionally and feeds its prompts token by token whatever
-``prefill_chunk``.
+serving (``prefill_chunk=0``).  The xLSTM and hybrid (zamba2) families
+cannot address their recurrent state positionally and feed their prompts
+token by token whatever ``prefill_chunk``.
 
 The ``max_len`` contract: positions are absolute, never recycled.
 ``submit()`` enforces ``len(prompt) + max_new <= max_len`` loudly (or
@@ -49,7 +49,10 @@ with the sampled tokens and ``pos``.
 
 The server runs where its parameters live.  The xLSTM family has no KV
 cache and no ApproxFFN (``--mcma-dispatch`` runs report invocation rate
-0).  ``mesh`` is not ported yet and raises ``NotImplementedError``
+0); the hybrid's KV cache holds the shared block's k/v of each group and
+its ApproxFFN is the shared block's.  The server feeds token ids, so an
+architecture that takes embeddings (``input_mode="embeddings"``) is
+refused.  ``mesh`` is not ported yet and raises ``NotImplementedError``
 naming ROADMAP queue 1, item 10.
 """
 from __future__ import annotations
@@ -201,6 +204,10 @@ class DecodeServer:
         ``params`` (a ``models.model.Model``) on the device it lives on."""
         o = self.options = options if options is not None else ServeOptions()
         _check_ported(o)
+        if cfg.input_mode != "tokens":
+            raise ValueError(f"{cfg.name} takes embeddings (input_mode="
+                             f"{cfg.input_mode!r}); the server feeds token "
+                             "ids")
         if o.admission not in ("cost", "fifo"):
             raise ValueError(f"unknown admission policy: {o.admission!r} "
                              "(expected 'cost' or 'fifo')")
@@ -221,7 +228,8 @@ class DecodeServer:
         self.admission, self.aging, self.overflow = \
             o.admission, float(o.aging), o.overflow
         # chunked prefill needs a positionally addressed KV cache; the
-        # xLSTM family feeds its prompts token by token whatever is asked
+        # xLSTM and hybrid families feed their prompts token by token
+        # whatever is asked
         self.chunkable = M.topology(cfg).kind == "uniform" \
             and not cfg.sliding_window
         self.prefill_chunk = int(o.prefill_chunk) if self.chunkable else 0
@@ -744,7 +752,8 @@ class DecodeServer:
         nxt, pos = host["next"].astype(np.int64), \
             host["pos"].astype(np.int64)
         inv = None
-        # a family without an ApproxFFN (xLSTM) reports no metrics
+        # a family without an ApproxFFN (xLSTM) reports no metrics; the
+        # hybrid's are its shared block's
         if "invocation" in host:
             inv = float(host["invocation"])
             self.invocation_sum += inv * n_active

@@ -347,7 +347,7 @@ def test_unported_train_options_raise():
         Trainer(tcfg, TrainerConfig(total_steps=1), ds, mesh=object(),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
-        launch_train.main(["--arch", "olmo-1b", "--smoke", "--device",
+        launch_train.main(["--arch", "mixtral-8x7b", "--smoke", "--device",
                            "cpu"])
 
 
