@@ -148,15 +148,42 @@ Phases (any failure raises and the script exits non-zero):
      train_mlp on the card within 1e-4 of the CPU from one init (1 and 10
      epochs, both losses, weighted, 4,096 rows) and one train_mcma
      iteration's labels and classes differing on at most 0.5 % of rows;
-  18. a JSON line describing every kernel (the switch kernels'
+  18. [serve moe full width], after every earlier phase's tensors are
+     released: moonshot-v1-16b-a3b uncut (48 layers, 64 experts top-6,
+     bf16, 56 GB), MCMA dispatch on (the MoE takes the ApproxFFN's
+     place), on phase 5's stream and serving configuration with a paged
+     and a dense cache: every request served, 0 switch launches and 0
+     dispatch plans, ms per decode and chunk tick, tokens/s, mean TTFT,
+     peak memory; at capacity factor 1.25 the share of equal tokens
+     between the layouts is printed (idle slots' and padded rows compete
+     for expert slots and attend to layout-dependent garbage, in the
+     reference as here); at capacity factor E / top_k paged == dense,
+     tokens and tick log bitwise; one profiled decode tick of 8 slots
+     (launches, device busy, idle share) and the share of its expert
+     choices the capacity drops (``moe.route`` on each layer's input);
+  19. [moe float32 witness]: moonshot's widths cut to 2 layers, float32,
+     capacity factor E / top_k: forward(512) at 256..259 against
+     prefill(256) + 4 decode steps within 2e-3; chunked prefill into a
+     16-token-page cache == the dense cache bitwise, within 2e-3 of the
+     forward;
+  20. [sliding window full width]: mixtral-8x7b's widths cut to 8 of its
+     32 layers (the 32 are 93 GB in bf16), bf16: a (1, 8192) prefill
+     into the 4096-row ring, 16 decode steps past the window (finite,
+     pos 8208); the slice-1 stream through DecodeServer, prompts token
+     by token; then at 2 layers in float32, capacity factor E / top_k,
+     forward(8192) at 4096..4103 against prefill(4096) + 8 decode steps
+     (the ring wraps at the first) within 2e-3; no switch launch;
+  21. a JSON line describing every kernel (the switch kernels'
      launches_by_run with the runs of phases 10 to 12 and, for
      switched_mlp, the two paper runs; their ``at_widths`` the d 2560
-     and d 8192 timings of phase 12), then the result line.
+     and d 8192 timings of phase 12; the MoE phases launch none of the
+     four), then the result line.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -225,6 +252,17 @@ ARCHS_RUN = dict(batch=2, seq=128, decode=4)
 ARCHS_TIMED = ("stablelm-3b", "internvl2-76b")   # d 2560 and d 8192
 PAPER_PARITY = dict(rows=4096, epochs=(1, 10), mcma_epochs=10, tol=1e-4,
                     max_label_diff=0.005)
+# the MoE family: moonshot-v1-16b-a3b uncut on the scheduler's stream, its
+# float32 witness at its widths cut to 2 layers ((batch, S) prefill, then
+# ``decode`` steps); mixtral-8x7b at full width cut in depth (the 32 layers
+# are 93 GB in bf16): a (1, prefill) forward into the 4096-row ring, then
+# ``decode`` steps past the window; its float32 witness at 2 layers
+MOE = "moonshot-v1-16b-a3b"
+MOE_WITNESS = dict(n_layers=2, batch=2, seq=256, decode=4, page_size=16)
+SWA = "mixtral-8x7b"
+SWA_LAYERS = 8
+SWA_RUN = dict(prefill=8192, decode=16)
+SWA_WITNESS = dict(n_layers=2, seq=8192, at=4096, decode=8)
 
 
 def log(msg):
@@ -2461,6 +2499,342 @@ def archs_full_width(np, torch):
     return records, timed
 
 
+def no_drop(cfg):
+    """``cfg`` with capacity factor E / top_k: every token gets a slot in
+    each of its experts (the reference's decode check,
+    tests/test_archs.py), so no row competes with another."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def release(torch):
+    """Free what the last phase left: its tensors, then the cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zero_switch():
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    switched_mlp.switched_mlp.launches = 0
+    fused_dispatch.switched_mlp_fused.launches = 0
+
+
+def switch_launches() -> int:
+    from repro_torch.kernels import fused_dispatch, switched_mlp
+    return switched_mlp.switched_mlp.launches \
+        + fused_dispatch.switched_mlp_fused.launches
+
+
+class MoECapture:
+    """Records each MoE application's parameters and input (one a layer
+    a step) through the model's binding of ``moe.moe_fwd``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real, self.calls = moe, moe.moe_fwd, []
+
+        def capture(cfg, p, x):
+            self.calls.append((p, x.detach().clone()))
+            return self.real(cfg, p, x)
+        moe.moe_fwd = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_fwd = self.real
+
+
+def drop_share(torch, cfg, calls):
+    """The share of (token, expert) choices that the capacity drops over
+    the recorded MoE applications, from the router's top-k and
+    ``capacity_slots`` on each one's input (``moe.route``).  Returns
+    (mean share, per-layer shares, slots per expert)."""
+    from repro_torch.models import moe
+    shares = []
+    with torch.no_grad():
+        for p, x in calls:
+            r = moe.route(cfg, p.router, x.reshape(-1, x.shape[-1]))
+            shares.append((~r.keep).sum().item() / r.keep.numel())
+    return statistics.mean(shares), shares, r.cap
+
+
+def moe_stream(torch, cfg, params, prompts, label, **over):
+    """The scheduler's stream through DecodeServer on an MoE model (MCMA
+    dispatch on, which serves the MoE), the switch counts set to 0 just
+    before and read just after.  Fails unless every request is served,
+    every page comes back, and no switch kernel and no dispatch plan ran
+    (the MoE takes the ApproxFFN's place and routes itself)."""
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    opts = {**SCHED, "use_mcma_dispatch": True, "backend": "pallas", **over}
+    srv = DecodeServer(cfg, params, options=ServeOptions(**opts))
+    torch.cuda.synchronize()
+    zero_switch()
+    with PlanCounter() as plans:
+        reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
+    if not all(r.done and not r.aborted for r in reqs) or \
+            st["undrained_queued"] or st["undrained_inflight"]:
+        raise AssertionError(f"{label}: the stream did not drain")
+    if opts["kv_page_size"] and st["pages_in_use"] != 0:
+        raise AssertionError(f"{label}: {st['pages_in_use']} pages held")
+    if switch_launches() or plans.calls:
+        raise AssertionError(f"{label}: {switch_launches()} switch launches "
+                             f"and {plans.calls} dispatch plans on an MoE "
+                             "model; want 0")
+    n_tok = sum(len(r.out) for r in reqs)
+    ttft = statistics.mean(r.first_token_tick - r.arrival_tick for r in reqs)
+    med = {ph: statistics.median(v) if v else 0.0 for ph, v in times.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {label}: {st['ticks']} ticks ({len(times['decode'])} decode, "
+        f"{st['prefill_ticks']} prefill); ms per decode tick median "
+        f"{med['decode']:.2f}, per prefill tick median "
+        f"{med['prefill']:.2f}; {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; mean TTFT {ttft:.2f} ticks; 0 "
+        f"switch launches, 0 dispatch plans; kv_bytes_resident "
+        f"{st['kv_bytes_resident']}; peak memory so far in the phase "
+        f"{peak} B")
+    return dict(tokens=[r.out for r in reqs], tick_log=list(srv.tick_log),
+                stats=st)
+
+
+def serve_moe(np, torch):
+    """[serve moe full width]: moonshot-v1-16b-a3b uncut, bf16, on the
+    scheduler's stream and serving configuration, on the paged and the
+    dense cache; paged == dense bitwise at capacity factor E / top_k;
+    one profiled decode tick of 8 decoding slots and the share of expert
+    choices its capacity drops."""
+    from repro_torch.launch.profile_decode import profiled
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    cfg = approx_cfg(MOE)
+    params = init_logged(torch, cfg, " (uncut)")
+    prompts = stream_prompts(np, cfg)
+    layouts = (("paged 16", {}), ("dense", dict(kv_page_size=0)))
+    runs = {lbl: moe_stream(torch, cfg, params, prompts,
+                            f"{cfg.name} tick/chunk 64/{lbl}", **over)
+            for lbl, over in layouts}
+    pairs = [(x, y) for a, b in zip(runs["paged 16"]["tokens"],
+                                    runs["dense"]["tokens"])
+             for x, y in zip(a, b)]
+    log(f"  capacity factor {cfg.moe.capacity_factor}: paged == dense on "
+        f"{sum(x == y for x, y in pairs)} of {len(pairs)} tokens (not "
+        "gated: idle slots' and padded chunk rows compete for expert "
+        "capacity, and what they attend to differs between the layouts, "
+        "in the reference as here)")
+    nd = no_drop(cfg)
+    free = {lbl: moe_stream(torch, nd, params, prompts,
+                            f"{cfg.name} capacity factor E/top_k {lbl}",
+                            **over)
+            for lbl, over in layouts}
+    if free["paged 16"]["tokens"] != free["dense"]["tokens"] or \
+            free["paged 16"]["tick_log"] != free["dense"]["tick_log"]:
+        raise AssertionError(f"{cfg.name}: at capacity factor E/top_k the "
+                             "paged cache's tokens or tick log differ from "
+                             "the dense cache's")
+    log("  gate: at capacity factor E/top_k (no row competes) paged == "
+        "dense, tokens and tick log bitwise")
+
+    # one decode tick of 8 decoding slots, as the server runs it
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        **SCHED, use_mcma_dispatch=True, backend="pallas"))
+    rng = np.random.default_rng(1)
+    for i in range(SCHED["batch"]):
+        srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 1)
+                           .astype(np.int32), max_new=64))
+    for _ in range(3):
+        srv.tick()
+    zero_switch()
+    with MoECapture() as cap:
+        srv.tick()
+    share, shares, slots = drop_share(torch, cfg, cap.calls)
+    host_ms, wall_ms, kernels, _ = profiled(torch, srv.tick, 1)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if switch_launches() or len(cap.calls) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} tick: {switch_launches()} switch "
+                             f"launches, {len(cap.calls)} MoE calls")
+    log(f"  one decode tick of {SCHED['batch']} slots: {host_ms:.2f} ms (host "
+        f"clock), {wall_ms:.2f} ms under the profiler, device busy "
+        f"{busy:.2f} ms in {launches} kernel launches, idle share "
+        f"{max(0.0, 1 - busy / host_ms):.3f}; {slots} slot(s) per expert: "
+        f"{share:.4f} of the {SCHED['batch'] * cfg.moe.top_k} expert "
+        f"choices a layer dropped (layers {min(shares):.4f} to "
+        f"{max(shares):.4f})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} "
+            f"launches  {e.key[:80]}")
+
+
+def moe_witness(np, torch):
+    """[moe float32 witness]: moonshot at its widths cut to 2 layers,
+    float32, capacity factor E / top_k: forward(2S) at S + j against
+    prefill(S) + decode steps j = 0..3 within 2e-3; the chunk path into a
+    dense and a paged cache, then the same steps: bitwise equal, and
+    within 2e-3 of the forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    w = MOE_WITNESS
+    full_cfg = get_config(MOE)
+    cfg = dataclasses.replace(no_drop(full_cfg), n_layers=w["n_layers"],
+                              param_dtype="float32", act_dtype="float32")
+    params = init_logged(torch, cfg, f" (cut to {w['n_layers']} of its "
+                                     f"{full_cfg.n_layers} layers, float32, "
+                                     "capacity factor E/top_k)")
+    b, s, nd, ps = w["batch"], w["seq"], w["decode"], w["page_size"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (b, 2 * s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    gaps, outs = [], {}
+    with torch.no_grad():
+        want = M.forward(cfg, params, toks)[0][:, s:s + nd].clone()
+        _, cache, _, _ = M.forward(cfg, params, toks[:, :s],
+                                   collect_cache=True)
+        cache = M.pad_cache(cfg, cache, 2 * s)
+        for j in range(nd):
+            got, cache = M.decode(cfg, params, cache,
+                                  toks[:, s + j:s + j + 1])
+            torch.testing.assert_close(got, want[:, j], rtol=2e-3, atol=2e-3,
+                                       msg=f"moe witness step {j}")
+            gaps.append((got - want[:, j]).abs().max().item())
+        if cache["pos"].tolist() != [s + nd] * b:
+            raise AssertionError(f"moe witness pos {cache['pos'].tolist()}")
+        for page in (0, ps):
+            c = M.init_cache(cfg, b, 2 * s, page_size=page,
+                             kv_pages=b * 2 * s // ps if page else 0,
+                             device="cuda")
+            if page:
+                bt = c["block_table"]
+                bt.copy_(torch.arange(bt.numel(), dtype=torch.int32,
+                                      device="cuda").reshape(bt.shape))
+            c, _ = M.decode_chunk(cfg, params, c, toks[:, :s],
+                                  torch.full((b,), s, dtype=torch.int32,
+                                             device="cuda"))
+            steps_out = []
+            for j in range(nd):
+                got, c = M.decode(cfg, params, c, toks[:, s + j:s + j + 1])
+                steps_out.append(got)
+            outs[page] = torch.stack(steps_out, 1)
+    if not torch.equal(outs[0], outs[ps]):
+        raise AssertionError("moe witness: the paged cache's logits differ "
+                             "from the dense cache's")
+    torch.testing.assert_close(outs[0], want, rtol=2e-3, atol=2e-3,
+                               msg="moe witness: chunked prefill + decode")
+    log(f"  forward({2 * s}) at {s}..{s + nd - 1} vs prefill({s}) + {nd} "
+        f"decode steps: max |diff| {max(gaps):.4g} (per step "
+        f"{', '.join(f'{g:.3g}' for g in gaps)}) within 2e-3; the chunk "
+        f"path into {ps}-token pages == the dense cache bitwise, "
+        f"{(outs[0] - want).abs().max().item():.4g} from the forward")
+
+
+def swa_full_width(np, torch):
+    """[sliding window full width]: mixtral-8x7b at full width cut to
+    SWA_LAYERS layers, bf16: a (1, 8192) prefill into the 4096-row ring
+    and 16 decode steps past the window (finite logits, pos); the slice-1
+    stream through DecodeServer (prompts token by token); then the
+    float32 witness at 2 layers, capacity factor E / top_k: forward over
+    8192 at 4096 + j against a 4096-token prefill + 8 decode steps (the
+    ring wraps at the first), within 2e-3.  No switch kernel runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    full_cfg = get_config(SWA)
+    win = full_cfg.sliding_window
+    cfg = dataclasses.replace(full_cfg, n_layers=SWA_LAYERS)
+    params = init_logged(torch, cfg, f" (cut to {SWA_LAYERS} of its "
+                                     f"{full_cfg.n_layers} layers; window "
+                                     f"{win})")
+    n, nd = SWA_RUN["prefill"], SWA_RUN["decode"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, n + nd), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill, step = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    zero_switch()
+    t0 = time.time()
+    last, cache = prefill(params, {"inputs": toks[:, :n]})
+    torch.cuda.synchronize()
+    t_fwd = time.time() - t0
+    if cache["k"].shape[2] != win or not torch.isfinite(last.float()).all():
+        raise AssertionError(f"{SWA}: ring of {cache['k'].shape[2]} rows "
+                             f"(want {win}) or prefill logits not finite")
+    times = []
+    for i in range(nd):
+        t0 = time.time()
+        lg, cache = step(params, cache, toks[:, n + i:n + i + 1])
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        if not torch.isfinite(lg.float()).all():
+            raise AssertionError(f"{SWA}: decode step {i} not finite")
+    if cache["pos"].tolist() != [n + nd] or switch_launches():
+        raise AssertionError(f"{SWA}: pos {cache['pos'].tolist()}, "
+                             f"{switch_launches()} switch launches")
+    log(f"  prefill (1, {n}) {t_fwd * 1e3:.1f} ms into a ring of {win} "
+        f"rows; {nd} decode steps past the window, ms median "
+        f"{statistics.median(times):.2f}, pos {n + nd}, logits finite; peak "
+        f"memory so far in the phase {torch.cuda.max_memory_allocated()} B")
+    del cache, last, lg
+
+    rng = np.random.default_rng(0)
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        batch=SERVE["batch"], max_len=SERVE["max_len"],
+        prefill_chunk=SCHED["prefill_chunk"]))
+    if srv.prefill_chunk != 0:
+        raise AssertionError(f"{SWA}: the server chunks a ring's prompts")
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               SERVE["prompt_len"])
+                    .astype(np.int32), max_new=SERVE["max_new"])
+            for i in range(SERVE["n_requests"])]
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    zero_switch()
+    t0 = time.time()
+    st = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_tok = sum(len(r.out) for r in reqs)
+    if not all(r.done and not r.aborted for r in reqs) or switch_launches():
+        raise AssertionError(f"{SWA} serve: drained "
+                             f"{all(r.done for r in reqs)}, "
+                             f"{switch_launches()} switch launches")
+    log(f"  serve the slice-1 stream (token by token, ring of "
+        f"{srv.cache['k'].shape[2]} rows at max_len {SERVE['max_len']}): "
+        f"{st['ticks']} ticks, {n_tok} tokens, "
+        f"{wall * 1e3 / st['ticks']:.2f} ms/tick, {n_tok / wall:.1f} "
+        f"tokens/s, 0 switch launches, peak memory so far in the phase "
+        f"{torch.cuda.max_memory_allocated()} B")
+    del srv, params
+    release(torch)
+
+    w = SWA_WITNESS
+    cfg32 = dataclasses.replace(no_drop(full_cfg), n_layers=w["n_layers"],
+                                param_dtype="float32", act_dtype="float32")
+    p32 = init_logged(torch, cfg32, f" (cut to {w['n_layers']} layers, "
+                                    "float32, capacity factor E/top_k)")
+    s, at, nd = w["seq"], w["at"], w["decode"]
+    toks = torch.randint(0, cfg32.vocab, (1, s), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    gaps = []
+    with torch.no_grad():
+        want = M.forward(cfg32, p32, toks)[0][:, at:at + nd].clone()
+        _, cache, _, _ = M.forward(cfg32, p32, toks[:, :at],
+                                   collect_cache=True)
+        if cache["k"].shape[2] != min(at, win):
+            raise AssertionError(f"{SWA} witness: ring {cache['k'].shape}")
+        for j in range(nd):
+            got, cache = M.decode(cfg32, p32, cache,
+                                  toks[:, at + j:at + j + 1])
+            torch.testing.assert_close(got, want[:, j], rtol=2e-3, atol=2e-3,
+                                       msg=f"{SWA} witness step {j}")
+            gaps.append((got - want[:, j]).abs().max().item())
+    if cache["pos"].tolist() != [at + nd]:
+        raise AssertionError(f"{SWA} witness pos {cache['pos'].tolist()}")
+    log(f"  float32 witness: forward({s}) at {at}..{at + nd - 1} vs "
+        f"prefill({at}) + {nd} decode steps (the ring wraps at the first): "
+        f"max |diff| {max(gaps):.4g} (per step "
+        f"{', '.join(f'{g:.3g}' for g in gaps)}) within 2e-3")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2595,6 +2969,21 @@ def main() -> int:
     paper_runs = paper_pipeline_full_width(np, torch)
     torch.cuda.empty_cache()
     log(f"  phase {time.time() - t0:.1f} s")
+
+    # the MoE family: moonshot alone holds 56 GB, so every earlier
+    # phase's tensors go first; each phase's peak is printed
+    release(torch)
+    for name, phase in (("serve moe full width", serve_moe),
+                        ("moe float32 witness", moe_witness),
+                        ("sliding window full width", swa_full_width)):
+        log(f"[{name}]")
+        log(f"  {torch.cuda.memory_allocated()} B allocated before")
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        phase(np, torch)
+        log(f"  phase {time.time() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        release(torch)
 
     # library_ms is null for all four: no single PyTorch call computes a
     # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh

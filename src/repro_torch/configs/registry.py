@@ -1,8 +1,6 @@
-"""Architecture registry (counterpart of ``repro/configs/registry.py``).
-
-Every architecture of the reference but the two MoE ones
-(``mixtral-8x7b``, ``moonshot-v1-16b-a3b``), which arrive with the MoE
-family and sliding-window attention (ROADMAP queue 1, item 9c).
+"""Architecture registry (counterpart of ``repro/configs/registry.py``):
+every architecture of the reference, in its order, and the reduced smoke
+variants.
 """
 from __future__ import annotations
 
@@ -19,6 +17,8 @@ _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
 
@@ -26,10 +26,6 @@ ARCH_IDS = list(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ported: {ARCH_IDS}); the "
-            "MoE family comes with ROADMAP queue 1, item 9c")
     return importlib.import_module(_MODULES[arch]).CONFIG
 
 

@@ -4,9 +4,11 @@ train state and paper-MLP parameters.
 The reference keeps matrices as ``(in, out)`` and the approximator stacks
 in serving form, and so does the port, so conversion is leaf by leaf with
 no transposes: the stacked ``blocks`` leaves (leading dim L) split into
-``blocks.<i>.*`` (``mlstm`` and ``mamba`` into ``<head>.<g>.<p>.*``,
-``slstm`` into ``slstm.<g>.*``), every other key (the hybrid's unstacked
-``shared`` block too) maps to the same dotted name.  A parameterless
+``blocks.<i>.*`` (the MoE's too: ``blocks.<i>.moe.router``, ``.w_in``,
+``.w_gate``, ``.w_out``; ``mlstm`` and ``mamba`` into
+``<head>.<g>.<p>.*``, ``slstm`` into ``slstm.<g>.*``), every other key
+(the hybrid's unstacked ``shared`` block too) maps to the same dotted
+name.  A parameterless
 norm (olmo's ``nonparam_ln``) is an empty dict in the reference and
 nothing here.  bfloat16 leaves cross as their 16-bit patterns
 (``torch.from_numpy`` has no bfloat16).  ``train_state_to_tree`` goes the
@@ -129,9 +131,9 @@ def params_from_jax(cfg: ModelConfig, tree, *, device=None) -> Model:
 def decay_mask(cfg: ModelConfig, params: Model) -> dict[str, bool]:
     """{name: whether AdamW decays it}: the reference decays a leaf of rank
     >= 2, and its leaves are stacked over layers, so every per-layer
-    tensor (norm scales and biases included) is decayed and only the
-    unstacked 1-D leaves (``ln_f``, the hybrid's ``shared`` norms and
-    biases) are exempt."""
+    tensor (norm scales and biases included, every MoE leaf) is decayed
+    and only the unstacked 1-D leaves (``ln_f``, the hybrid's ``shared``
+    norms and biases) are exempt."""
     stacked = _stacked(cfg)
     return {name: p.ndim + len(stacked.get(name.partition(".")[0], ())) >= 2
             for name, p in params.named_parameters()}

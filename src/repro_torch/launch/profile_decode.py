@@ -1,15 +1,17 @@
 """Where a decode tick's time goes, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--arch internlm2-1.8b | stablelm-1.6b | xlstm-1.3b |
-        zamba2-2.7b] [--backend pallas] \\
+        [--arch internlm2-1.8b | stablelm-1.6b | moonshot-v1-16b-a3b |
+        xlstm-1.3b | zamba2-2.7b] [--backend pallas] \\
         [--route-scope layer | tick] [--prefill-chunk 64] \\
         [--qos] [--library-size 6 --n-resident 3] [--autotune] \\
         [--ticks 6] [--seed 0]
 
 Builds the full-width model (all layers, random weights from ``--seed``,
 batch 8, max_len 256).  The dense archs (internlm2-1.8b, stablelm-1.6b)
-run through a ``DecodeServer`` with MCMA dispatch on ``--backend`` at
+and moonshot-v1-16b-a3b (whose MoE takes the ApproxFFN's place: no
+switch kernel, no invocation rate; 56 GB of bf16 weights) run through a
+``DecodeServer`` with MCMA dispatch on ``--backend`` at
 ``--route-scope``, 8 requests admitted into its slots, and each tick is
 the server's own: its step at the autotuner's rung, its tensor inputs,
 its one device read and its controllers (``profile_server``).
@@ -95,7 +97,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b",
                     choices=("internlm2-1.8b", "stablelm-1.6b",
-                             "xlstm-1.3b", "zamba2-2.7b"))
+                             "moonshot-v1-16b-a3b", "xlstm-1.3b",
+                             "zamba2-2.7b"))
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "pallas_fused", "xla"))
     ap.add_argument("--route-scope", default="layer",
@@ -129,7 +132,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     b = 8
     rng = np.random.default_rng(args.seed)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         profile_server(args, np, torch, cfg, dev, b, rng)
         return
     if cfg.family == "hybrid":
@@ -208,8 +211,8 @@ def dense_server(args, np, cfg, dev, b, rng):
 
 
 def profile_server(args, np, torch, cfg, dev, b, rng):
-    """The dense family's ticks as ``DecodeServer`` runs them: its step
-    at the controller's rung (``_active_step``), its tensor inputs
+    """The dense (and MoE) family's ticks as ``DecodeServer`` runs them:
+    its step at the controller's rung (``_active_step``), its tensor inputs
     (``_step_inputs``: the slots' tier vector, the margins, the resident
     set), its one device read (``_read_tick``) and its controllers
     (``_observe_decode``), on 8 decoding slots; then its chunk step."""
@@ -227,7 +230,9 @@ def profile_server(args, np, torch, cfg, dev, b, rng):
         logits, srv.cache, m = srv._active_step()(
             srv.params, srv.cache, toks, mask, **srv._step_inputs())
         nxt = torch.argmax(logits, -1)
-        srv._observe_decode(srv._read_tick(m, nxt, srv.cache["pos"]))
+        host = srv._read_tick(m, nxt, srv.cache["pos"])
+        if "dropped_rows" in host:          # no dispatch stats on an MoE
+            srv._observe_decode(host)
         toks = nxt.to(torch.int32)[:, None]
 
     for _ in range(3):
@@ -244,7 +249,8 @@ def profile_server(args, np, torch, cfg, dev, b, rng):
             srv.cache["pos"].zero_()
             srv.cache, m = srv._active_chunk_step()(
                 srv.params, srv.cache, ctoks, nv, **srv._step_inputs())
-            float(m["invocation"])           # the server reads it per tick
+            if "invocation" in m:           # the server reads it per tick
+                float(m["invocation"])
 
         for _ in range(3):
             chunk_tick()

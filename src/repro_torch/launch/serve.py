@@ -9,16 +9,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
         [--smoke] [--device cpu]
 
-``--arch`` takes every ported architecture that reads tokens: the dense
-ones (internlm2-1.8b, olmo-1b, stablelm-1.6b, stablelm-3b), xlstm-1.3b and
-the zamba2-2.7b hybrid (MCMA on its shared block); musicgen-large and
+``--arch`` takes every architecture that reads tokens: the dense ones
+(internlm2-1.8b, olmo-1b, stablelm-1.6b, stablelm-3b), xlstm-1.3b, the
+zamba2-2.7b hybrid (MCMA on its shared block) and the MoE family
+(moonshot-v1-16b-a3b; mixtral-8x7b, whose sliding window's ring buffer
+takes no ``--kv-page-size``), where the MoE takes the FFN's place and
+``--mcma-dispatch`` reports no invocation rate; musicgen-large and
 internvl2-76b take embeddings, which the server does not feed.
 
 Runs on the GPU unless ``--device cpu`` is given; the weights are random,
 from ``--seed``.  Prompts load ``--prefill-chunk`` tokens per prefill
 tick (default 16, as the reference's CLI; 0 = token by token; the xLSTM
-and hybrid families always feed token by token).  With ``--qos`` the
-requests cycle through the tier table's bounds and the default tier, and
+and hybrid families and mixtral-8x7b always feed token by token).  With
+``--qos`` the requests cycle through the tier table's bounds and the default tier, and
 the per-tier ledger is printed; ``--library-size`` builds a library model and prints
 the swaps; ``--autotune`` prints the rung trajectory and the ladder the
 served counts suggest.

@@ -5,9 +5,9 @@
 
 Drives the ``Trainer`` on one device: the GPU unless ``--device cpu`` is
 given.  ``--smoke`` selects the reduced config; ``--approx`` enables the
-MCMA ApproxFFN layer (with its tick-router head).  The port trains every
-ported architecture on token inputs; the MoE family comes with ROADMAP
-queue 1, item 9c, and ``--mesh`` with item 10.
+MCMA ApproxFFN layer (with its tick-router head; an MoE architecture
+trains its MoE instead).  The port trains every architecture that reads
+tokens; ``--mesh`` comes with ROADMAP queue 1, item 10.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Shared LM layers (counterpart of ``repro/models/layers.py``): the norms,
 RoPE (partial rotary included), embeddings (tied or not, token or
 embedding inputs), the FFN (gated or not, four activations) and GQA
-attention (with or without qkv biases): blockwise flash
-attention over a full sequence, chunked prefill and single-step decode
-over a dense or paged KV cache.
+attention (with or without qkv biases, full or sliding-window): blockwise
+flash attention over a full sequence, chunked prefill and single-step
+decode over a dense or paged KV cache, or over a sliding window's ring
+buffer.
 
 Parameters live in small ``nn.Module`` containers whose attribute names
 are the reference's parameter keys, in the reference's layouts (matrices
@@ -164,10 +165,6 @@ def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                "sliding-window attention is not ported yet: it comes with "
-                "the MoE family (ROADMAP queue 1, item 9c)")
         d, hd = cfg.d_model, cfg.hd
         nh, nkv = cfg.n_heads, cfg.n_kv_heads
         s = d ** -0.5
@@ -207,9 +204,11 @@ def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                     q_offset: int = 0) -> torch.Tensor:
     """Blockwise attention with an online softmax: a loop over KV blocks
     inside a loop over Q blocks.  q: (B, Sq, H, hd); k, v: (B, Skv, H, hd).
-    ``q_offset``: absolute position of q[0].  The reference's plain-JAX
-    version step for step (f32 scores, the ``-1e30`` mask, probabilities
-    cast to the value dtype, f32 accumulators).  The reference checkpoints
+    ``q_offset``: absolute position of q[0].  ``cfg.sliding_window`` > 0
+    also masks keys ``win`` or more positions behind the query.  The
+    reference's plain-JAX version step for step (f32 scores, the
+    ``-1e30`` mask, probabilities cast to the value dtype, f32
+    accumulators).  The reference checkpoints
     each block step for its backward; here autograd keeps the blocks'
     activations, and a training model under ``cfg.remat`` recomputes the
     whole transformer block instead (models/model.py)."""
@@ -218,6 +217,7 @@ def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     qb, kb = min(cfg.q_block, sq), min(cfg.kv_block, skv)
     assert sq % qb == 0 and skv % kb == 0, (sq, qb, skv, kb)
     scale = hd ** -0.5
+    win = cfg.sliding_window
     outs = []
     for iq in range(sq // qb):
         qblk = q[:, iq * qb:(iq + 1) * qb]
@@ -230,9 +230,14 @@ def flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         for ik in range(skv // kb):
             kblk, vblk = k[:, ik * kb:(ik + 1) * kb], v[:, ik * kb:(ik + 1) * kb]
             s_ = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).float() * scale
-            if causal:
+            if causal or win:
                 k_pos = ik * kb + torch.arange(kb, device=q.device)
-                s_ = torch.where(q_pos[:, None] >= k_pos[None, :], s_, -1e30)
+                if causal:
+                    s_ = torch.where(q_pos[:, None] >= k_pos[None, :], s_,
+                                     -1e30)
+                if win:
+                    s_ = torch.where(q_pos[:, None] - k_pos[None, :] < win,
+                                     s_, -1e30)
             m_new = torch.maximum(m, s_.amax(-1))
             p_ = torch.exp(s_ - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -368,7 +373,14 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     paged cache the page index clamps onto the block table's last entry
     and the write lands at offset ``pos % page_size`` of that page (a -1
     entry still sends it to the trash page); attention then covers every
-    position."""
+    position.
+
+    Sliding window (``cfg.sliding_window`` > 0): the dense cache is a
+    RING BUFFER of Skv = min(max_len, window) rows.  Decode writes at row
+    ``pos % Skv`` (it wraps, never clamps) and attends to rows ``<= pos %
+    Skv`` until the ring has filled (``pos >= Skv``), then to every row.
+    Ring buffers take neither a paged cache nor chunked prefill (their
+    prompts go token by token), as in the reference."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(cfg, q, positions)
@@ -378,12 +390,17 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
         return o @ p.wo.to(o.dtype), {"k": k, "v": v}
     if "n_valid" in cache:
+        assert not cfg.sliding_window, \
+            "chunked prefill targets dense decode caches; sliding-window " \
+            "ring buffers feed their prompts token-by-token"
         o, new_cache = _attention_chunk(cfg, q, k, v, cache)
         o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
         return o @ p.wo.to(o.dtype), new_cache
     pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
     if "block_table" in cache:
+        assert not cfg.sliding_window, \
+            "paged KV caches need absolute positions (no ring buffers)"
         bt = cache["block_table"]
         page_size = ck.shape[1]
         skv = bt.shape[1] * page_size
@@ -395,15 +412,22 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         cv[pg, off] = v[:, 0].to(cv.dtype)
         ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
         new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + 1}
+        valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]
     else:
         rows = torch.arange(b, device=x.device)
         skv = ck.shape[1]
-        row = pos.clamp(max=skv - 1).long()
+        kpos = torch.arange(skv, device=x.device)[None, :]
+        if cfg.sliding_window:                          # ring buffer
+            row = pos % skv
+            valid = (kpos <= row[:, None]) | (pos[:, None] >= skv)
+        else:
+            row = pos.clamp(max=skv - 1)
+            valid = kpos <= pos[:, None]
+        row = row.long()
         ck[rows, row] = k[:, 0].to(ck.dtype)
         cv[rows, row] = v[:, 0].to(cv.dtype)
         ak, av = ck, cv
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-    valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]
     rep = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, q.shape[1], cfg.n_kv_heads, rep, cfg.hd)
     s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
@@ -425,7 +449,9 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
     table names; and a ``block_table`` (batch, max_len // page_size)
     int32 mapping each slot's page index to a pool page (-1 =
     unallocated).  ``page_size`` must divide ``max_len`` so the gathered
-    per-slot view keeps the dense reduction shape."""
+    per-slot view keeps the dense reduction shape.  A sliding-window
+    config gets a ring buffer of min(max_len, window) rows, and no paged
+    layout."""
     if page_size:
         assert not cfg.sliding_window, \
             "paged KV caches need absolute positions (no ring buffers)"
@@ -439,7 +465,9 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
                                           dtype=torch.int32, device=device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    shape = (batch, length, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -3,6 +3,11 @@
   dense / audio / vlm : N x (attn + FFN)   (training and prefill forward,
                                            chunked prefill and decode over
                                            a dense or paged KV cache)
+  moe                 : N x (attn + MoE-FFN)   (the MoE takes the FFN's
+                                           place: no ApproxFFN, no tick
+                                           router, no tick plan; with a
+                                           sliding window the KV cache is
+                                           a ring buffer)
   ssm (xLSTM)         : G x ((k-1) mLSTM + 1 sLSTM)   (k = ssm.slstm_every)
   hybrid (zamba2)     : G x (k Mamba2 + the SHARED attn/FFN block)  (k =
                         attn_every; one parameter set applied at every
@@ -18,8 +23,7 @@ are the reference's pytree keys with the stacked leaves split per layer
 co-training and the tick-router head's across-layer vote, with each block
 recomputed in the backward under ``cfg.remat``; ``lm_loss`` is the train
 step's loss.  Inputs are tokens (B, S), or embeddings (B, S, d) under
-``input_mode="embeddings"``.  The MoE family and sliding-window attention
-are not ported yet (ROADMAP queue 1, item 9c).
+``input_mode="embeddings"``.
 """
 from __future__ import annotations
 
@@ -33,20 +37,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import mamba2, xlstm
+from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
                                            approx_ffn_train, execute_plan,
                                            make_tick_plan)
 from repro_torch.runtime.dispatch import plan_invoke_stats
-
-
-def _check_supported(cfg: ModelConfig):
-    if cfg.moe.n_experts or cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE family (moe={cfg.moe.n_experts}) and "
-            f"sliding-window attention (sliding_window="
-            f"{cfg.sliding_window}) are not ported yet (ROADMAP queue 1, "
-            "item 9c)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +71,9 @@ class DenseBlock(nn.Module):
         self.ln1 = L.Norm(cfg, cfg.d_model, device)
         self.attn = L.Attention(cfg, device, gen)
         self.ln2 = L.Norm(cfg, cfg.d_model, device)
-        if cfg.approx.enable:
+        if cfg.moe.n_experts:
+            self.moe = moe.MoE(cfg, device, gen)
+        elif cfg.approx.enable:
             self.approx = ApproxFFN(cfg, device, gen)
         else:
             self.ffn = L.FFN(cfg, device, gen)
@@ -109,7 +106,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
-        _check_supported(cfg)
         topo = topology(cfg)
         self.embed = L.Embed(cfg, device, gen)
         self.ln_f = L.Norm(cfg, cfg.d_model, device)
@@ -135,7 +131,7 @@ class Model(nn.Module):
         else:
             self.blocks = nn.ModuleList(DenseBlock(cfg, device, gen)
                                         for _ in range(cfg.n_layers))
-        if cfg.approx.enable:
+        if cfg.approx.enable and not cfg.moe.n_experts:
             # tick-router head (route_scope="tick"), carried so that
             # conversion of a reference checkpoint is total
             self.tick_router = L.param(
@@ -182,6 +178,9 @@ def _dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, cache, *,
 def _ffn_part(cfg: ModelConfig, p: DenseBlock, xn, serve, row_mask=None,
               dispatch_plan=None, tier=None, tier_margins=None,
               residency=None):
+    if cfg.moe.n_experts:                # the MoE wins over the ApproxFFN
+        y, aux = moe.moe_fwd(cfg, p.moe, xn)
+        return y, aux, {}
     zero = torch.zeros((), dtype=torch.float32, device=xn.device)
     if not cfg.approx.enable:
         return L.ffn_fwd(cfg, p.ffn, xn), zero, {}
@@ -221,14 +220,15 @@ def _dispatch_metrics(st) -> dict:
 
 def _tick_plan(cfg: ModelConfig, params: Model, x, row_mask, serve: bool,
                tier=None, tier_margins=None, residency=None):
-    """The tick's dispatch plan under ``route_scope="tick"``, else None;
-    an unknown scope raises instead of routing per layer."""
+    """The tick's dispatch plan under ``route_scope="tick"``, else None
+    (an MoE model routes in its MoE, never by a tick plan); an unknown
+    scope raises instead of routing per layer."""
     if not (serve and cfg.approx.enable):
         return None
     if cfg.approx.route_scope not in ("layer", "tick"):
         raise ValueError(f"unknown route_scope: {cfg.approx.route_scope!r} "
                          "(expected 'layer' or 'tick')")
-    if cfg.approx.route_scope == "layer":
+    if cfg.approx.route_scope == "layer" or cfg.moe.n_experts:
         return None
     return make_tick_plan(cfg, params, x, row_mask, tier=tier,
                           tier_margins=tier_margins, residency=residency)
@@ -303,7 +303,9 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
     Returns (logits (B, S, V), cache-or-None, aux_loss, metrics).  With
     ``collect_cache`` the cache is the decode cache after S tokens, laid
     out as init_cache lays it out with max_len S (dense family: the
-    post-RoPE K/V of every layer; xLSTM: every block's final state;
+    post-RoPE K/V of every layer, or with a sliding window the ring
+    buffer of the last min(S, window) positions, which needs S to be a
+    multiple of it; xLSTM: every block's final state;
     hybrid: every Mamba2 block's final state and the shared block's K/V
     of every group), and ``pos = S``; ``pad_cache`` grows the K/V to
     decode room.  Dense and hybrid families: ``serve=True`` runs each
@@ -363,8 +365,16 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
             metrics = dict(metrics, tick_router_loss=tick_loss,
                            tick_router_acc=tick_acc)
         if collect_cache:
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                     "pos": pos_s}
+            ks, vs = torch.stack(ks), torch.stack(vs)
+            if cfg.sliding_window:
+                # the ring buffer after S tokens: the last w positions,
+                # position p at row p % w
+                w = min(s, cfg.sliding_window)
+                assert s % w == 0, \
+                    "ring-buffer alignment needs S % window == 0"
+                ks = ks[:, :, -w:].contiguous()
+                vs = vs[:, :, -w:].contiguous()
+            cache = {"k": ks, "v": vs, "pos": pos_s}
             if topo.kind == "hybrid":
                 cache["mamba"] = {"h": torch.stack([torch.stack(g)
                                                     for g in mstates])}
@@ -423,14 +433,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     and the sLSTM states (G, batch, ...), whatever ``max_len``.  Hybrid:
     the Mamba2 states ``mamba.h`` (G, P, batch, H, P_hd, N) and the shared
     block's k/v of every group (G, batch, max_len, Kh, hd).  All with
-    ``pos`` (batch,) int32."""
-    _check_supported(cfg)
+    ``pos`` (batch,) int32.  A sliding-window config's k/v are ring
+    buffers of min(max_len, window) rows, and take no paged layout."""
     dev = resolve_device(device)
     topo = topology(cfg)
     if page_size:
-        assert topo.kind == "uniform", (
-            f"paged KV caches need the uniform dense-attention family "
-            f"(got family={cfg.family!r})")
+        assert topo.kind == "uniform" and not cfg.sliding_window, (
+            "paged KV caches need the uniform dense-attention family "
+            f"(got family={cfg.family!r}, "
+            f"sliding_window={cfg.sliding_window})")
     if topo.kind == "xlstm":
         lead = {"mlstm": (topo.n_groups, topo.per_group),
                 "slstm": (topo.n_groups,)}
@@ -485,9 +496,10 @@ def reset_slot(cfg: ModelConfig, cache, fresh, slot: int):
 def pad_cache(cfg: ModelConfig, cache, max_len: int):
     """Grow a prefill-built cache's KV length (axis 2 of the dense and
     the hybrid family's k/v) to ``max_len`` (decode room), zero-filled.
-    No-op for an xLSTM cache and for a paged cache (a fixed pool: its
-    capacity is kv_pages, not a per-slot length)."""
-    if "k" not in cache or "block_table" in cache:
+    No-op for an xLSTM cache, a ring buffer (its length is the window)
+    and a paged cache (a fixed pool: its capacity is kv_pages, not a
+    per-slot length)."""
+    if "k" not in cache or cfg.sliding_window or "block_table" in cache:
         return cache
     pad = max_len - cache["k"].shape[2]
     if pad <= 0:
@@ -531,7 +543,10 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     ACTIVE slots: idle slots are excluded from the dispatch and its
     stats, and their ``pos`` holds.  A slot at or past the cache end
     decodes as in the reference (``layers.attention_fwd`` clamps its
-    write); nothing here reads ``pos`` on the host.
+    write; a sliding window's ring buffer wraps instead); nothing here
+    reads ``pos`` on the host.  An MoE model routes in each block's MoE
+    (no tick plan) and reports no metrics; its idle slots' rows still
+    compete for expert capacity, as in the reference.
     ``route_scope="tick"`` builds one DispatchPlan from the tick-router
     head above the layers and every layer executes against it.
 

@@ -50,7 +50,11 @@ with the sampled tokens and ``pos``.
 The server runs where its parameters live.  The xLSTM family has no KV
 cache and no ApproxFFN (``--mcma-dispatch`` runs report invocation rate
 0); the hybrid's KV cache holds the shared block's k/v of each group and
-its ApproxFFN is the shared block's.  The server feeds token ids, so an
+its ApproxFFN is the shared block's.  The MoE family serves its MoE in
+every block (``use_mcma_dispatch`` changes nothing there: no ApproxFFN,
+no invocation rate); a sliding-window model (mixtral-8x7b) keeps a
+ring buffer of the window and takes neither chunked prefill nor a paged
+cache.  The server feeds token ids, so an
 architecture that takes embeddings (``input_mode="embeddings"``) is
 refused.  ``mesh`` is not ported yet and raises ``NotImplementedError``
 naming ROADMAP queue 1, item 10.
@@ -228,8 +232,8 @@ class DecodeServer:
         self.admission, self.aging, self.overflow = \
             o.admission, float(o.aging), o.overflow
         # chunked prefill needs a positionally addressed KV cache; the
-        # xLSTM and hybrid families feed their prompts token by token
-        # whatever is asked
+        # xLSTM and hybrid families and sliding-window ring buffers feed
+        # their prompts token by token whatever is asked
         self.chunkable = M.topology(cfg).kind == "uniform" \
             and not cfg.sliding_window
         self.prefill_chunk = int(o.prefill_chunk) if self.chunkable else 0
@@ -244,7 +248,8 @@ class DecodeServer:
         if self.page_size:
             assert self.chunkable, (
                 "paged KV caches need the uniform dense-attention family "
-                f"(got family={cfg.family!r})")
+                f"(got family={cfg.family!r}, "
+                f"sliding_window={cfg.sliding_window})")
             assert self.max_len % self.page_size == 0, (
                 f"kv_page_size={self.page_size} must divide "
                 f"max_len={self.max_len}: the gathered page view must keep "

@@ -17,7 +17,13 @@ logits within 3e-5 of the reference's and ``pos`` exactly.  The same for
 olmo-1b smoke config in both packages; stablelm-1.6b through the
 scheduler (tick scope, chunked prefill, paged cache) with tokens, tick
 log and drain counters equal to the reference's server; olmo-1b's and
-zamba2's train states across the two packages' checkpoints.
+zamba2's train states across the two packages' checkpoints.  The MoE
+family: the prefill + decode check with the reference's no-drop
+capacity; mixtral-8x7b's ring buffer decoded 40 steps past its window
+(logits 3e-5, ``pos`` exactly); both MoE archs through the reference's
+server (moonshot chunked on a dense and a paged cache, mixtral token by
+token past the window) with equal tokens and drain counters; a paged
+cache refused on a ring buffer, as the reference refuses it.
 """
 import dataclasses
 
@@ -164,9 +170,20 @@ def test_forward_and_grads_match_jax(arch):
     _forward_and_grads(*_cfgs(arch))
 
 
+def _no_drop(cfg):
+    """The reference's override for its decode check (tests/test_archs.py):
+    capacity drops depend on how many tokens compete for an expert, which
+    differs between a full forward and a one-token decode, so every token
+    gets a slot."""
+    if not cfg.moe.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts) / cfg.moe.top_k))
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_decode_matches_forward_and_jax(arch):
-    _prefill_decode(*_cfgs(arch))
+    _prefill_decode(*map(_no_drop, _cfgs(arch)))
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -201,18 +218,69 @@ def test_conversion_is_total_for_every_arch():
     # 1-D leaves and ln_f are exempt, every Mamba2 leaf is decayed
     assert not mask["shared.ln1.scale"] and not mask["ln_f.scale"]
     assert mask["mamba.0.0.core.dt_bias"] and mask["shared.attn.wq"]
+    # the MoE takes the FFN's place, the ApproxFFN's too, and no
+    # tick-router head is built; every MoE leaf is decayed
+    mcfg = smoke_config(get_config("moonshot-v1-16b-a3b"))
+    mcfg = dataclasses.replace(mcfg, approx=dataclasses.replace(
+        mcfg.approx, enable=True))
+    mp = TM.init_model(0, mcfg, device="cpu")
+    mn = dict(mp.named_parameters())
+    assert {"blocks.1.moe.router", "blocks.1.moe.w_in", "blocks.1.moe.w_gate",
+            "blocks.1.moe.w_out"} <= mn.keys()
+    assert not [n for n in mn if "approx" in n or "tick_router" in n
+                or ".ffn." in n]
+    mask = decay_mask(mcfg, mp)
+    assert all(mask[n] for n in mn if ".moe." in n)
 
 
-def test_moe_archs_and_sliding_window_raise():
-    for arch in ("mixtral-8x7b", "moonshot-v1-16b-a3b"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_config(arch)
-    cfg = dataclasses.replace(smoke_config(get_config("olmo-1b")),
-                              sliding_window=32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_model(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_cache(cfg, 2, 16, device="cpu")
+def test_windowed_paged_cache_raises_as_the_reference():
+    """A ring buffer has no absolute positions: both packages refuse a
+    paged cache, and the port's server a page size, on mixtral-8x7b;
+    without pages the cache is a ring of min(max_len, window) rows."""
+    jcfg, tcfg = _cfgs("mixtral-8x7b")
+    assert tcfg.sliding_window == jcfg.sliding_window == 32
+    with pytest.raises(AssertionError, match="paged KV caches"):
+        JM.init_cache(jcfg, 2, 64, page_size=16, kv_pages=8)
+    with pytest.raises(AssertionError, match="paged KV caches"):
+        TM.init_cache(tcfg, 2, 64, page_size=16, kv_pages=8, device="cpu")
+    params = TM.init_model(0, tcfg, device="cpu")
+    with pytest.raises(AssertionError, match="paged KV caches"):
+        DecodeServer(tcfg, params, options=ServeOptions(
+            batch=2, max_len=64, kv_page_size=16))
+    for max_len in (16, 64):
+        got = TM.init_cache(tcfg, 2, max_len, device="cpu")["k"].shape
+        assert got == JM.init_cache(jcfg, 2, max_len)["k"].shape
+        assert got[2] == min(max_len, 32)
+
+
+def test_ring_buffer_decode_past_the_window_matches_jax():
+    """mixtral-8x7b's smoke config (window 32): a prefill of 64 keeps the
+    last 32 positions, then 40 decode steps wrap the ring past the
+    window; each step's logits within 3e-5 of the reference's decode and
+    ``pos`` exactly, the ring within 3e-5 of the reference's."""
+    jcfg, tcfg = _cfgs("mixtral-8x7b")
+    jp, tp = models(jcfg, tcfg, seed=7)
+    toks = inputs(tcfg, 8, B, S + 40)
+    with torch.no_grad():
+        _, cache, _, _ = TM.forward(tcfg, tp, torch.from_numpy(toks[:, :S]),
+                                    collect_cache=True)
+    _, jcache, _, _ = JM.forward(jcfg, jp, jnp.asarray(toks[:, :S]),
+                                 collect_cache=True)
+    assert cache["k"].shape[2] == 32
+    cache = TM.pad_cache(tcfg, cache, S + 40)          # a ring: no-op
+    assert cache["k"].shape[2] == 32
+    jdecode = jax.jit(lambda c, x: JM.decode(jcfg, jp, c, x, serve=False))
+    for i in range(40):
+        step = toks[:, S + i:S + i + 1]
+        with torch.no_grad():
+            got, cache = TM.decode(tcfg, tp, cache, torch.from_numpy(step),
+                                   serve=False)
+        want, jcache = jdecode(jcache, jnp.asarray(step))
+        _close(got, want, 3e-5, f"decode step {i}")
+        np.testing.assert_array_equal(cache["pos"].numpy(),
+                                      np.asarray(jcache["pos"]))
+    assert cache["pos"].tolist() == [S + 40] * B
+    _close(cache["k"], jcache["k"], 3e-5, "ring k")
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +336,67 @@ def test_stablelm_scheduler_matches_jax():
                                  tp, prompts, **over)
         assert [r.out for r in oreqs] == [r.out for r in treqs], over
         assert other.tick_log == ts.tick_log, over
+
+
+# ---------------------------------------------------------------------------
+# the MoE family through the server
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = {
+    # moonshot: chunked prefill; MCMA dispatch on, which serves the MoE
+    "moonshot-dense": ("moonshot-v1-16b-a3b", dict(kv_page_size=0)),
+    "moonshot-paged": ("moonshot-v1-16b-a3b", dict()),
+    # mixtral: the ring buffer feeds prompts token by token; prompt +
+    # max_new passes the 32-token window
+    "mixtral-ring": ("mixtral-8x7b", dict(
+        use_mcma_dispatch=False, kv_page_size=0, prefill_chunk=4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_SERVE))
+def test_moe_server_matches_jax(case):
+    """Each MoE smoke config through both packages' DecodeServer:
+    greedy tokens, TTFT ticks, drain counters and the tick log equal to
+    the reference's in float32 (idle slots' rows and padded chunk rows
+    compete for expert capacity in both)."""
+    arch, over = MOE_SERVE[case]
+    jcfg, tcfg = (dataclasses.replace(c, approx=dataclasses.replace(
+        c.approx, enable=True)) for c in _cfgs(arch))
+    jp, tp = models(jcfg, tcfg, seed=9)
+    rng = np.random.default_rng(10)
+    lens = (3, 9, 14, 25, 6, 21) if tcfg.sliding_window \
+        else (3, 9, 14, 5, 11, 6)
+    max_new = 12 if tcfg.sliding_window else 5
+    prompts = [rng.integers(1, tcfg.vocab, n).astype(np.int32)
+               for n in lens]
+    kw = dict(over, max_len=64)
+
+    def serve(cls, req_cls, opts_cls, cfg, params):
+        srv = cls(cfg, params, options=opts_cls(**{**SCHED, **kw}))
+        reqs = [req_cls(rid=i, prompt=p.copy(), max_new=max_new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        return srv, reqs, srv.run_until_drained(2000)
+    js, jreqs, jst = serve(JServer, JRequest, JOptions, jcfg, jp)
+    ts, treqs, tst = serve(DecodeServer, Request, ServeOptions, tcfg, tp)
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.done and not tr.aborted
+        assert tr.out == jr.out, (tr.rid, tr.out, jr.out)
+        assert (tr.arrival_tick, tr.first_token_tick) == \
+            (jr.arrival_tick, jr.first_token_tick)
+    for k in ("ticks", "prefill_ticks", "prefill_tokens", "pages_in_use",
+              "page_hwm", "alloc_failures", "kv_bytes_resident",
+              "invocation_rate", "dropped_rows", "undrained_queued",
+              "undrained_inflight"):
+        assert tst.get(k) == jst.get(k), (k, tst.get(k), jst.get(k))
+    assert [(p, n) for p, n, _ in ts.tick_log] == \
+        [(p, n) for p, n, _ in js.tick_log]
+    if tcfg.sliding_window:
+        assert tst["prefill_ticks"] == 0 and ts.cache["k"].shape[2] == 32
+        assert max(len(p) + max_new for p in prompts) > 32
+    else:
+        assert tst["prefill_ticks"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -114,12 +114,6 @@ def test_scheduler_serve_options_are_served(field):
 
 
 def test_unported_archs_and_qos_requests_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
-    # sliding-window attention comes with the MoE family
-    swa = dataclasses.replace(_cfg(), sliding_window=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        M.init_model(0, swa, device="cpu")
     cfg = _cfg()
     srv = DecodeServer(cfg, M.init_model(0, cfg, device="cpu"))
     # QoS is served now: a tiered request on a server without a tier
