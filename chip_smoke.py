@@ -58,6 +58,19 @@ Phases (any failure raises and the script exits non-zero):
      switch kernels against their PyTorch versions, timed in bf16, on
      plans of the top rung and of a ladder_from_counts rung and on stacks
      gathered from the library;
+  6b. [serve mesh full width]: the same model and stream served by a
+     DecodeServer on a (2, 2) ("data", "model") mesh: 4 ranks, one
+     process each, sharing the card over gloo (every collective of a
+     CUDA tensor staged through pinned host memory), on both kernel
+     backends: every rank launches its backend's kernel 24 times a tick;
+     tokens, drain stats and tick logs bitwise equal on every rank;
+     invocation in [0, 1]; ms per tick, collectives and host stagings
+     per tick printed, and the bf16 tokens' agreement with phase 5's
+     single-device run (not gated); then a float32 witness at full
+     widths cut to 2 layers, no-clip capacities: the mesh server's tokens
+     equal to the single-device server's and a chunk + decode step's
+     logits within 1e-4; then launch/serve.py --data 2 --model 2 (the
+     smoke config, its own 4 ranks);
   7. the internlm2 smoke config in float32 on the card against the same
      parameters served on the CPU by the eager oracle;
   8. full-width xlstm-1.3b (48 layers, bf16, random weights from a seed):
@@ -174,7 +187,8 @@ Phases (any failure raises and the script exits non-zero):
      forward(8192) at 4096..4103 against prefill(4096) + 8 decode steps
      (the ring wraps at the first) within 2e-3; no switch launch;
   21. a JSON line describing every kernel (the switch kernels'
-     launches_by_run with the runs of phases 10 to 12 and, for
+     launches_by_run with the runs of phases 6b and 10 to 12 (6b's
+     launches summed over its ranks, ``per_rank`` beside them) and, for
      switched_mlp, the two paper runs; their ``at_widths`` the d 2560
      and d 8192 timings of phase 12; the MoE phases launch none of the
      four), then the result line.
@@ -263,6 +277,15 @@ SWA = "mixtral-8x7b"
 SWA_LAYERS = 8
 SWA_RUN = dict(prefill=8192, decode=16)
 SWA_WITNESS = dict(n_layers=2, seq=8192, at=4096, decode=8)
+# [serve mesh full width]: a (data, model) mesh of ranks sharing the one
+# card over gloo; the float32 witness at full widths cut to 2 layers, its
+# logits from a (batch, seq) chunk then one decode step
+MESH_SHAPE = (2, 2)
+MESH_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
+MESH_LAUNCHER = ("--smoke", "--approx", "--mcma-dispatch", "--data", "2",
+                 "--model", "2", "--batch", "4", "--requests", "6",
+                 "--max-new", "6", "--route-scope", "tick",
+                 "--prefill-chunk", "16", "--kv-page-size", "16")
 
 
 def log(msg):
@@ -2835,6 +2858,175 @@ def swa_full_width(np, torch):
         f"{', '.join(f'{g:.3g}' for g in gaps)}) within 2e-3")
 
 
+def mesh_witness_logits(torch, cfg, params, mesh, toks):
+    """A (batch, seq) prompt through one chunk step and one decode step at
+    tick scope on a dense cache (on ``mesh`` under its serve context):
+    the decode step's logits, float32."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    kw = dict(use_mcma_dispatch=True, route_scope="tick", backend="pallas")
+    b, s = toks.shape
+    with S.serve_mesh_context(mesh):
+        cache = M.init_cache(cfg, b, 2 * s, device="cuda")
+        cache, _ = S.make_prefill_chunk_step(cfg, **kw)(
+            params, cache, toks[:, :-1],
+            torch.full((b,), s - 1, dtype=torch.int32, device="cuda"))
+        logits, _ = S.make_decode_step(cfg, **kw)(
+            params, cache, toks[:, -1:],
+            torch.ones(b, dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    return logits.float()
+
+
+def mesh_run(torch, np, cfg, params, prompts, backend, mesh):
+    """The scheduler's stream through a DecodeServer (on ``mesh`` when
+    given), the switch launches and the collectives counted from 0 after
+    the server is built: tokens, stats, tick log, launches, tick times."""
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    from repro_torch.sharding import collectives as C
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        **SCHED, use_mcma_dispatch=True, backend=backend, mesh=mesh))
+    torch.cuda.synchronize()
+    zero_switch()
+    C.reset_counts()
+    reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
+    stats = st.asdict()
+    stats.pop("wall_s")
+    return dict(tokens=[list(r.out) for r in reqs],
+                done=all(r.done and not r.aborted for r in reqs),
+                stats=stats, tick_log=list(srv.tick_log),
+                launches=switch_launches(), collectives=dict(C.COUNTS),
+                times=times, wall=wall)
+
+
+def mesh_rank(rank, out_dir):
+    """One rank of [serve mesh full width]: the bf16 stream on both
+    backends, then the float32 witness; its payload to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1])
+    cfg = approx_cfg("internlm2-1.8b")
+    prompts = stream_prompts(np, cfg)
+    out = {"coords": mesh.coords, "runs": {}}
+    for b in ("pallas", "pallas_fused"):
+        params = M.init_model(0, cfg, device="cuda")
+        out["runs"][b] = mesh_run(torch, np, cfg, params, prompts, b, mesh)
+        del params
+        release(torch)
+    w = MESH_WITNESS
+    cfg32 = dataclasses.replace(
+        approx_cfg("internlm2-1.8b", **NO_CLIP), n_layers=w["n_layers"],
+        param_dtype="float32", act_dtype="float32")
+    params = M.init_model(0, cfg32, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg32.vocab, (w["batch"], w["seq"])).astype(np.int32)).cuda()
+    single = mesh_run(torch, np, cfg32, params, prompts, "pallas", None)
+    single_logits = mesh_witness_logits(torch, cfg32, params, None, toks)
+    sharded = mesh_run(torch, np, cfg32, params, prompts, "pallas", mesh)
+    mesh_logits = mesh_witness_logits(torch, cfg32, params, mesh, toks)
+    out["witness"] = dict(
+        single=single["tokens"], mesh=sharded["tokens"],
+        done=single["done"] and sharded["done"],
+        max_abs=float((mesh_logits - single_logits).abs().max()),
+        finite=bool(torch.isfinite(mesh_logits).all()))
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def serve_mesh(np, torch, single_tokens):
+    """[serve mesh full width]: internlm2-1.8b uncut, bf16, served by a
+    DecodeServer on a (2, 2) ("data", "model") mesh of 4 ranks sharing the
+    card over gloo, on the scheduler's stream on both backends, then a
+    float32 witness at full widths cut to 2 layers, then the launcher
+    with ``--data 2 --model 2``.  Gates: each rank launches its backend's
+    kernel once a layer a tick; tokens, stats and tick logs bitwise equal
+    on every rank; invocation in [0, 1]; the witness's tokens equal to the
+    single-device server's and its logits within 1e-4.  The bf16 tokens
+    are compared with ``single_tokens`` (the single-device pallas run of
+    the scheduler phase), not gated.  Returns the kernels line's runs."""
+    from repro_torch.launch.mesh import spawn_world
+    cfg = approx_cfg("internlm2-1.8b")
+    ranks = MESH_SHAPE[0] * MESH_SHAPE[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(mesh_rank, ranks, (tmp,), backend="gloo")
+        log(f"  {ranks} ranks on a {MESH_SHAPE} mesh (gloo, one card) in "
+            f"{time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    strip = lambda run: {k: v for k, v in run.items()
+                         if k not in ("times", "wall")}
+    for r, p in enumerate(pay[1:], 1):
+        for b in p["runs"]:
+            if strip(p["runs"][b]) != strip(pay[0]["runs"][b]):
+                raise AssertionError(f"mesh: rank {r} disagrees with rank 0 "
+                                     f"on the {b} run")
+        if p["witness"] != pay[0]["witness"]:
+            raise AssertionError(f"mesh: rank {r}'s witness differs")
+    by_run = {}
+    for b, run in pay[0]["runs"].items():
+        ticks = run["stats"]["ticks"]
+        want = cfg.n_layers * ticks
+        launches = [p["runs"][b]["launches"] for p in pay]
+        inv = run["stats"]["invocation_rate"]
+        if not run["done"] or any(n != want for n in launches) \
+                or not 0.0 <= inv <= 1.0:
+            raise AssertionError(f"mesh {b}: done {run['done']}, launches "
+                                 f"per rank {launches} (want {want}), "
+                                 f"invocation {inv}")
+        agree = sum(x == y for a, c in zip(run["tokens"], single_tokens)
+                    for x, y in zip(a, c))
+        n_tok = sum(len(t) for t in run["tokens"])
+        med = {ph: statistics.median(v) if v else 0.0
+               for ph, v in run["times"].items()}
+        col = run["collectives"]
+        log(f"  {b}: {ticks} ticks ({run['stats']['prefill_ticks']} "
+            f"prefill); rank 0 ms per decode tick median {med['decode']:.2f},"
+            f" per prefill tick median {med['prefill']:.2f}; {n_tok} tokens "
+            f"in {run['wall']:.3f} s = {n_tok / run['wall']:.1f} tokens/s; "
+            f"invocation {inv:.4f}, served "
+            f"{run['stats']['served_invocation_rate']:.4f}; launches per "
+            f"rank {launches[0]} ({cfg.n_layers} a tick, every rank); per "
+            f"tick per rank {col['all_gather'] / ticks:.1f} all-gathers, "
+            f"{col['all_reduce'] / ticks:.1f} all-reduces, "
+            f"{col['staged'] / ticks:.1f} host stagings of "
+            f"{col['staged_bytes'] / ticks / 2**20:.1f} MiB; bf16 tokens "
+            f"equal to the single-device server's: {agree} of {n_tok} (not "
+            "gated); kv_bytes_resident "
+            f"{run['stats']['kv_bytes_resident']}")
+        by_run[b] = dict(run=f"mesh {MESH_SHAPE} {b}, all ranks",
+                         ticks=ticks, launches=sum(launches),
+                         per_rank=launches[0])
+    wit = pay[0]["witness"]
+    if not (wit["done"] and wit["finite"] and wit["mesh"] == wit["single"]
+            and wit["max_abs"] <= MESH_WITNESS["tol"]):
+        raise AssertionError(f"mesh float32 witness: tokens equal "
+                             f"{wit['mesh'] == wit['single']}, max |mesh - "
+                             f"single| logits {wit['max_abs']:.3g}")
+    log(f"  float32 witness ({MESH_WITNESS['n_layers']} layers at full "
+        f"width, no-clip): tokens equal to the single-device server's; "
+        f"decode logits within {wit['max_abs']:.3g} "
+        f"(<= {MESH_WITNESS['tol']})")
+    t0 = time.time()
+    src = str(Path(__file__).resolve().parent / "src")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *MESH_LAUNCHER], capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=src))
+    if r.returncode:
+        raise AssertionError(f"launch/serve.py on a mesh failed:\n"
+                             f"{r.stderr[-3000:]}")
+    for line in r.stdout.strip().splitlines():
+        log(f"  launcher: {line}")
+    log(f"  launch/serve.py {' '.join(MESH_LAUNCHER)}: "
+        f"{time.time() - t0:.1f} s")
+    return by_run
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2900,13 +3092,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[serve scheduler full width]")
-    serve_scheduler(np, torch)
+    # the single-device tokens the mesh phase compares with (the servers
+    # themselves are released)
+    sched_tokens = serve_scheduler(np, torch)["pallas"]["tokens"]
     torch.cuda.empty_cache()
 
     log("[serve qos library autotune full width]")
     t0 = time.time()
     feature_launches = serve_features(np, torch)
     torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[serve mesh full width]")
+    t0 = time.time()
+    release(torch)
+    mesh_runs = serve_mesh(np, torch, sched_tokens)
+    release(torch)
     log(f"  phase {time.time() - t0:.1f} s")
 
     log("[smoke reference]")
@@ -2995,7 +3196,8 @@ def main() -> int:
                             launches=results[b]["launches"])]
                    + feature_launches[b] for b in ("pallas", "pallas_fused")}
     for b in ("pallas", "pallas_fused"):
-        switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b]
+        switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b] \
+            + [mesh_runs[b]]
     switch_runs["pallas"] += arch_runs + paper_runs
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",

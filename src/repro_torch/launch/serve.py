@@ -25,6 +25,15 @@ and hybrid families and mixtral-8x7b always feed token by token).  With
 the per-tier ledger is printed; ``--library-size`` builds a library model and prints
 the swaps; ``--autotune`` prints the rung trajectory and the ladder the
 served counts suggest.
+
+Mesh deployments (``--data``/``--model``, the dense family): one process
+per rank serves the same requests SPMD (``DecodeServer(mesh=...)``:
+parameters and cache sharded by the rules, each data shard dispatching
+its own rows, tensor parallelism over "model").  Run outside a process
+group, the launcher spawns its ``data x model`` ranks itself (gloo on the
+CPU or when ranks share a card, NCCL when each has its own), having
+built the kernels once first; run inside one (``torchrun``), it serves as
+its rank.  Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -34,19 +43,53 @@ import dataclasses
 from repro_torch.runtime.cli import add_serve_options
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--approx", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--data", type=int, default=0,
+                    help="mesh data-axis size (0 = no mesh, one device)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="mesh model-axis size (with --data)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=16)
     add_serve_options(ap, batch=4, max_len=128)
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if not args.data:
+        return _serve(args)
+    assert args.batch % args.data == 0, \
+        "--batch must divide by --data for the sharded dispatch path"
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return _serve(args)
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import spawn_world
+    device = resolve_device(args.device)
+    world = args.data * args.model
+    backend = "gloo"
+    if device.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all(("switched_mlp", "fused_dispatch"))
+        if torch.cuda.device_count() >= world:
+            backend = "nccl"
+    spawn_world(_rank_main, world, (args,), backend=backend)
+
+
+def _rank_main(rank, args):
+    _serve(args)
+
+
+def _serve(args):
     import numpy as np
     import torch
 
@@ -57,11 +100,22 @@ def main(argv=None):
     from repro_torch.runtime.server import DecodeServer, Request
 
     device = resolve_device(args.device)
+    mesh, lead = None, True
+    if args.data:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_host_mesh
+        if device.type == "cuda":
+            device = torch.device("cuda", dist.get_rank()
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        mesh = make_host_mesh(data=args.data, model=args.model)
+        lead = dist.get_rank() == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    options = ServeOptions.from_args(args)
+    options = ServeOptions.from_args(args, mesh=mesh)
     if args.approx or options.use_mcma_dispatch:
         cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
             cfg.approx, enable=True,
@@ -69,6 +123,7 @@ def main(argv=None):
             if options.library else cfg.approx.library_size))
     params = M.init_model(args.seed, cfg, device=device)
     server = DecodeServer(cfg, params, options=options)
+    out = print if lead else (lambda *a, **k: None)
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
@@ -85,49 +140,52 @@ def main(argv=None):
     stats = server.run_until_drained()
     done = sum(r.done for r in reqs)
     toks = sum(len(r.out) for r in reqs)
-    print(f"served {done}/{len(reqs)} requests, {toks} tokens, "
+    out(f"served {done}/{len(reqs)} requests, {toks} tokens, "
           f"{stats['ticks']} ticks ({stats['prefill_ticks']} prefill, "
           f"chunk={server.prefill_chunk}) on {device}, "
           f"{stats['wall_s']:.1f}s "
           f"({toks / max(stats['wall_s'], 1e-9):.1f} tok/s aggregate)")
     if "page_hwm" in stats:
-        print(f"KV pages: high-water {stats['page_hwm']} of "
+        out(f"KV pages: high-water {stats['page_hwm']} of "
               f"{server.n_pages}, {stats['alloc_failures']} admission "
               f"deferrals, page_util {stats['page_util']:.3f}, "
               f"{stats['kv_bytes_resident']} B resident at peak")
+    if mesh is not None:
+        out(f"mesh: data={args.data} model={args.model} "
+            f"({mesh.backend}, {args.data * args.model} ranks)")
     if "invocation_rate" in stats:
-        print(f"mean invocation rate: {stats['invocation_rate']:.3f}")
+        out(f"mean invocation rate: {stats['invocation_rate']:.3f}")
     if "served_invocation_rate" in stats:
-        print(f"served invocation rate: {stats['served_invocation_rate']:.3f}"
+        out(f"served invocation rate: {stats['served_invocation_rate']:.3f}"
               f" (dropped {stats['dropped_rows']:.1f} rows,"
               f" frac {stats['dropped_frac']:.4f})")
     for p in stats.get("per_tier", ()):
-        print(f"tier {p['tier']} (bound {p['error_bound']:.3f}, margin "
+        out(f"tier {p['tier']} (bound {p['error_bound']:.3f}, margin "
               f"{p['margin']:+.2f}): {p['rows']:.0f} rows, routed "
               f"invocation {p['routed_invocation_rate']:.3f}, served "
               f"{p['served_invocation_rate']:.3f}, dropped_frac "
               f"{p['dropped_frac']:.4f}")
     if "residency" in stats:
         r = stats["residency"]
-        print(f"residency: final hot set {r['final_residency']} after "
+        out(f"residency: final hot set {r['final_residency']} after "
               f"{r['swap_count']} swaps (off-set exact rows "
               f"{stats['off_set_exact_rows']:.1f})")
         for s in r["swaps"]:
-            print(f"  tick {s['tick']}: slot {s['slot']} {s['demoted']} -> "
+            out(f"  tick {s['tick']}: slot {s['slot']} {s['demoted']} -> "
                   f"{s['promoted']} (EMA {s['cold_ema']:.3f} -> "
                   f"{s['hot_ema']:.3f})")
     if "autotune" in stats:
         a = stats["autotune"]
-        print(f"autotune: final rung {a['final_index']} "
+        out(f"autotune: final rung {a['final_index']} "
               f"{a['final_point']} after {len(a['switches'])} switches")
         for s in a["switches"]:
-            print(f"  tick {s['tick']}: rung {s['from_index']} -> "
+            out(f"  tick {s['tick']}: rung {s['from_index']} -> "
                   f"{s['to_index']} (drop EMA {s['drop_ema']:.4f})")
         if server.routed_history:
-            print("ladder_from_counts (the served class-count quantiles "
+            out("ladder_from_counts (the served class-count quantiles "
                   "as per-class rungs for the next deployment):")
             for pt in server.derived_ladder():
-                print(f"  exact_frac={pt.exact_frac:.3f} invoke_fracs="
+                out(f"  exact_frac={pt.exact_frac:.3f} invoke_fracs="
                       f"{tuple(round(f, 3) for f in pt.invoke_fracs)}")
     if done != len(reqs):
         raise RuntimeError(f"server failed to drain: {done}/{len(reqs)}")

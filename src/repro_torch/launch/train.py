@@ -7,7 +7,7 @@ Drives the ``Trainer`` on one device: the GPU unless ``--device cpu`` is
 given.  ``--smoke`` selects the reduced config; ``--approx`` enables the
 MCMA ApproxFFN layer (with its tick-router head; an MoE architecture
 trains its MoE instead).  The port trains every architecture that reads
-tokens; ``--mesh`` comes with ROADMAP queue 1, item 10.
+tokens; ``--mesh`` comes with ROADMAP queue 1, item 14.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ def main(argv=None):
             cfg.approx, enable=True))
     if args.mesh:
         raise NotImplementedError("--mesh: a training mesh is not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
+                                  "yet (ROADMAP queue 1, item 14)")
 
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                      global_batch=args.batch, seed=args.seed)

@@ -22,10 +22,24 @@ co-training: the exact FFN runs on every token (the teacher, and the
 layer's output), every approximator runs on every token, each token's
 label is the approximator of least relative L2 error when that error is
 within ``error_bound`` and class 0 (exact) otherwise, the router trains on
-those labels and each approximator distils its own territory.  The sharded
-serve path is not ported yet (ROADMAP queue 1, item 10).
+those labels and each approximator distils its own territory.
+
+On a mesh (inside ``runtime/steps.serve_mesh_context``) the serve path is
+one rank's part of the SPMD program (models/model.py): ``x`` holds the
+rank's data shard of the rows, replicated over "model".  Each data shard
+classifies, capacities, class-sorts and weight-switches its OWN rows
+through the same engine, at per-shard capacities (``serve_caps`` of the
+local row count), with no dispatch traffic between shards; the
+approximators and routers are replicated and run locally; the exact FFN
+runs Megatron-TP over "model" with one all-reduce a call
+(layers.ffn_fwd: the weights' data-sharded dims gathered at use); and
+the invoke stats are all-reduced over the data axes to global totals,
+once a plan, so every rank reports the same.  ``_manual_serve_ctx`` is
+the predicate under which that path serves.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -36,7 +50,8 @@ from repro_torch.kernels.ops import LANE, _pad_to, gather_resident_stacks
 from repro_torch.models.layers import FFN, ffn_fwd, param
 from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
                                           mcma_dispatch, plan_invoke_stats)
-from repro_torch.sharding.rules import shard_capacity
+from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.rules import dp_axes, shard_capacity
 
 
 class ApproxFFN(nn.Module):
@@ -140,6 +155,27 @@ def approx_ffn_train(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor):
     return exact.reshape(b, s, d), aux
 
 
+def _manual_serve_ctx(cfg: ModelConfig, b: int, mesh):
+    """(mesh, dp, n_data_shards) when the sharded serve path engages for
+    a GLOBAL batch of ``b`` rows on ``mesh``, else (None, (), 1): the
+    reference's predicate, ``b`` divides over the data axes and ``d_ff``
+    over "model"."""
+    if "model" not in mesh.axis_names:
+        return None, (), 1
+    dp = dp_axes(mesh)
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    g = math.prod(sizes[ax] for ax in dp)
+    if b % g == 0 and cfg.d_ff % sizes["model"] == 0:
+        return mesh, dp, g
+    return None, (), 1
+
+
+def _stats_axes() -> tuple:
+    """The axes a plan's stats are all-reduced over: the data axes inside
+    a serve mesh context, none outside."""
+    return manual_dp_context()[1]
+
+
 def serve_caps(cfg: ModelConfig, t_local: int):
     """(exact_cap, invoke_cap) for ``t_local`` rows — the one place the
     config's capacity fractions become row budgets (``invoke_cap`` is a
@@ -198,8 +234,9 @@ def make_tick_plan(cfg: ModelConfig, params, x: torch.Tensor,
     each slot at its own error-bound tier, and the plan carries the
     per-tier split.  ``residency`` ((n_resident,) int32 library ids) folds
     the library-wide head's routing onto the resident slots; every layer
-    then executes against stacks gathered with the same vector.  The
-    reference's mesh branch comes with ROADMAP queue 1, item 10."""
+    then executes against stacks gathered with the same vector.  On a mesh
+    the plan is the rank's data shard's, at per-shard capacities, with its
+    counts all-reduced to global totals (module docstring)."""
     a = cfg.approx
     b, s, d = x.shape
     t = b * s
@@ -213,8 +250,8 @@ def make_tick_plan(cfg: ModelConfig, params, x: torch.Tensor,
     ec, ic = serve_caps(cfg, t)
     return make_dispatch_plan(
         logits, _row_mask_tokens(row_mask, s), exact_cap=ec, invoke_cap=ic,
-        backend=a.backend, block_t=a.block_t, tier=tr,
-        tier_margins=tier_margins, residency=residency)
+        backend=a.backend, block_t=a.block_t, stats_axes=_stats_axes(),
+        tier=tr, tier_margins=tier_margins, residency=residency)
 
 
 def execute_plan(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor, plan,
@@ -269,7 +306,7 @@ def approx_ffn_serve(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor,
     out, stats = mcma_dispatch(
         xt, logits, lambda xb: ffn_fwd(cfg, p.ffn, xb),
         p.a_w1, p.a_b1, p.a_w2, p.a_b2, exact_cap=ec, invoke_cap=ic,
-        backend=a.backend, block_t=a.block_t,
+        backend=a.backend, block_t=a.block_t, stats_axes=_stats_axes(),
         row_mask=_row_mask_tokens(row_mask, s), weights_prepadded=True,
         tier=tr, tier_margins=tier_margins, residency=residency)
     return out.reshape(b, s, d), _aux(stats, x.device)

@@ -17,14 +17,39 @@ fan-in, norms to one).  The ``*_fwd`` functions apply them.
 Attention is plain PyTorch, as it is plain JAX in the reference: the
 same einsums, the f32 scores, the ``-1e30`` mask and the softmax weights
 cast to the value dtype.
+
+On a mesh (inside ``runtime/steps.serve_mesh_context``, one process per
+rank) each rank holds its block of every weight as
+``sharding/rules.param_pspecs`` places it, and its data shard's rows of
+the activations, replicated over "model".  The layers then run
+tensor-parallel over "model" where the rules shard: attention
+head-parallel (``wq``/``wk``/``wv`` column-parallel, each rank's head
+counts read off its local widths, GQA's contiguous split keeping q head
+``h`` with kv head ``h // rep``; ``wo`` row-parallel and one all-reduce),
+the FFN as Megatron column and row (one all-reduce), the token table
+vocab-parallel (a masked local lookup and one all-reduce) and the output
+projection vocab-parallel (the logits all-gathered over "model").  The
+weights' data-sharded dims are all-gathered at use (FSDP
+unshard-on-use, ``sharding/collectives.unshard``).  The KV cache holds
+this rank's rows and kv heads; a paged pool is whole on every data shard
+(the rules replicate pages over data) and needs no traffic between
+shards: each slot's block-table row routes its reads to its own pages,
+so a page that another shard's slot writes is never read here, and each
+data rank writes only its own slots' pages.
 """
 from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context
 
 
 def param(shape, dtype, device, gen=None, scale=None, fill=None):
@@ -115,17 +140,39 @@ class Embed(nn.Module):
                                  device, gen, 0.02)
 
 
+def _mesh():
+    """The mesh of the enclosing serve context, or None."""
+    return manual_dp_context()[0]
+
+
 def embed_fwd(cfg: ModelConfig, p: Embed, inputs: torch.Tensor):
     """Tokens (B, S), or under ``input_mode="embeddings"`` precomputed
-    embeddings (B, S, d) taken as they are, in the activation dtype."""
+    embeddings (B, S, d) taken as they are, in the activation dtype.  On
+    a mesh with the table's vocab over "model": each rank looks up the
+    ids in its vocab block (zeros elsewhere) and one all-reduce adds the
+    blocks; one term per token is nonzero, so the sum is exact."""
     if cfg.input_mode == "embeddings":
         return inputs.to(cfg.adtype)
-    return p.tok[inputs.long()].to(cfg.adtype)
+    mesh, tok = _mesh(), p.tok
+    if mesh is None or tok.shape[0] == cfg.vocab:
+        return tok[inputs.long()].to(cfg.adtype)
+    v_l = tok.shape[0]
+    ids = inputs.long() - C.model_index(mesh) * v_l
+    ok = (ids >= 0) & (ids < v_l)
+    e = torch.where(ok[..., None], tok[ids.clamp(0, v_l - 1)],
+                    torch.zeros((), dtype=tok.dtype, device=tok.device))
+    return C.all_reduce_sum(e, "model").to(cfg.adtype)
 
 
 def unembed_fwd(cfg: ModelConfig, p: Embed, x: torch.Tensor):
+    """Logits (..., vocab); on a mesh with the vocab over "model" each
+    rank computes its vocab block and the blocks are all-gathered."""
     w = p.tok.T if cfg.tie_embeddings else p.unembed
-    return x @ w.to(x.dtype)
+    y = x @ w.to(x.dtype)
+    mesh = _mesh()
+    if mesh is not None and y.shape[-1] != cfg.vocab:
+        y = C.all_gather(y, "model", dim=-1)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +195,28 @@ class FFN(nn.Module):
             self.w_gate = param((d, f), cfg.pdtype, device, gen, s_in)
 
 
-def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, w_in, w_gate, w_out, x):
     act = _ACT[cfg.act if cfg.act != "swiglu" else "silu"]
-    h = x @ p.w_in.to(x.dtype)
+    h = x @ w_in.to(x.dtype)
     if cfg.gated_ffn:
-        h = act(x @ p.w_gate.to(x.dtype)) * h
+        h = act(x @ w_gate.to(x.dtype)) * h
     else:
         h = act(h)
-    return h @ p.w_out.to(x.dtype)
+    return h @ w_out.to(x.dtype)
+
+
+def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
+    """The FFN.  On a mesh, Megatron-TP: d_ff sharded over "model" (the
+    activation is elementwise, so each rank's d_ff block is its own), the
+    data-sharded dims gathered at use, one all-reduce over "model"."""
+    w_gate = p.w_gate if cfg.gated_ffn else None
+    if _mesh() is None:
+        return _ffn(cfg, p.w_in, w_gate, p.w_out, x)
+    if cfg.gated_ffn:
+        w_in, w_gate, w_out = C.unshard(p.w_in, p.w_gate, p.w_out)
+    else:
+        w_in, w_out = C.unshard(p.w_in, p.w_out)
+    return C.all_reduce_sum(_ffn(cfg, w_in, w_gate, w_out, x), "model")
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +240,37 @@ class Attention(nn.Module):
             self.bv = param((nkv * hd,), cfg.pdtype, device, fill=0.0)
 
 
-def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+# one attention layer's weights as the forward uses them: the module's
+# own, or on a mesh this rank's head block (biases sliced to match)
+_AttnW = collections.namedtuple("_AttnW", "wq wk wv wo bq bk bv")
+
+
+@functools.lru_cache(maxsize=None)
+def _head_cfg(cfg: ModelConfig, n_heads: int, n_kv_heads: int):
+    """``cfg`` with a rank's local head counts (head_dim pinned)."""
+    return dataclasses.replace(cfg, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                               head_dim=cfg.hd)
+
+
+def _attn_weights(cfg: ModelConfig, p: Attention, mesh):
+    """(cfg with this rank's head counts, its ``_AttnW``).  On a mesh the
+    projections' data-sharded dims are gathered (one collective) and the
+    replicated qkv biases sliced to the rank's columns."""
+    bias = [getattr(p, n, None) for n in ("bq", "bk", "bv")]
+    if mesh is None:
+        return cfg, _AttnW(p.wq, p.wk, p.wv, p.wo, *bias)
+    wq, wk, wv, wo = C.unshard(p.wq, p.wk, p.wv, p.wo)
+    m = C.model_index(mesh)
+
+    def local(b, w):
+        n = w.shape[1]
+        return b if b is None or b.shape[0] == n else b[m * n:(m + 1) * n]
+    bias = [local(b, w) for b, w in zip(bias, (wq, wk, wv))]
+    return (_head_cfg(cfg, wq.shape[1] // cfg.hd, wk.shape[1] // cfg.hd),
+            _AttnW(wq, wk, wv, wo, *bias))
+
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
     """The projections, the biases (``qkv_bias``) added before the head
     reshape."""
     b, s, _ = x.shape
@@ -380,7 +471,20 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     ``pos % Skv`` (it wraps, never clamps) and attends to rows ``<= pos %
     Skv`` until the ring has filled (``pos >= Skv``), then to every row.
     Ring buffers take neither a paged cache nor chunked prefill (their
-    prompts go token by token), as in the reference."""
+    prompts go token by token), as in the reference.
+
+    On a mesh (module docstring) the rank attends over its own heads
+    against its own cache rows and heads, and the output projection's
+    partial sums are all-reduced over "model"."""
+    mesh = _mesh()
+    cfg, w = _attn_weights(cfg, p, mesh)
+    out, new_cache = _attention(cfg, w, x, positions, cache)
+    if mesh is not None:
+        out = C.all_reduce_sum(out, "model")
+    return out, new_cache
+
+
+def _attention(cfg: ModelConfig, p, x, positions, cache):
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(cfg, q, positions)

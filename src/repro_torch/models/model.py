@@ -24,6 +24,17 @@ co-training and the tick-router head's across-layer vote, with each block
 recomputed in the backward under ``cfg.remat``; ``lm_loss`` is the train
 step's loss.  Inputs are tokens (B, S), or embeddings (B, S, d) under
 ``input_mode="embeddings"``.
+
+On a mesh (inside ``runtime/steps.serve_mesh_context``) ``decode`` and
+``decode_chunk`` are one rank's part of an SPMD program: they take the
+GLOBAL batch's inputs, run the layers on the rank's data shard of the
+rows (layers.py: tensor-parallel over "model") against its shard of the
+cache, and return the global logits and the global (all-reduced)
+dispatch metrics, the same on every rank.  ``init_cache`` then builds the
+rank's shard of the cache and ``reset_slot`` resets a global slot where
+this rank holds it.  ``pos`` stays whole on every rank (the rules
+replicate it).  The dense family serves on a mesh; the others raise
+(``check_mesh_servable``).
 """
 from __future__ import annotations
 
@@ -41,7 +52,11 @@ from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
                                            approx_ffn_train, execute_plan,
                                            make_tick_plan)
+from repro_torch.models.approx_ffn import _manual_serve_ctx
 from repro_torch.runtime.dispatch import plan_invoke_stats
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.rules import cache_pspecs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,11 +260,12 @@ def _step_metrics(plan, per_layer: list) -> dict:
             for k in per_layer[0]}
 
 
-def _layer_cache(cache, i: int, **extra) -> dict:
+def _layer_cache(cache, i: int, pos=None, **extra) -> dict:
     """Layer ``i``'s view of a stacked dense or paged KV cache (the one
-    block table serves every layer)."""
-    lc = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"],
-          **extra}
+    block table serves every layer); ``pos`` overrides the cache's (a
+    mesh rank's rows)."""
+    lc = {"k": cache["k"][i], "v": cache["v"][i],
+          "pos": cache["pos"] if pos is None else pos, **extra}
     if "block_table" in cache:
         lc["block_table"] = cache["block_table"]
     return lc
@@ -461,7 +477,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         h = mamba2.init_mamba_state(cfg, batch, dev)["h"]
         c["mamba"] = {"h": h.expand(topo.n_groups, topo.per_group,
                                     *h.shape).clone()}
-    return c
+    mesh, _ = manual_dp_context()
+    return c if mesh is None else shard_cache(mesh, c)
+
+
+def shard_cache(mesh, cache: dict) -> dict:
+    """This rank's shard of a cache, as ``sharding/rules.cache_pspecs``
+    places it (rows over data, kv heads over model; ``pos`` and a paged
+    pool's pages whole)."""
+    def walk(tree, specs):
+        return {k: walk(v, specs[k]) if isinstance(v, dict)
+                else C.shard_tensor(mesh, v, specs[k])
+                for k, v in tree.items()}
+    return walk(cache, cache_pspecs(mesh, cache))
+
+
+def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
+    """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: the
+    dense family, with the batch dividing over the data axes and d_ff,
+    the attention heads and the kv heads dividing over "model" (the
+    sharded serve path's predicate, ``approx_ffn._manual_serve_ctx``).
+    Where it fails the reference falls back to compiler-placed sharding;
+    the port has no such fallback (ROADMAP queue 3)."""
+    topo = topology(cfg)
+    if topo.kind != "uniform" or cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family} family) does not serve on a mesh "
+            "yet: ROADMAP queue 1, item 15 (the mesh for the MoE, hybrid "
+            "and xLSTM families)")
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    md = sizes.get("model", 1)
+    ok = _manual_serve_ctx(cfg, batch, mesh)[0] is not None \
+        and cfg.n_heads % md == 0 and cfg.n_kv_heads % md == 0
+    if not ok:
+        raise NotImplementedError(
+            f"mesh {dict(sizes)} does not divide the sharded serve path of "
+            f"{cfg.name} at batch {batch} (batch over the data axes, "
+            f"d_ff={cfg.d_ff}, {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
+            "heads over model): the reference falls back to "
+            "compiler-placed sharding there, the port refuses (ROADMAP "
+            "queue 3, layout departures)")
+
+
+def _local(rows, *tensors):
+    """Each tensor's ``rows`` (None stays None)."""
+    return tuple(None if t is None else t[rows] for t in tensors)
+
+
+def _mesh_rows(cfg: ModelConfig, b: int):
+    """(mesh, dp, this rank's rows of a ``b``-row batch) inside a serve
+    mesh context, else (None, (), every row)."""
+    mesh, dp = manual_dp_context()
+    if mesh is None:
+        return None, (), slice(None)
+    check_mesh_servable(cfg, mesh, b)
+    return mesh, dp, C.local_rows(mesh, dp, b)
 
 
 def _batch_dim(head: str, paged: bool = False):
@@ -479,16 +549,26 @@ def reset_slot(cfg: ModelConfig, cache, fresh, slot: int):
     from init_cache), IN PLACE, and return the cache.  Paged caches: the
     pools are shared by every slot (freeing pages is the server
     allocator's job), so only the slot's block-table row (back to -1)
-    and ``pos`` (back to 0) reset."""
+    and ``pos`` (back to 0) reset.  On a mesh ``slot`` is a global slot:
+    the whole ``pos`` resets it on every rank, a row-sharded leaf only on
+    the data shard that holds it (at its local row)."""
     paged = "block_table" in cache
+    mesh, dp = manual_dp_context()
+    batch = cache["pos"].shape[0]
     for head, leaf in cache.items():
         d = _batch_dim(head, paged)
         if d is None:
             continue
-        idx = (slice(None),) * d + (slot,)
         pairs = ((leaf[k], fresh[head][k]) for k in leaf) \
             if isinstance(leaf, dict) else ((leaf, fresh[head]),)
         for a, f in pairs:
+            i = slot
+            if mesh is not None and a.shape[d] != batch:
+                rows = C.local_rows(mesh, dp, batch)
+                if not rows.start <= slot < rows.stop:
+                    continue                  # another data shard's slot
+                i = slot - rows.start
+            idx = (slice(None),) * d + (i,)
             a[idx] = f[idx]
     return cache
 
@@ -565,9 +645,16 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     every application of the shared block, whose k/v are those of the
     group (``cache["k"][g]``); ``row_mask`` excludes idle slots from the
     dispatch, but every slot's ``pos`` advances by 1 and every slot's
-    Mamba2 state steps (a recycled slot is reset on admission)."""
+    Mamba2 state steps (a recycled slot is reset on admission).
+
+    On a mesh: the rank's rows of the inputs, the mask and the tiers run
+    through the layers, and the logits come back all-gathered (module
+    docstring)."""
+    pos_all, row_mask_all = cache["pos"], row_mask
+    mesh, dp, rows = _mesh_rows(cfg, inputs.shape[0])
+    inputs, row_mask, tier = _local(rows, inputs, row_mask, tier)
     x = L.embed_fwd(cfg, params.embed, inputs)
-    pos = cache["pos"]
+    pos = pos_all[rows]
     per_layer, plan = [], None
     kind = topology(cfg).kind
     if kind == "xlstm":
@@ -589,16 +676,19 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
                 x, new = _mamba_block(cfg, mblk, x, {"h": mh[i, j]})
                 mh[i, j] = new["h"]
             x, _, _, m = _dense_block(cfg, blk, x, positions,
-                                      _layer_cache(cache, i), serve=serve,
-                                      row_mask=row_mask, dispatch_plan=plan,
-                                      tier=tier, tier_margins=tier_margins,
+                                      _layer_cache(cache, i, pos),
+                                      serve=serve, row_mask=row_mask,
+                                      dispatch_plan=plan, tier=tier,
+                                      tier_margins=tier_margins,
                                       residency=residency)
             per_layer.append(m)
-        adv = 1 if row_mask is None or kind == "hybrid" \
-            else row_mask.to(torch.int32)
-        cache["pos"] = (pos + adv).to(torch.int32)
+        adv = 1 if row_mask_all is None or kind == "hybrid" \
+            else row_mask_all.to(torch.int32)
+        cache["pos"] = (pos_all + adv).to(torch.int32)
     x = L.norm_fwd(cfg, params.ln_f, x)
     logits = L.unembed_fwd(cfg, params.embed, x)[:, 0]
+    if mesh is not None:
+        logits = C.all_gather(logits, dp, 0)
     if not collect_metrics:
         return logits, cache
     return logits, cache, _step_metrics(plan, per_layer)
@@ -631,11 +721,14 @@ def decode_chunk(cfg: ModelConfig, params: Model, cache,
         "decode_chunk needs the uniform family with a dense KV cache " \
         f"(got family={cfg.family!r}, sliding_window={cfg.sliding_window})"
     s = tokens.shape[1]
+    n_valid_all = n_valid.to(torch.int32)
+    _, _, rows = _mesh_rows(cfg, tokens.shape[0])
+    tokens, row_mask, tier = _local(rows, tokens, row_mask, tier)
     x = L.embed_fwd(cfg, params.embed, tokens)
-    pos = cache["pos"]
+    pos = cache["pos"][rows]
     off = torch.arange(s, device=x.device)
     positions = pos[:, None] + off[None, :]                    # (B, S)
-    n_valid = n_valid.to(torch.int32)
+    n_valid = n_valid_all[rows]
     tok_mask = off[None, :] < n_valid[:, None]
     if row_mask is not None:
         tok_mask = tok_mask & row_mask.to(torch.bool)[:, None]
@@ -646,11 +739,12 @@ def decode_chunk(cfg: ModelConfig, params: Model, cache,
     per_layer = []
     for i, blk in enumerate(params.blocks):
         x, _, _, m = _dense_block(cfg, blk, x, positions,
-                                  _layer_cache(cache, i, n_valid=n_valid),
+                                  _layer_cache(cache, i, pos,
+                                               n_valid=n_valid),
                                   serve=serve, row_mask=tok_mask,
                                   dispatch_plan=plan, tier=tier,
                                   tier_margins=tier_margins,
                                   residency=residency)
         per_layer.append(m)
-    cache["pos"] = (pos + n_valid).to(torch.int32)
+    cache["pos"] = (cache["pos"] + n_valid_all).to(torch.int32)
     return cache, (_step_metrics(plan, per_layer) if collect_metrics else {})

@@ -19,7 +19,7 @@ in that order, so no atomic adds reorder the sum from call to call.
 The aux load-balancing loss is Switch/GShard's, E * sum_e(f_e * p_e).
 
 The mesh branch (``_moe_fwd_manual``, ``_moe_local_experts``) comes with
-the multi-device slice (ROADMAP queue 1, item 10); on one device
+the MoE family's mesh (ROADMAP queue 1, item 15); on one device
 ``_moe_local_experts`` over all E experts is ``_moe_group``.
 """
 from __future__ import annotations

@@ -18,8 +18,14 @@ Backends (``backend=``): "pallas" runs the switched CUDA kernel,
 equal to "pallas"), and "xla" the eager per-class loop, the oracle both
 kernels are held to.  Every plan and stat tensor is int32, as in the
 reference, and building a plan never waits for the device.
-``mcma_dispatch_sharded`` waits for the multi-device slice (ROADMAP
-queue 1, item 10).
+
+On a mesh (one process per rank, ``launch/mesh.HostMesh``) each data
+shard classifies, capacities, class-sorts and weight-switches its OWN
+rows, with no dispatch traffic between shards; with ``stats_axes`` the
+count fields are all-reduced over those axes
+(``sharding/collectives.all_reduce_sum``, one collective a plan), so
+every rank reports the GLOBAL totals.  ``mcma_dispatch_sharded`` runs the
+engine that way on a global row batch.
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.sharding.rules import shard_capacity
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import activation_sharding
+from repro_torch.sharding.rules import P, dp_axes, shard_capacity
 
 PALLAS_BACKENDS = ("pallas", "pallas_fused")
 DISPATCH_BACKENDS = ("xla",) + PALLAS_BACKENDS
@@ -187,6 +195,7 @@ def make_dispatch_plan(logits: torch.Tensor,
                        exact_cap: int | None = None, invoke_cap=None,
                        operating_point=None, backend: str = "xla",
                        block_t: int = 128,
+                       stats_axes: tuple = (),
                        tier: torch.Tensor | None = None,
                        tier_margins: torch.Tensor | None = None,
                        n_tiers: int | None = None,
@@ -201,7 +210,11 @@ def make_dispatch_plan(logits: torch.Tensor,
     slack; its ``invoke_fracs`` give the per-class form).
     ``tier``/``tier_margins`` apply per-row QoS margins and split the
     counts per tier; ``residency`` ((n_resident,) library ids) folds
-    full-library routing onto resident slots.
+    full-library routing onto resident slots.  ``stats_axes`` (mesh axis
+    names, inside a mesh context): the count fields (``t_total``,
+    ``counts``, ``dispatched``, ``executed``, the tier matrices and, with
+    a residency, ``lib_counts`` and ``off_set_rows``) are all-reduced to
+    global totals, in one collective; the row fields stay shard-local.
     """
     if backend not in DISPATCH_BACKENDS:
         raise ValueError(f"unknown dispatch backend: {backend!r}")
@@ -301,6 +314,12 @@ def make_dispatch_plan(logits: torch.Tensor,
     else:
         executed = exact_cap + sum(class_caps)
     executed = torch.full((), executed, dtype=_I32, device=dev)
+    if stats_axes:
+        counts, dispatched, t_total, executed, tier_counts, \
+            tier_dispatched, lib_counts, off_set_rows = _all_reduce_stats(
+                tuple(stats_axes), counts, dispatched, t_total, executed,
+                tier_counts, tier_dispatched, lib_counts, off_set_rows,
+                residency is not None)
     return DispatchPlan(cls=cls, rank=rank, eff=eff, order=order, pos=pos,
                         tile_cls=tile_cls, exact_keep=exact_keep,
                         exact_slot=exact_slot, counts=counts,
@@ -313,6 +332,25 @@ def make_dispatch_plan(logits: torch.Tensor,
                         invoke_cap=invoke_cap, block_t=block_t,
                         backend=backend, n_tiers=nt,
                         library_size=library_size)
+
+
+def _all_reduce_stats(axes, counts, dispatched, t_total, executed,
+                      tier_counts, tier_dispatched, lib_counts, off_set_rows,
+                      library: bool):
+    """A plan's count fields summed over ``axes``: packed into one int32
+    vector, one all-reduce, unpacked.  Each is a sum of per-shard terms,
+    so the totals equal the per-shard runs' summed exactly.  Without a
+    residency ``lib_counts`` stays aliased to the reduced ``counts``."""
+    parts = [counts, dispatched, t_total, executed, tier_counts,
+             tier_dispatched] + ([lib_counts, off_set_rows] if library else [])
+    flat = C.all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]), axes)
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    if not library:
+        out += [out[0], off_set_rows]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -449,6 +487,7 @@ def mcma_dispatch(x: torch.Tensor, logits: torch.Tensor,
                   exact_fn: Callable[[torch.Tensor], torch.Tensor],
                   a_w1, a_b1, a_w2, a_b2, *, exact_cap: int, invoke_cap,
                   backend: str = "xla", block_t: int = 128,
+                  stats_axes: tuple = (),
                   row_mask: torch.Tensor | None = None,
                   weights_prepadded: bool = False,
                   tier: torch.Tensor | None = None,
@@ -456,6 +495,8 @@ def mcma_dispatch(x: torch.Tensor, logits: torch.Tensor,
                   residency: torch.Tensor | None = None):
     """Full MCMA invocation pipeline over a flat row batch:
     ``make_dispatch_plan`` + ``execute_dispatch`` + ``plan_invoke_stats``.
+    ``stats_axes``: on a mesh, the axes the stats are all-reduced over
+    (the compute stays this shard's own).
 
     x: (T, d); logits: (T, n_approx+1) router scores (class 0 = exact);
     exact_fn: (cap, d) -> (cap, d_out) on the gathered class-0 buffer;
@@ -476,9 +517,49 @@ def mcma_dispatch(x: torch.Tensor, logits: torch.Tensor,
         f"router width {logits.shape[-1]} != n_approx + 1 = {n + 1}")
     plan = make_dispatch_plan(logits, row_mask, exact_cap=exact_cap,
                               invoke_cap=invoke_cap, backend=backend,
-                              block_t=block_t, tier=tier,
-                              tier_margins=tier_margins,
+                              block_t=block_t, stats_axes=stats_axes,
+                              tier=tier, tier_margins=tier_margins,
                               residency=residency)
     out = execute_dispatch(plan, x, exact_fn, a_w1, a_b1, a_w2, a_b2,
                            weights_prepadded=weights_prepadded)
     return out, plan_invoke_stats(plan)
+
+
+def mcma_dispatch_sharded(mesh, x: torch.Tensor, logits: torch.Tensor,
+                          exact_fn: Callable, exact_params,
+                          a_w1, a_b1, a_w2, a_b2, *, exact_cap: int,
+                          invoke_cap, backend: str = "xla",
+                          block_t: int = 128, data_axes=None,
+                          row_mask: torch.Tensor | None = None,
+                          weights_prepadded: bool = False,
+                          tier: torch.Tensor | None = None,
+                          tier_margins: torch.Tensor | None = None,
+                          residency: torch.Tensor | None = None):
+    """``mcma_dispatch`` over a mesh's data axes, run by every rank of
+    ``mesh`` on the same GLOBAL inputs.
+
+    Each rank takes its data shard's rows of ``x``, ``logits``,
+    ``row_mask`` and ``tier`` (as ``sharding/rules.mcma_dispatch_specs``
+    places them) and runs the engine on them alone; the exact params,
+    the stacks, the margins and the residency vector are replicated.
+    ``exact_cap``/``invoke_cap`` are PER-SHARD capacities (from a global
+    operating point through ``sharding/rules.shard_capacity``), so a
+    class hot on one shard drops rows another shard could have taken:
+    the reference's semantics.  ``exact_fn(exact_params, xb)``.
+
+    Returns ``(y, invoke_stats)``: y (T, d_out), the shards' outputs
+    all-gathered back into the global row order, and the stats
+    all-reduced to the global totals, the same on every rank.
+    """
+    dp = tuple(data_axes) if data_axes is not None else dp_axes(mesh)
+    rows = C.local_rows(mesh, dp, x.shape[0])
+    local = lambda t: None if t is None else t[rows]
+    with activation_sharding(P(dp, None), mesh):
+        y, stats = mcma_dispatch(
+            x[rows], logits[rows], lambda xb: exact_fn(exact_params, xb),
+            a_w1, a_b1, a_w2, a_b2, exact_cap=exact_cap,
+            invoke_cap=invoke_cap, backend=backend, block_t=block_t,
+            stats_axes=dp, row_mask=local(row_mask),
+            weights_prepadded=weights_prepadded, tier=local(tier),
+            tier_margins=tier_margins, residency=residency)
+        return C.all_gather(y, dp, 0), stats

@@ -2,8 +2,9 @@
 ``repro/runtime/options.py``).
 
 The same fields, names and defaults as the reference, so options pair
-one-to-one.  ``DecodeServer`` serves every field but ``mesh`` (ROADMAP
-queue 1, item 10), which raises ``NotImplementedError`` there.
+one-to-one.  ``DecodeServer`` serves every field; ``mesh`` (a
+``launch/mesh.HostMesh``) serves the dense family SPMD, one process per
+rank.
 
 ``LibrarySpec`` declares approximator-library residency: a library of
 ``library_size`` trained approximators of which ``n_resident`` occupy the

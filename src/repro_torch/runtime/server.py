@@ -56,8 +56,20 @@ no invocation rate); a sliding-window model (mixtral-8x7b) keeps a
 ring buffer of the window and takes neither chunked prefill nor a paged
 cache.  The server feeds token ids, so an
 architecture that takes embeddings (``input_mode="embeddings"``) is
-refused.  ``mesh`` is not ported yet and raises ``NotImplementedError``
-naming ROADMAP queue 1, item 10.
+refused.
+
+``mesh`` (a ``launch/mesh.HostMesh``) serves the dense family SPMD, one
+process per rank: every rank runs this same host loop on the same
+submitted requests (admission, the page allocator and the tier table are
+deterministic and replicated), holds only its shard of the parameters
+(``_shard_params``: sliced by ``sharding/rules.param_pspecs``, the full
+copy freed) and of the cache, and runs every step under
+``steps.serve_mesh_context``: each data shard dispatches its own rows at
+per-shard capacities, the exact FFN and attention run tensor-parallel
+over "model", and the logits and invoke stats come back gathered and
+all-reduced, so the sampled tokens and what the controllers read are
+bitwise equal on every rank.  The xLSTM, hybrid and MoE families, and a
+mesh that does not divide the model, raise (``model.check_mesh_servable``).
 """
 from __future__ import annotations
 
@@ -73,12 +85,8 @@ from repro_torch.models import model as M
 from repro_torch.runtime import autotune as at
 from repro_torch.runtime import steps as steps_lib
 from repro_torch.runtime.options import ServeOptions
-
-# ServeOptions fields of features this port has not reached, with the
-# ROADMAP queue 1 item that ports each; a non-default value raises.
-_UNPORTED = {
-    "mesh": "item 10 (multiple devices)",
-}
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import rules as R
 
 
 @dataclasses.dataclass
@@ -192,22 +200,17 @@ def to_host(named: dict) -> dict:
     return out
 
 
-def _check_ported(o: ServeOptions):
-    default = ServeOptions()
-    for name, item in _UNPORTED.items():
-        if getattr(o, name) != getattr(default, name):
-            raise NotImplementedError(
-                f"ServeOptions.{name}={getattr(o, name)!r} is not ported "
-                f"yet: ROADMAP queue 1, {item}")
-
-
 class DecodeServer:
     def __init__(self, cfg: ModelConfig, params: M.Model, *,
                  options: ServeOptions | None = None):
         """``DecodeServer(cfg, params, options=ServeOptions(...))``: serve
-        ``params`` (a ``models.model.Model``) on the device it lives on."""
+        ``params`` (a ``models.model.Model``) on the device it lives on.
+        With ``options.mesh`` the server takes ``params`` over: each
+        parameter's storage becomes this rank's shard."""
         o = self.options = options if options is not None else ServeOptions()
-        _check_ported(o)
+        self.mesh = o.mesh
+        if self.mesh is not None:
+            M.check_mesh_servable(cfg, self.mesh, o.batch)
         if cfg.input_mode != "tokens":
             raise ValueError(f"{cfg.name} takes embeddings (input_mode="
                              f"{cfg.input_mode!r}); the server feeds token "
@@ -220,6 +223,8 @@ class DecodeServer:
                              "(expected 'reject' or 'trim')")
         self.cfg, self.params = cfg, params
         self.device = next(params.parameters()).device
+        if self.mesh is not None:
+            self._shard_params(params)
         cfg = self._setup_qos(cfg, o)
         cfg = self._setup_library(cfg, o)
         self.cfg = cfg
@@ -309,9 +314,11 @@ class DecodeServer:
         # None)
         self.tick_log: list[tuple] = []
         self.tick_log_cap = 4096
-        self.cache = M.init_cache(cfg, self.batch, self.max_len,
-                                  page_size=self.page_size,
-                                  kv_pages=self.n_pages, device=self.device)
+        with self._mesh_ctx():
+            self.cache = M.init_cache(cfg, self.batch, self.max_len,
+                                      page_size=self.page_size,
+                                      kv_pages=self.n_pages,
+                                      device=self.device)
         self.slots: list[Request | None] = [None] * self.batch
         self.queue: list[Request] = []
         self.remaining_prompt: list[np.ndarray] = \
@@ -418,9 +425,28 @@ class DecodeServer:
         kw = dict(o.autotune_kwargs or {})
         if "start" not in kw and base in ladder:
             kw["start"] = ladder.index(base)
+        shards = self._dp_shards()
         return at.CapacityController(
-            ladder, lambda pt: at.point_caps(pt, self.batch, n),
+            ladder, lambda pt: at.point_caps(pt, self.batch // shards, n,
+                                             n_shards=shards),
             drop_budget=o.drop_budget, **kw)
+
+    def _dp_shards(self) -> int:
+        """The data shards the batch splits over (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size(
+            R.dp_axes(self.mesh))
+
+    def _mesh_ctx(self):
+        return steps_lib.serve_mesh_context(self.mesh)
+
+    def _shard_params(self, params: M.Model):
+        """Each parameter's storage replaced, in place, by this rank's
+        block under ``sharding/rules.param_pspecs`` (its spec kept as
+        ``_pspec`` for ``collectives.unshard``); the full copy is freed."""
+        specs, _ = R.param_pspecs(self.mesh, params)
+        for name, p in params.named_parameters():
+            p.data = C.shard_tensor(self.mesh, p.data, specs[name])
+            p._pspec = specs[name]
 
     def _step_kw(self, point) -> dict:
         return dict(use_mcma_dispatch=self.use_mcma_dispatch,
@@ -619,7 +645,11 @@ class DecodeServer:
         """Copy the allocator's block table into the cache's, in place,
         when it changed since the last step (same shape every tick)."""
         if self.page_size and self._bt_dirty:
-            self.cache["block_table"].copy_(torch.from_numpy(self._bt))
+            bt = self._bt
+            if self.mesh is not None:          # this data shard's rows
+                bt = bt[C.local_rows(self.mesh, R.dp_axes(self.mesh),
+                                     self.batch)]
+            self.cache["block_table"].copy_(torch.from_numpy(bt))
             self._bt_dirty = False
 
     def _admit(self):
@@ -655,12 +685,13 @@ class DecodeServer:
                 if self.page_size:
                     self._reserved[i] = need
                     self._reserved_total += need
-                if self._fresh is None:
-                    self._fresh = M.init_cache(
-                        self.cfg, self.batch, self.max_len,
-                        page_size=self.page_size, kv_pages=self.n_pages,
-                        device=self.device)
-                M.reset_slot(self.cfg, self.cache, self._fresh, i)
+                with self._mesh_ctx():
+                    if self._fresh is None:
+                        self._fresh = M.init_cache(
+                            self.cfg, self.batch, self.max_len,
+                            page_size=self.page_size, kv_pages=self.n_pages,
+                            device=self.device)
+                    M.reset_slot(self.cfg, self.cache, self._fresh, i)
                 self._pos_host[i] = 0
                 break
 
@@ -702,9 +733,11 @@ class DecodeServer:
                 self._ensure_slot_pages(i, int(self._pos_host[i])
                                         + int(nv[i]))
             self._sync_block_table()
-        self.cache, m = self._active_chunk_step()(
-            self.params, self.cache, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(nv).to(self.device), **self._step_inputs())
+        with self._mesh_ctx():
+            self.cache, m = self._active_chunk_step()(
+                self.params, self.cache,
+                torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(nv).to(self.device), **self._step_inputs())
         self._pos_host += nv
         tokens = int(nv.sum())
         inv = None
@@ -741,13 +774,15 @@ class DecodeServer:
         inputs = torch.from_numpy(toks).to(self.device)
         mask = torch.tensor(active, device=self.device)
         n_active = sum(active)
-        if self.use_mcma_dispatch:
-            logits, self.cache, m = self._active_step()(
-                self.params, self.cache, inputs, mask, **self._step_inputs())
-        else:
-            logits, self.cache = self.decode(self.params, self.cache,
-                                             inputs, mask)
-            m = {}
+        with self._mesh_ctx():
+            if self.use_mcma_dispatch:
+                logits, self.cache, m = self._active_step()(
+                    self.params, self.cache, inputs, mask,
+                    **self._step_inputs())
+            else:
+                logits, self.cache = self.decode(self.params, self.cache,
+                                                 inputs, mask)
+                m = {}
         if self.greedy:
             nxt = torch.argmax(logits, -1)
         else:
@@ -956,11 +991,15 @@ class DecodeServer:
         """Peak resident KV-cache bytes: a dense cache reserves batch x
         max_len for k and v whatever is held; a paged run pays for the
         pages of its high-water mark (the trash page is not counted); a
-        pure-SSM cache holds no KV."""
+        pure-SSM cache holds no KV.  On a mesh, the whole deployment's:
+        this rank's shard times the ranks it is split over."""
         k = self.cache.get("k")
         if k is None:
             return 0
+        # a shard holds its kv heads, and on a dense cache its rows
+        split = self.cfg.n_kv_heads // k.shape[3] * (
+            1 if self.page_size else self.batch // k.shape[1])
         if not self.page_size:
-            return 2 * k.numel() * k.element_size()
-        per_page = 2 * k[:, 0].numel() * k.element_size()
+            return 2 * k.numel() * k.element_size() * split
+        per_page = 2 * k[:, 0].numel() * k.element_size() * split
         return per_page * self.page_hwm

@@ -19,6 +19,7 @@ in place: the moments and the parameters are written where they lie.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -138,6 +139,24 @@ def mcma_serve_config(cfg: ModelConfig, *,
         raise ValueError(f"unknown dispatch backend: {backend!r}")
     return dataclasses.replace(cfg, approx=dataclasses.replace(
         cfg.approx, backend=backend))
+
+
+@contextlib.contextmanager
+def serve_mesh_context(mesh):
+    """The serve context of a mesh deployment: the mesh and the
+    batch-sharded activation spec (``sharding/activations``), which the
+    serve-mode model code reads to run as this rank's part of the SPMD
+    program (the dispatch engine per data shard with all-reduced stats,
+    tensor parallelism over "model").  ``mesh=None`` is a no-op, so
+    single-device callers share the code path.  Wraps every call of a
+    mesh server's steps (and ``init_cache`` / ``reset_slot``)."""
+    if mesh is None:
+        yield None
+        return
+    from repro_torch.sharding.activations import activation_sharding
+    from repro_torch.sharding.rules import P, dp_axes
+    with activation_sharding(P(dp_axes(mesh), None, None), mesh):
+        yield mesh
 
 
 def _serve_cfg(cfg: ModelConfig, *, use_mcma_dispatch: bool,

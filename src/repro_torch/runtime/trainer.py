@@ -13,8 +13,8 @@ training job runs on one device.
     outliers.
 
 One host read per step (``float(metrics["loss"])``, then the grad norm)
-ends the step's wall time.  A mesh is not ported yet (ROADMAP queue 1,
-item 10).
+ends the step's wall time.  A training mesh is not ported yet (ROADMAP queue 1,
+item 14).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ class Trainer:
                  mesh=None, seed: int = 0, device=None):
         if mesh is not None:
             raise NotImplementedError("a training mesh is not ported yet "
-                                      "(ROADMAP queue 1, item 10)")
+                                      "(ROADMAP queue 1, item 14)")
         self.cfg, self.tc, self.ds, self.mesh = cfg, tc, ds, mesh
         self.device = resolve_device(device)
         self.monitor = StragglerMonitor()

@@ -1,0 +1,70 @@
+"""The mesh context, injected without threading a mesh through the model
+code (counterpart of ``repro/sharding/activations.py``).
+
+``activation_sharding(spec, mesh)`` holds the PartitionSpec of the
+residual stream and the mesh of the running SPMD program;
+``manual_dp_context()`` reads them back, as the model's serve path does
+to take its sharded branches.  ``runtime/steps.serve_mesh_context`` sets
+both around a mesh server's steps:
+
+    with serve_mesh_context(mesh):
+        logits, cache = decode_step(params, cache, tokens, mask)
+
+In the reference the spec constrains the partitioner's placement of the
+residual stream.  Here every rank runs its own program on its own rows
+(one process per rank, torch.distributed), so there is no partitioner to
+steer: ``constrain``, ``constrain_logits`` and ``constrain_tokens`` are
+identities, kept so that code written against the reference's API runs.
+"""
+from __future__ import annotations
+
+import contextlib
+from contextvars import ContextVar
+
+_SPEC: ContextVar = ContextVar("activation_spec", default=None)
+_MESH: ContextVar = ContextVar("activation_mesh", default=None)
+
+
+@contextlib.contextmanager
+def activation_sharding(spec, mesh=None):
+    """Hold ``spec`` (the residual stream's PartitionSpec) and ``mesh``
+    (the mesh the program runs on, ``launch/mesh.HostMesh``) for the
+    duration."""
+    tok, mtok = _SPEC.set(spec), _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _MESH.reset(mtok)
+        _SPEC.reset(tok)
+
+
+def current_mesh():
+    """The mesh of the enclosing context, or None."""
+    return _MESH.get()
+
+
+def constrain(x):
+    """Identity: an SPMD rank holds its own rows already."""
+    return x
+
+
+def constrain_logits(x):
+    """Identity (the reference constrains (B, S, V) logits to batch over
+    data and vocab over model)."""
+    return x
+
+
+def constrain_tokens(x):
+    """Identity (the reference constrains (B, S) per-token values to
+    batch over data)."""
+    return x
+
+
+def manual_dp_context():
+    """(mesh, dp_axes) inside a mesh context with a batch-sharded
+    activation spec; (None, ()) outside one."""
+    spec, mesh = _SPEC.get(), _MESH.get()
+    if spec is None or spec[0] is None or mesh is None:
+        return None, ()
+    dp = spec[0]
+    return mesh, tuple(dp) if isinstance(dp, (tuple, list)) else (dp,)

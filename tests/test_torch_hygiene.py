@@ -1,8 +1,8 @@
 """Rules of the PyTorch port that hold without the reference: it (and its
 example twins) imports neither ``jax`` nor the JAX package, its entry
-points never drop to the CPU quietly, the serving option it has not
-ported (``mesh``) raises, and the QoS, library and autotune options
-serve."""
+points never drop to the CPU quietly, a mesh refuses the families and
+layouts it does not serve yet (naming the ROADMAP item), and the QoS,
+library and autotune options serve."""
 import ast
 import dataclasses
 import pathlib
@@ -58,7 +58,14 @@ def test_entry_points_without_device_raise_when_there_is_no_gpu(
             call()
 
 
-UNPORTED = {"mesh": object()}
+class FakeMesh:
+    """Duck-typed mesh: the refusals happen before any collective."""
+
+    def __init__(self, shape):
+        self.axis_names = ("data", "model")
+        self.devices = np.empty(shape)
+
+
 # the options ported with QoS tiers, library residency and autotune
 QOS_LIBRARY_AUTOTUNE = {"autotune": True, "qos_tiers": True,
                         "qos_app": "bessel",
@@ -67,14 +74,29 @@ SCHEDULER = {"kv_page_size": 4, "kv_pages": 8, "prefill_chunk": 4,
              "route_scope": "tick"}
 
 
-@pytest.mark.parametrize("field", sorted(UNPORTED))
-def test_unported_serve_options_raise(field):
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b",
+                                  "moonshot-v1-16b-a3b"])
+def test_mesh_refuses_unported_families(arch):
+    """The xLSTM, hybrid and MoE families do not serve on a mesh yet."""
+    cfg = smoke_config(get_config(arch))
+    params = M.init_model(0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 15"):
+        DecodeServer(cfg, params, options=ServeOptions(
+            batch=4, mesh=FakeMesh((2, 2))))
+
+
+@pytest.mark.parametrize("shape", [(3, 2), (1, 3)],
+                         ids=["batch-over-data", "d_ff-over-model"])
+def test_mesh_refuses_a_layout_it_cannot_divide(shape):
+    """Where the sharded serve path's predicate fails (the batch over the
+    data axes, d_ff and the heads over model) the reference falls back
+    to compiler-placed sharding; the port refuses."""
     cfg = _cfg()
     params = M.init_model(0, cfg, device="cpu")
-    opts = dataclasses.replace(ServeOptions(use_mcma_dispatch=True),
-                               **{field: UNPORTED[field]})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        DecodeServer(cfg, params, options=opts)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        DecodeServer(cfg, params, options=ServeOptions(
+            batch=4, use_mcma_dispatch=True, mesh=FakeMesh(shape)))
 
 
 @pytest.mark.parametrize("field", sorted(QOS_LIBRARY_AUTOTUNE))

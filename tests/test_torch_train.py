@@ -344,7 +344,7 @@ def test_train_entry_points_without_device_raise_when_there_is_no_gpu(
 def test_unported_train_options_raise():
     _, tcfg = _dense_cfgs()
     ds = SyntheticLM(vocab=tcfg.vocab, seq_len=S, global_batch=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(tcfg, TrainerConfig(total_steps=1), ds, mesh=object(),
                 device="cpu")
 
