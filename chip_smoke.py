@@ -143,6 +143,28 @@ Phases (any failure raises and the script exits non-zero):
   16. [train resume]: the internlm2 smoke config on the card under
      torch.use_deterministic_algorithms: saved at step 3, a new Trainer
      resumes to step 6 and equals an uninterrupted run bitwise;
+  16b. [train mesh full width]: internlm2-1.8b uncut, bf16, remat, the
+     ApproxFFN and tick router at error bound 1.4, 8 x 512, grad_accum 2,
+     2 Trainer steps on a (2, 2) ("data", "model") mesh of 4 ranks
+     sharing the card over gloo (128 MiB exchange-arena slots): every
+     rank's history, metrics and leaves replicated over data bitwise
+     equal, 0 switch launches; ms per step, tokens/s, collectives and
+     staged bytes per step per rank, peak memory per rank; a float32
+     witness at 2 layers (8 x 128, grad_accum 2): the mesh's
+     loss_and_grads against one card's from the same draw, the loss
+     within 1e-5 relative, the gradients within 1e-4 elementwise and in
+     norm, equal tick labels; ef_int8_allreduce_tree on a ("pod",) mesh
+     of the same ranks: the reference's quadratic with CUDA tensors
+     (err_compressed < 1e-2, err_exact < 1e-3), one call over a rank's
+     full-width gradient shards beside the float32 all-reduce of the same
+     leaves (time, staged bytes); then launch/train.py --smoke --approx
+     --steps 2 --mesh 2,2 as a subprocess;
+  16c. [train moe]: moonshot-v1-16b-a3b at its widths cut to 2 layers,
+     remat: a float32 loss_and_grads on the card against the CPU at 2 x
+     32 (gradients within 1e-4, every MoE application's gate_idx and keep
+     equal), then 2 bf16 Trainer steps at 8 x 512, grad_accum 2 (ms per
+     step, tokens/s, peak memory); [train example twin]:
+     examples/train_lm_mcma_torch.py at its smoke preset;
   17. [paper pipeline full width]: the paper's co-training at the
      reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
      the paper topologies; 1500 epochs, 3 approximators, 5 iterations, lr
@@ -186,7 +208,10 @@ Phases (any failure raises and the script exits non-zero):
      by token; then at 2 layers in float32, capacity factor E / top_k,
      forward(8192) at 4096..4103 against prefill(4096) + 8 decode steps
      (the ring wraps at the first) within 2e-3; no switch launch;
-  21. a JSON line describing every kernel (the switch kernels'
+  21. a check that every process the phases started has ended (no
+     child of this process is left: ``spawn_world`` stops its fork
+     server and resource tracker before it returns), then a JSON line
+     describing every kernel (the switch kernels'
      launches_by_run with the runs of phases 6b and 10 to 12 (6b's
      launches summed over its ranks, ``per_rank`` beside them) and, for
      switched_mlp, the two paper runs; their ``at_widths`` the d 2560
@@ -286,6 +311,23 @@ MESH_LAUNCHER = ("--smoke", "--approx", "--mcma-dispatch", "--data", "2",
                  "--model", "2", "--batch", "4", "--requests", "6",
                  "--max-new", "6", "--route-scope", "tick",
                  "--prefill-chunk", "16", "--kv-page-size", "16")
+
+# [train mesh full width]: TRAIN_DENSE's shape on a (data, model) mesh of
+# ranks sharing the card over gloo (an exchange arena of 128 MiB a rank);
+# the float32 witness at full widths cut to 2 layers; the int8
+# error-feedback all-reduce on a ("pod",) mesh of the same ranks
+TRAIN_MESH = dict(shape=(2, 2), batch=8, seq=512, grad_accum=2, steps=2,
+                  warmup=2, exchange_mib=128)
+TRAIN_MESH_WITNESS = dict(n_layers=2, batch=8, seq=128, grad_accum=2,
+                          loss_tol=1e-5, grad_tol=1e-4)
+EF_QUADRATIC = dict(steps=300, lr=0.05, dim=8)
+TRAIN_MESH_LAUNCHER = ("--smoke", "--approx", "--steps", "2", "--mesh",
+                       "2,2")
+# [train moe]: moonshot at its widths cut to 2 layers; a float32 step on
+# the card against the CPU at a small batch, then a timed bf16 step
+TRAIN_MOE = dict(n_layers=2, parity=dict(batch=2, seq=32),
+                 timed=dict(batch=8, seq=512, grad_accum=2, steps=2,
+                            warmup=2))
 
 
 def log(msg):
@@ -1462,8 +1504,9 @@ def tick_labels(torch, cfg, params, inputs):
     return votes.argmax(-1)
 
 
-def train_run(torch, cfg, shape, dev, tc_kw=None):
-    """A Trainer on the synthetic stream; returns it with its recorder."""
+def train_run(torch, cfg, shape, dev, tc_kw=None, mesh=None):
+    """A Trainer on the synthetic stream (on ``mesh`` when given); returns
+    it with its recorder."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=shape["seq"],
@@ -1471,7 +1514,7 @@ def train_run(torch, cfg, shape, dev, tc_kw=None):
     tc = TrainerConfig(total_steps=shape["steps"], log_every=1,
                        grad_accum=shape["grad_accum"],
                        warmup=shape["warmup"], **(tc_kw or {}))
-    tr = Trainer(cfg, tc, ds, seed=0, device=dev)
+    tr = Trainer(cfg, tc, ds, mesh=mesh, seed=0, device=dev)
     return tr, MetricsRecorder(tr)
 
 
@@ -1827,6 +1870,409 @@ def train_resume(np, torch, dev="cuda"):
     log(f"  smoke config, saved at step {sh['save_at']}, resumed to "
         f"{sh['steps']}: {len(a)} tensors bitwise equal to the "
         f"uninterrupted run (losses {losses}), deterministic algorithms on")
+
+
+def train_mesh_bf16(torch, mesh):
+    """internlm2-1.8b uncut, bf16, TRAIN_DENSE's shape, 2 Trainer steps on
+    ``mesh``: the history, the metrics, the collectives and the switch
+    launches of the steps, the peak memory, a digest of every leaf
+    replicated over the data axes, and the shards' shapes."""
+    import hashlib
+
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import dp_axes
+    cfg = train_cfg("internlm2-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr, rec = train_run(torch, cfg, TRAIN_MESH, "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    zero_switch()
+    C.reset_counts()
+    t0 = time.time()
+    tr.run()
+    run_s = time.time() - t0
+    counts, launches = dict(C.COUNTS), switch_launches()
+    named = dict(tr.state["params"].named_parameters())
+    dp = dp_axes(mesh)
+    digests = {k: (C.spec_axes(mesh, p._pspec), hashlib.sha1(
+        p.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
+        .hexdigest()) for k, p in named.items()
+        if not C._dp_dims(p._pspec, dp)}
+    out = dict(history=tr.history, counts=counts, launches=launches,
+               peak=torch.cuda.max_memory_allocated(), init_s=init_s,
+               run_s=run_s, digests=digests,
+               n_local=sum(p.numel() for p in named.values()),
+               metrics=[{k: float(m[k]) for k in (
+                   "lm_loss", "grad_norm", "invocation", "router_acc",
+                   "tick_router_acc", "lr")} for m in rec.steps])
+    shapes = {k: (tuple(p.shape), p.dtype) for k, p in named.items()}
+    return out, shapes
+
+
+def train_mesh_witness(np, torch, mesh):
+    """The float32 witness at full widths cut to 2 layers: one
+    ``loss_and_grads`` on the mesh and one on this rank's single card
+    from the same draw, on the same batch.  Returns the loss of each,
+    each rank's worst elementwise gradient gap (against its shards of
+    the single device's gradient), the squared sums of the gaps and of
+    the gradient over the blocks this rank holds first, both gradient
+    norms and whether the tick labels agree."""
+    from repro_torch.data.pipeline import SyntheticLM, local_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    w = TRAIN_MESH_WITNESS
+    cfg = train_cfg("internlm2-1.8b", n_layers=w["n_layers"],
+                    param_dtype="float32", act_dtype="float32")
+    ga = w["grad_accum"]
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=w["seq"],
+                        global_batch=w["batch"], seed=1).batch_at(0)
+    local = {k: v.cuda() for k, v in local_batch(batch, mesh, ga).items()}
+    state = S.init_train_state(0, cfg, device="cuda", mesh=mesh)
+    specs = {k: p._pspec for k, p in state["params"].named_parameters()}
+    with S.train_mesh_context(mesh):
+        loss_m, _, grads_m = S.loss_and_grads(cfg, state["params"], local,
+                                              ga)
+        labels_m = tick_labels(torch, cfg, state["params"], local["inputs"])
+    _, norm_m = clip_by_global_norm(dict(grads_m), float("inf"), mesh=mesh,
+                                    specs=specs)
+    del state
+    params = M.init_model(0, cfg, device="cuda").requires_grad_(True)
+    full = {k: v.cuda() for k, v in batch.items()}
+    loss_s, _, grads_s = S.loss_and_grads(cfg, params, full, ga)
+    labels_s = tick_labels(torch, cfg, params, full["inputs"])
+    norm_s = torch.sqrt(sum((g.double() ** 2).sum()
+                            for g in grads_s.values()))
+    worst, gap_sq, ref_sq = 0.0, 0.0, 0.0
+    tol = w["grad_tol"]
+    for k, g in grads_m.items():
+        want = C.shard_tensor(mesh, grads_s[k], specs[k])
+        gap = (g - want).abs()
+        worst = max(worst, (gap / (tol + tol * want.abs())).max().item())
+        # each block counted once: on the ranks at coordinate 0 of the
+        # axes the spec does not shard
+        axes = C.spec_axes(mesh, specs[k])
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in axes):
+            gap_sq += float((gap.double() ** 2).sum())
+            ref_sq += float((want.double() ** 2).sum())
+    mine = local_batch({"l": labels_s.reshape(w["batch"], -1).cpu()}, mesh,
+                       ga)["l"]
+    return dict(loss_mesh=float(loss_m), loss_single=float(loss_s),
+                worst=worst, gap_sq=gap_sq, ref_sq=ref_sq,
+                norm_mesh=float(norm_m), norm_single=float(norm_s),
+                labels_equal=bool(torch.equal(labels_m.cpu().reshape(
+                    mine.shape), mine)),
+                classes=torch.bincount(labels_s.flatten().cpu(),
+                                       minlength=cfg.approx.n_live + 1)
+                .tolist())
+
+
+def train_mesh_ef(np, torch, shapes):
+    """``ef_int8_allreduce_tree`` on the card over a ("pod",) mesh of the
+    world's ranks: the reference's quadratic with CUDA tensors, then one
+    call over gradients shaped as this rank's full-width shards (bf16),
+    timed, with its collectives and staged bytes beside those of the
+    float32 all-reduce of the same leaves (in groups of 256 MiB)."""
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.optim.compression import (ef_int8_allreduce_tree,
+                                               init_error_feedback)
+    from repro_torch.sharding import collectives as C
+    pod = HostMesh((torch.distributed.get_world_size(),), ("pod",))
+    q = EF_QUADRATIC
+    targets = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (pod.size("pod"), q["dim"])).astype(np.float32)).cuda()
+    tgt = targets[pod.index("pod")]
+    w_c = torch.zeros_like(tgt)
+    w_e = torch.zeros_like(tgt)
+    err = init_error_feedback({"g": w_c})
+    t0 = time.time()
+    for _ in range(q["steps"]):
+        mean, err = ef_int8_allreduce_tree({"g": 2 * (w_c - tgt)}, err,
+                                           "pod", pod)
+        w_c = w_c - q["lr"] * mean["g"]
+        w_e = w_e - q["lr"] * C.all_reduce_sum(2 * (w_e - tgt), "pod",
+                                               pod) / pod.size("pod")
+    opt = targets.mean(0)
+    out = dict(err_compressed=float(torch.linalg.norm(w_c - opt)),
+               err_exact=float(torch.linalg.norm(w_e - opt)),
+               quad_s=time.time() - t0)
+    gen = torch.Generator(device="cuda").manual_seed(pod.rank)
+    grads = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-3).to(dt)
+             for k, (s, dt) in shapes.items()}
+    err = init_error_feedback(grads)
+    for name in ("int8", "float32"):
+        torch.cuda.synchronize()
+        C.reset_counts()
+        t0 = time.perf_counter()
+        if name == "int8":
+            mean, err = ef_int8_allreduce_tree(grads, err, "pod", pod)
+            finite = all(bool(torch.isfinite(m).all())
+                         for m in mean.values())
+            del mean
+        else:
+            group, size = [], 0
+            for g in list(grads.values()) + [None]:
+                if g is None or size + g.numel() * 4 > 256 * 2**20:
+                    C.all_reduce_sum_many([x.float() for x in group], "pod",
+                                          pod)
+                    group, size = [], 0
+                if g is not None:
+                    group.append(g)
+                    size += g.numel() * 4
+        torch.cuda.synchronize()
+        out[name] = dict(s=time.perf_counter() - t0, counts=dict(C.COUNTS))
+    out["int8"]["finite"] = finite
+    out["n_elems"] = sum(g.numel() for g in grads.values())
+    out["n_leaves"] = len(grads)
+    return out
+
+
+def train_mesh_rank(rank, out_dir):
+    """One rank of [train mesh full width]: the bf16 Trainer steps, the
+    float32 witness, the int8 all-reduce; its payload to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import HostMesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = HostMesh(TRAIN_MESH["shape"], ("data", "model"))
+    out = {"coords": mesh.coords}
+    t0 = time.time()
+    out["bf16"], shapes = train_mesh_bf16(torch, mesh)
+    release(torch)
+    out["witness"] = train_mesh_witness(np, torch, mesh)
+    release(torch)
+    out["ef"] = train_mesh_ef(np, torch, shapes)
+    out["rank_s"] = time.time() - t0
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def train_mesh_full_width(np, torch):
+    """[train mesh full width]: internlm2-1.8b uncut, bf16, TRAIN_DENSE's
+    shape, 2 Trainer steps on a (2, 2) mesh of 4 ranks sharing the card
+    over gloo and the exchange arena; the float32 witness; the int8
+    error-feedback all-reduce on a ("pod",) mesh of the same ranks; then
+    launch/train.py --mesh 2,2 as a subprocess.  Gates: every rank's
+    history, metrics and replicated leaves bitwise equal, 0 switch
+    launches, finite losses; the witness's loss within 1e-5 relative, its
+    gradients within 1e-4 elementwise and in norm, equal tick labels of
+    at least two classes; the quadratic's errors below the reference's
+    bounds."""
+    from repro_torch.launch.mesh import spawn_world
+    sh = TRAIN_MESH
+    ranks = sh["shape"][0] * sh["shape"][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(train_mesh_rank, ranks, (tmp,), backend="gloo",
+                    exchange_mib=sh["exchange_mib"])
+        log(f"  {ranks} ranks on a {sh['shape']} mesh (gloo, one card, "
+            f"{sh['exchange_mib']} MiB arena slots) in "
+            f"{time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    b0 = pay[0]["bf16"]
+    for r, p in enumerate(pay[1:], 1):
+        b = p["bf16"]
+        if b["history"] != b0["history"] or b["metrics"] != b0["metrics"]:
+            raise AssertionError(f"train mesh: rank {r}'s history or "
+                                 "metrics differ from rank 0's")
+        for k, (axes, digest) in b["digests"].items():
+            same = all(p["coords"][a] == pay[0]["coords"][a] for a in axes)
+            if same and digest != b0["digests"][k][1]:
+                raise AssertionError(f"train mesh: rank {r}'s {k} differs "
+                                     "from rank 0's")
+    n_rep = sum(not axes for axes, _ in b0["digests"].values())
+    for p in pay:
+        if p["bf16"]["launches"]:
+            raise AssertionError(f"train mesh: {p['bf16']['launches']} "
+                                 "switch launches; the train path runs "
+                                 "none")
+    for h, m in zip(b0["history"], b0["metrics"]):
+        if not all(np.isfinite([h["loss"], h["grad_norm"]])):
+            raise AssertionError(f"train mesh: step {h['step']} not finite")
+        log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms (slowest rank), "
+            f"loss {h['loss']:.4f}, " + ", ".join(
+                f"{k} {v:.4g}" for k, v in m.items()))
+    steps = len(b0["history"])
+    ms = b0["history"][-1]["dt"] * 1e3
+    tokens = sh["batch"] * sh["seq"]
+    c = b0["counts"]
+    log(f"  internlm2-1.8b, 24 layers, bf16, remat, {sh['batch']} x "
+        f"{sh['seq']}, grad_accum {sh['grad_accum']}: {ms:.1f} ms a step "
+        f"(step {steps}), {tokens / ms * 1e3:.0f} tokens/s; per step per "
+        f"rank {c['all_gather'] / steps:.0f} all-gathers, "
+        f"{c['all_reduce'] / steps:.0f} all-reduces, "
+        f"{c['reduce_scatter'] / steps:.0f} reduce-scatters, "
+        f"{c['staged'] / steps:.0f} host stagings of "
+        f"{c['staged_bytes'] / steps / 2**30:.2f} GiB; 0 switch launches; "
+        f"init {b0['init_s']:.1f} s, {steps} steps {b0['run_s']:.1f} s")
+    log("  peak memory per rank: " + ", ".join(
+        f"{p['bf16']['peak']} B ({p['bf16']['peak'] / 2**30:.2f} GiB)"
+        for p in pay) + f"; {b0['n_local']} parameters a rank; "
+        f"{len(b0['digests'])} leaves replicated over data ({n_rep} over "
+        "every axis) bitwise equal where the ranks share their block")
+    # the witness
+    w, wt = pay[0]["witness"], TRAIN_MESH_WITNESS
+    worst = max(p["witness"]["worst"] for p in pay)
+    rel = math.sqrt(sum(p["witness"]["gap_sq"] for p in pay)
+                    / max(sum(p["witness"]["ref_sq"] for p in pay), 1e-300))
+    loss_gap = abs(w["loss_mesh"] - w["loss_single"])
+    norm_gap = abs(w["norm_mesh"] - w["norm_single"]) / w["norm_single"]
+    if not (loss_gap <= wt["loss_tol"] * (1 + abs(w["loss_single"]))
+            and worst <= 1.0 and rel <= wt["grad_tol"]
+            and all(p["witness"]["labels_equal"] for p in pay)
+            and sum(n > 0 for n in w["classes"]) >= 2):
+        raise AssertionError(f"train mesh float32 witness: loss gap "
+                             f"{loss_gap:.3g}, worst gradient gap "
+                             f"{worst:.3g} of the gate, relative gradient "
+                             f"gap {rel:.3g}, labels equal "
+                             f"{[p['witness']['labels_equal'] for p in pay]}"
+                             f", classes {w['classes']}")
+    log(f"  float32 witness ({wt['n_layers']} layers at full width, "
+        f"{wt['batch']} x {wt['seq']}, grad_accum {wt['grad_accum']}): loss "
+        f"{w['loss_mesh']:.7f} (mesh) {w['loss_single']:.7f} (one card), "
+        f"gap {loss_gap:.3g}; gradients within {worst:.3g} of the 1e-4 "
+        f"elementwise gate, ||mesh - single|| / ||single|| {rel:.3g}; "
+        f"grad norm {w['norm_mesh']:.6g} vs {w['norm_single']:.6g} "
+        f"(relative {norm_gap:.3g}); tick labels equal, by class "
+        f"{w['classes']}")
+    # the int8 error-feedback all-reduce
+    ef = pay[0]["ef"]
+    if any(p["ef"]["err_compressed"] != ef["err_compressed"] for p in pay) \
+            or not (ef["err_compressed"] < 1e-2 and ef["err_exact"] < 1e-3
+                    and ef["int8"]["finite"]):
+        raise AssertionError(f"train mesh ef int8: {ef}")
+    i8, f32 = ef["int8"], ef["float32"]
+    log(f"  ef_int8_allreduce_tree on a ('pod',) mesh of {ranks}: the "
+        f"quadratic over {EF_QUADRATIC['steps']} steps err_compressed "
+        f"{ef['err_compressed']:.3g} (< 1e-2), err_exact "
+        f"{ef['err_exact']:.3g} (< 1e-3) in {ef['quad_s']:.1f} s; one call "
+        f"over a rank's {ef['n_leaves']} full-width gradient shards "
+        f"({ef['n_elems']} elements, bf16): {i8['s'] * 1e3:.1f} ms, "
+        f"{i8['counts']['all_gather']} all-gathers, "
+        f"{i8['counts']['staged_bytes']} staged bytes; the float32 "
+        f"all-reduce of the same leaves: {f32['s'] * 1e3:.1f} ms, "
+        f"{f32['counts']['all_reduce']} all-reduces, "
+        f"{f32['counts']['staged_bytes']} staged bytes")
+    log(f"  rank 0's work {pay[0]['rank_s']:.1f} s")
+    t0 = time.time()
+    src = str(Path(__file__).resolve().parent / "src")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *TRAIN_MESH_LAUNCHER], capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=src))
+    if r.returncode:
+        raise AssertionError(f"launch/train.py on a mesh failed:\n"
+                             f"{r.stderr[-3000:]}")
+    for line in r.stdout.strip().splitlines():
+        log(f"  launcher: {line}")
+    log(f"  launch/train.py {' '.join(TRAIN_MESH_LAUNCHER)}: "
+        f"{time.time() - t0:.1f} s")
+
+
+def train_moe(np, torch):
+    """[train moe]: moonshot-v1-16b-a3b at its widths cut to 2 layers,
+    remat: one float32 ``loss_and_grads`` on the card against the CPU from
+    the same parameters at a small batch (gradients within 1e-4, every MoE
+    application's ``gate_idx`` and ``keep`` equal on both), then 2 bf16
+    Trainer steps timed: ms/step, tokens/s, peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.runtime import steps
+    full = get_config(MOE)
+    cut = dict(n_layers=TRAIN_MOE["n_layers"], remat=True)
+    cfg = dataclasses.replace(full, param_dtype="float32",
+                              act_dtype="float32", **cut)
+    t0 = time.time()
+    card = M.init_model(0, cfg, device="cuda").requires_grad_(True)
+    cpu = M.Model(cfg, torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cpu.requires_grad_(True)
+    n_params = sum(p.numel() for p in card.parameters())
+    sh = TRAIN_MOE["parity"]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (sh["batch"], sh["seq"] + 1)).astype(np.int32))
+    out = {}
+    for name, params, d in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        t = toks.to(d)
+        batch = {"inputs": t[:, :-1], "labels": t[:, 1:]}
+        with MoECapture() as cap:
+            loss, _, g = steps.loss_and_grads(cfg, params, batch, 1)
+        with torch.no_grad():
+            routes = [moe.route(cfg, p.router, x.reshape(-1, x.shape[-1]))
+                      for p, x in cap.calls]
+        out[name] = (float(loss), {k: v.cpu() for k, v in g.items()},
+                     [(r.gate_idx.cpu(), r.keep.cpu()) for r in routes])
+        del g, cap
+    (cl, cg, cr), (gl, gg, gr) = out["cpu"], out["card"]
+    if len(cr) != len(gr) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(cr, gr)):
+        raise AssertionError("train moe: the card's routing (gate_idx, "
+                             "keep) differs from the CPU's")
+    worst = 0.0
+    for k in cg:
+        torch.testing.assert_close(gg[k], cg[k], rtol=0, atol=1e-4,
+                                   msg=f"train moe grad {k}")
+        worst = max(worst, (gg[k] - cg[k]).abs().max().item())
+    drops = sum(int((~r[1]).sum()) for r in cr)
+    log(f"  {MOE} cut to {cut['n_layers']} of its {full.n_layers} layers "
+        f"at its widths ({n_params} parameters), remat: float32 "
+        f"{sh['batch']} x {sh['seq']}: loss {cl:.6f} (CPU) {gl:.6f} (card), "
+        f"max |gradient difference| {worst:.3g} (gate 1e-4), gate_idx and "
+        f"keep equal on both over {len(cr)} MoE applications ({drops} "
+        f"choices dropped by capacity); {time.time() - t0:.1f} s")
+    del card, cpu, out, cg, gg
+    release(torch)
+    cfg16 = dataclasses.replace(full, **cut)
+    ts = TRAIN_MOE["timed"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr, rec = train_run(torch, cfg16, ts, "cuda")
+    init_s = time.time() - t0
+    zero_switch()
+    tr.run()
+    if switch_launches():
+        raise AssertionError(f"train moe: {switch_launches()} switch "
+                             "launches")
+    for h, m in zip(tr.history, rec.steps):
+        if not all(np.isfinite([h["loss"], h["grad_norm"]])):
+            raise AssertionError(f"train moe: step {h['step']} not finite")
+        log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms, loss "
+            f"{h['loss']:.4f}, grad_norm {h['grad_norm']:.4g}, aux_loss "
+            f"{float(m['aux_loss']):.4g}")
+    ms = tr.history[-1]["dt"] * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  bf16, cut to {cut['n_layers']} of {full.n_layers} layers, "
+        f"remat, {ts['batch']} x {ts['seq']}, grad_accum {ts['grad_accum']}"
+        f": {ms:.1f} ms a step (step {len(tr.history)}), "
+        f"{ts['batch'] * ts['seq'] / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak} B ({peak / 2**30:.2f} GiB), init {init_s:.1f} s; 0 switch "
+        "launches")
+
+
+def train_example_twin(torch):
+    """examples/train_lm_mcma_torch.py at its smoke preset on the card."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / \
+        "train_lm_mcma_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_mcma_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.time()
+    out = mod.main(["--preset", "smoke"])
+    if not (math.isfinite(out["final_loss"])
+            and 0.0 <= out["invocation"] <= 1.0):
+        raise AssertionError(f"train example twin: {out}")
+    log(f"  examples/train_lm_mcma_torch.py --preset smoke: {out['steps']} "
+        f"steps, loss {out['first_loss']:.4f} -> {out['final_loss']:.4f}, "
+        f"invocation {out['invocation']:.3f}, {time.time() - t0:.1f} s")
 
 
 def paper_stacks(m):
@@ -2536,6 +2982,21 @@ def release(torch):
     torch.cuda.empty_cache()
 
 
+def child_processes() -> list[str]:
+    """This process's children that are still there, as "pid name"."""
+    me, left = str(os.getpid()), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:                       # it ended meanwhile
+            continue
+        # "pid (name) state ppid ...": the name may hold spaces
+        if text[text.rindex(")") + 2:].split()[1] == me:
+            left.append(f"{stat.parent.name} "
+                        f"{text[text.index('(') + 1:text.rindex(')')]}")
+    return left
+
+
 def zero_switch():
     from repro_torch.kernels import fused_dispatch, switched_mlp
     switched_mlp.switched_mlp.launches = 0
@@ -3165,6 +3626,19 @@ def main() -> int:
     train_resume(np, torch)
     log(f"  phase {time.time() - t0:.1f} s")
 
+    # the train phases of the mesh, the MoE family and the example twin
+    # launch none of the four kernels
+    for name, phase in (("train mesh full width", train_mesh_full_width),
+                        ("train moe", train_moe),
+                        ("train example twin",
+                         lambda np, torch: train_example_twin(torch))):
+        release(torch)
+        log(f"[{name}]")
+        t0 = time.time()
+        phase(np, torch)
+        release(torch)
+        log(f"  phase {time.time() - t0:.1f} s")
+
     log("[paper pipeline full width]")
     t0 = time.time()
     paper_runs = paper_pipeline_full_width(np, torch)
@@ -3185,6 +3659,13 @@ def main() -> int:
         log(f"  phase {time.time() - t0:.1f} s, peak memory "
             f"{torch.cuda.max_memory_allocated()} B")
         release(torch)
+
+    # every process a phase started (ranks, fork servers, launchers,
+    # compilers) has ended before the result is printed
+    left = child_processes()
+    if left:
+        raise AssertionError(f"processes left running: {left}")
+    log("[processes] no child process left")
 
     # library_ms is null for all four: no single PyTorch call computes a
     # per-tile weight-switched MLP, the one-approximator MLP (addmm + tanh

@@ -17,8 +17,10 @@ the reference's on-disk layout.
 ``save`` takes a pytree of tensors (nested dicts, lists and tuples; numpy
 arrays, scalars and strings too) and ``restore`` gives back the pytree of
 CPU tensors.  The trainer saves its state as the reference's pytree
-(``convert.train_state_to_tree``), so the port and the reference read
-each other's checkpoints.
+(``save_train_state``: ``convert.train_state_to_tree``), so the port and
+the reference read each other's checkpoints.  Checkpoints are
+mesh-agnostic: a mesh saves every leaf whole and ``restore_train_state``
+shards it onto whatever mesh (or one device) restores it.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch import convert
+from repro_torch.sharding import collectives as C
 
 _EMPTY = "__empty_dict__"  # sentinel: empty subtree (e.g. non-param LN {})
 
@@ -156,3 +161,31 @@ def restore(ckpt_dir: str, step: int | None = None):
         flat = {k: _from_host(arrays[meta["name"]], meta["dtype"])
                 for k, meta in manifest["paths"].items()}
     return _unflatten(flat), step
+
+
+def save_train_state(ckpt_dir: str, step: int, cfg, state, *, mesh=None,
+                     keep_k: int = 3):
+    """Save a port train state in the reference's layout.  On ``mesh``
+    every rank passes its shards: each leaf is gathered whole, rank 0
+    writes, and the ranks meet at a barrier, so the checkpoint is the one
+    device's whatever mesh wrote it.  Returns the checkpoint's path (None
+    on the other ranks)."""
+    tree = convert.train_state_to_tree(cfg, state, mesh=mesh)
+    path = save(ckpt_dir, step, tree, keep_k=keep_k) \
+        if mesh is None or mesh.rank == 0 else None
+    if mesh is not None:
+        C.barrier()
+    return path
+
+
+def restore_train_state(ckpt_dir: str, cfg, *, mesh=None, device=None,
+                        step: int | None = None):
+    """(port train state, step) from the newest checkpoint (or ``step``),
+    or (None, None) when there is none: the leaves read whole, and on
+    ``mesh`` sharded by ``sharding/rules.state_pspecs`` onto ``device``
+    (``convert.train_state_from_jax``)."""
+    tree, at = restore(ckpt_dir, step)
+    if tree is None:
+        return None, None
+    return convert.train_state_from_jax(cfg, tree, device=device,
+                                        mesh=mesh), at

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Norm
 from repro_torch.models.model import Model, topology
+from repro_torch.sharding import collectives as C
 
 
 def _flatten(tree, prefix=""):
@@ -139,16 +140,19 @@ def decay_mask(cfg: ModelConfig, params: Model) -> dict[str, bool]:
             for name, p in params.named_parameters()}
 
 
-def train_state_from_jax(cfg: ModelConfig, state, *, device=None) -> dict:
+def train_state_from_jax(cfg: ModelConfig, state, *, device=None,
+                         mesh=None) -> dict:
     """The port's train state ``{"params": Model, "opt": {"m", "v"},
     "step"}`` from a reference train state (``runtime/steps.
     init_train_state``'s pytree, numpy or tensor leaves): the parameters
     as ``params_from_jax`` loads them, trainable; the AdamW moments split
     per layer like the parameters, float32 under the parameters' names;
-    ``step`` an int32 scalar tensor."""
+    ``step`` an int32 scalar tensor.  On ``mesh`` every parameter and
+    moment is this rank's shard under ``sharding/rules.state_pspecs``
+    (loaded whole on the CPU, then sharded and moved)."""
     dev = resolve_device(device)
-    params = params_from_jax(cfg, state["params"], device=dev)
-    params.requires_grad_(True)
+    params = params_from_jax(cfg, state["params"],
+                             device="cpu" if mesh is not None else dev)
     own = dict(params.named_parameters())
     opt = {}
     for k in ("m", "v"):
@@ -160,21 +164,35 @@ def train_state_from_jax(cfg: ModelConfig, state, *, device=None) -> dict:
             if t.shape != own[name].shape or t.dtype != torch.float32:
                 raise TypeError(f"opt[{k!r}][{name!r}]: {t.dtype} "
                                 f"{tuple(t.shape)}")
-        opt[k] = {name: flat[name].to(dev) for name in own}
+        opt[k] = {name: flat[name] for name in own}
+    if mesh is not None:
+        specs = C.shard_params(mesh, params, dev)
+        opt = {k: {n: C.shard_tensor(mesh, t, specs[n]) for n, t in m.items()}
+               for k, m in opt.items()}
+    params.requires_grad_(True)
+    opt = {k: {n: t.to(dev) for n, t in m.items()} for k, m in opt.items()}
     step = to_torch(state["step"]).to(device=dev, dtype=torch.int32)
     return {"params": params, "opt": opt, "step": step.reshape(())}
 
 
-def train_state_to_tree(cfg: ModelConfig, state) -> dict:
+def train_state_to_tree(cfg: ModelConfig, state, *, mesh=None) -> dict:
     """A port train state as the reference's pytree of CPU tensors
     (stacked leaves, nested dicts): what ``train_state_from_jax`` reads
     back, and the layout checkpoints are written in.  An unstacked leaf
-    of a state on the CPU shares its storage with the state."""
+    of a state on the CPU shares its storage with the state.  On
+    ``mesh`` the state is this rank's shards: each leaf is gathered whole
+    (a collective: every rank calls it) by its parameter's spec."""
     empty = _empty_paths(cfg, state["params"])
-    return {"params": _stack(cfg, dict(state["params"].named_parameters()),
+    named = dict(state["params"].named_parameters())
+    whole = (lambda k, t: t) if mesh is None else \
+        (lambda k, t: C.gather_whole(t.detach(), named[k]._pspec,
+                                     mesh).cpu())
+    return {"params": _stack(cfg, {k: whole(k, p) for k, p in named.items()},
                              empty),
-            "opt": {k: _stack(cfg, state["opt"][k], empty)
-                    for k in ("m", "v")},
+            "opt": {m: _stack(cfg, {k: whole(k, t)
+                                    for k, t in state["opt"][m].items()},
+                              empty)
+                    for m in ("m", "v")},
             "step": state["step"].detach().cpu()}
 
 

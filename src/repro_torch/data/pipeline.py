@@ -14,7 +14,9 @@ Markov backbone (each token follows its predecessor through the fixed map
 draw).  It is drawn from a ``torch.Generator``, not from ``jax.random``,
 so its tokens differ from the reference's; tests that compare the two
 packages feed both the same batch.  The batch is made on the CPU, whatever
-device trains on it, so one seed gives one stream everywhere.
+device trains on it, so one seed gives one stream everywhere.  On a mesh
+every rank draws the global batch as one device does and keeps its rows
+of it (``local_batch``), so the mesh trains on one card's tokens.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import dp_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +81,17 @@ def batch_at(ds: SyntheticLM, step: int) -> dict:
     toks = _markov_tokens(gen, ds.local_batch, ds.seq_len + 1, ds.vocab)
     return {"inputs": toks[:, :-1].contiguous(),
             "labels": toks[:, 1:].contiguous()}
+
+
+def local_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
+    """This data rank's rows of a global batch (``batch_at`` of a dataset
+    with one host): its ``collectives.local_rows`` of each of the
+    ``grad_accum`` microbatches, in microbatch order, so that slice i of
+    what it returns is its part of the single device's microbatch i."""
+    dp = dp_axes(mesh)
+
+    def rows(t):
+        mbs = t.reshape(grad_accum, t.shape[0] // grad_accum, *t.shape[1:])
+        return mbs[:, C.local_rows(mesh, dp, mbs.shape[1])].reshape(
+            -1, *t.shape[1:]).contiguous()
+    return {k: rows(v) for k, v in batch.items()}

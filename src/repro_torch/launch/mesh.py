@@ -3,7 +3,10 @@ launcher that starts one process per rank.
 
 A ``HostMesh`` lays the ranks of an initialized ``torch.distributed``
 process group out on named axes, ("data", "model") or ("pod", "data",
-"model"), row-major as ``jax.make_mesh`` lays out devices.  It carries
+"model"), row-major as ``jax.make_mesh`` lays out devices, or
+("pod",) alone (the int8 all-reduce of ``optim/compression.py``): one
+world may hold several meshes over its ranks, each with groups of its
+own.  It carries
 what the sharding rules read (``axis_names``, and ``devices``: the array
 of ranks) and a process group per axis, for ``sharding/collectives.py``.
 It is built on ``torch.distributed.device_mesh.init_device_mesh``.
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import math
 import socket
+from multiprocessing import forkserver, resource_tracker
 
 import numpy as np
 import torch
@@ -26,6 +30,16 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 _MESH_AXES = ("pod", "data", "model")
+
+
+class MeshShape:
+    """A mesh's axis names and array of ranks without a process group:
+    what the refusals (``models.model.check_mesh_trainable``) read before
+    the ranks exist."""
+
+    def __init__(self, shape, axis_names=("data", "model")):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.arange(math.prod(shape)).reshape(shape)
 
 
 class HostMesh:
@@ -53,7 +67,7 @@ class HostMesh:
                         for a in axis_names}
         from repro_torch.sharding.rules import dp_axes
         dp = dp_axes(self)
-        if len(dp) > 1:
+        if len(dp) > 1 and set(dp) <= set(axis_names):
             self._groups[dp] = self._flat_group(dp)
 
     def _flat_group(self, axes):
@@ -153,6 +167,15 @@ def spawn_world(fn, world: int, args=(), *, backend: str = "gloo",
     # port once, instead of each importing them afresh
     mp.set_forkserver_preload(["torch", "repro_torch.runtime.server",
                                "repro_torch.launch.mesh"])
-    mp.start_processes(_rank_main,
-                       args=(fn, world, backend, init_method, arena, args),
-                       nprocs=world, join=True, start_method="forkserver")
+    try:
+        mp.start_processes(_rank_main,
+                           args=(fn, world, backend, init_method, arena,
+                                 args),
+                           nprocs=world, join=True,
+                           start_method="forkserver")
+    finally:
+        # the fork server and the resource tracker it started outlive the
+        # ranks (and, by a moment, this process): stop both here, so that
+        # no process of the world is left once this returns
+        forkserver._forkserver._stop()
+        resource_tracker._resource_tracker._stop()

@@ -50,6 +50,7 @@ from repro_torch.kernels.ops import LANE, _pad_to, gather_resident_stacks
 from repro_torch.models.layers import FFN, ffn_fwd, param
 from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
                                           mcma_dispatch, plan_invoke_stats)
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import manual_dp_context
 from repro_torch.sharding.rules import dp_axes, shard_capacity
 
@@ -119,7 +120,12 @@ def approx_ffn_train(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor):
     competitive labels, which the model sums over layers to train the
     tick-router head).  The stacks are read through their logical views
     (``approx_stacks``), so the padding and the pseudo-class get zero
-    gradients."""
+    gradients.
+
+    On a mesh (``runtime/steps.train_mesh_context``) ``x`` is the rank's
+    rows: the exact FFN runs tensor-parallel, the labels, ``safe`` and
+    the votes stay per token, and the losses and metrics are the global
+    batch's, the same on every rank."""
     a = cfg.approx
     n = a.n_live
     b, s, d = x.shape
@@ -146,11 +152,24 @@ def approx_ffn_train(cfg: ModelConfig, p: ApproxFFN, x: torch.Tensor):
     sq = ((approx.float() - tgt[None]) ** 2).sum(-1)        # (n, T)
     # territory tokens at weight 1; all tokens at small weight (exploration)
     w = own + 0.05
-    distill = (sq * w).sum() / w.sum().clamp(min=1.0) / d
+    num, den = (sq * w).sum(), w.sum()
+    invocation = safe.float().mean()
+    router_acc = (logits.argmax(-1) == labels).float().mean()
+    mesh, dp = manual_dp_context()
+    if mesh is not None:
+        # the global values: the means over equal data shards, and the
+        # distillation's ratio of global sums (per-shard ratios differ
+        # when the territories are uneven)
+        g = mesh.size(dp)
+        router_loss, num, den, invocation, router_acc = C.all_reduce_sum(
+            torch.stack([router_loss, num, den, invocation, router_acc]),
+            dp).unbind()
+        router_loss, invocation, router_acc = \
+            router_loss / g, invocation / g, router_acc / g
+    distill = num / den.clamp(min=1.0) / d
 
     aux = {"loss": a.router_weight * router_loss + a.distill_weight * distill,
-           "invocation": safe.float().mean(),
-           "router_acc": (logits.argmax(-1) == labels).float().mean(),
+           "invocation": invocation, "router_acc": router_acc,
            "label_votes": F.one_hot(labels, n + 1).float()}
     return exact.reshape(b, s, d), aux
 

@@ -18,8 +18,8 @@ Attention is plain PyTorch, as it is plain JAX in the reference: the
 same einsums, the f32 scores, the ``-1e30`` mask and the softmax weights
 cast to the value dtype.
 
-On a mesh (inside ``runtime/steps.serve_mesh_context``, one process per
-rank) each rank holds its block of every weight as
+On a mesh (inside ``runtime/steps.serve_mesh_context`` or
+``train_mesh_context``, one process per rank) each rank holds its block of every weight as
 ``sharding/rules.param_pspecs`` places it, and its data shard's rows of
 the activations, replicated over "model".  The layers then run
 tensor-parallel over "model" where the rules shard: attention
@@ -35,7 +35,13 @@ this rank's rows and kv heads; a paged pool is whole on every data shard
 (the rules replicate pages over data) and needs no traffic between
 shards: each slot's block-table row routes its reads to its own pages,
 so a page that another shard's slot writes is never read here, and each
-data rank writes only its own slots' pages.
+data rank writes only its own slots' pages.  Training runs full causal
+attention over the rank's rows; the collectives carry their backward
+(``sharding/collectives.py``): an all-reduced output's gradient passes
+as it is, a replicated input of a column-parallel projection gets its
+gradient summed over "model" (``copy_to_model``), the gathered logits
+give each rank its vocab block's gradient, and an unsharded weight's
+gradient is reduce-scattered over the data axes.
 """
 from __future__ import annotations
 
@@ -166,13 +172,13 @@ def embed_fwd(cfg: ModelConfig, p: Embed, inputs: torch.Tensor):
 
 def unembed_fwd(cfg: ModelConfig, p: Embed, x: torch.Tensor):
     """Logits (..., vocab); on a mesh with the vocab over "model" each
-    rank computes its vocab block and the blocks are all-gathered."""
+    rank computes its vocab block and the blocks are all-gathered (the
+    input is the replicated input of a column-parallel projection)."""
     w = p.tok.T if cfg.tie_embeddings else p.unembed
-    y = x @ w.to(x.dtype)
-    mesh = _mesh()
-    if mesh is not None and y.shape[-1] != cfg.vocab:
-        y = C.all_gather(y, "model", dim=-1)
-    return y
+    if _mesh() is None or w.shape[-1] == cfg.vocab:
+        return x @ w.to(x.dtype)
+    y = C.copy_to_model(x) @ w.to(x.dtype)
+    return C.all_gather(y, "model", dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +214,9 @@ def _ffn(cfg: ModelConfig, w_in, w_gate, w_out, x):
 def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
     """The FFN.  On a mesh, Megatron-TP: d_ff sharded over "model" (the
     activation is elementwise, so each rank's d_ff block is its own), the
-    data-sharded dims gathered at use, one all-reduce over "model"."""
+    data-sharded dims gathered at use, one all-reduce over "model"; in
+    the backward the input's gradient is summed over "model" and the
+    weights' reduce-scattered over the data axes."""
     w_gate = p.w_gate if cfg.gated_ffn else None
     if _mesh() is None:
         return _ffn(cfg, p.w_in, w_gate, p.w_out, x)
@@ -216,7 +224,8 @@ def ffn_fwd(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
         w_in, w_gate, w_out = C.unshard(p.w_in, p.w_gate, p.w_out)
     else:
         w_in, w_out = C.unshard(p.w_in, p.w_out)
-    return C.all_reduce_sum(_ffn(cfg, w_in, w_gate, w_out, x), "model")
+    return C.all_reduce_sum(_ffn(cfg, w_in, w_gate, w_out,
+                                 C.copy_to_model(x)), "model")
 
 
 # ---------------------------------------------------------------------------
@@ -255,17 +264,14 @@ def _head_cfg(cfg: ModelConfig, n_heads: int, n_kv_heads: int):
 def _attn_weights(cfg: ModelConfig, p: Attention, mesh):
     """(cfg with this rank's head counts, its ``_AttnW``).  On a mesh the
     projections' data-sharded dims are gathered (one collective) and the
-    replicated qkv biases sliced to the rank's columns."""
+    replicated qkv biases cut to the rank's columns (``model_columns``,
+    whose backward gathers their gradients whole)."""
     bias = [getattr(p, n, None) for n in ("bq", "bk", "bv")]
     if mesh is None:
         return cfg, _AttnW(p.wq, p.wk, p.wv, p.wo, *bias)
     wq, wk, wv, wo = C.unshard(p.wq, p.wk, p.wv, p.wo)
-    m = C.model_index(mesh)
-
-    def local(b, w):
-        n = w.shape[1]
-        return b if b is None or b.shape[0] == n else b[m * n:(m + 1) * n]
-    bias = [local(b, w) for b, w in zip(bias, (wq, wk, wv))]
+    bias = [b if b is None else C.model_columns(b, w.shape[1])
+            for b, w in zip(bias, (wq, wk, wv))]
     return (_head_cfg(cfg, wq.shape[1] // cfg.hd, wk.shape[1] // cfg.hd),
             _AttnW(wq, wk, wv, wo, *bias))
 
@@ -475,13 +481,15 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 
     On a mesh (module docstring) the rank attends over its own heads
     against its own cache rows and heads, and the output projection's
-    partial sums are all-reduced over "model"."""
+    partial sums are all-reduced over "model"; in the backward the
+    input's gradient is summed over "model" (every head block's
+    projections read it)."""
     mesh = _mesh()
     cfg, w = _attn_weights(cfg, p, mesh)
-    out, new_cache = _attention(cfg, w, x, positions, cache)
-    if mesh is not None:
-        out = C.all_reduce_sum(out, "model")
-    return out, new_cache
+    if mesh is None:
+        return _attention(cfg, w, x, positions, cache)
+    out, new_cache = _attention(cfg, w, C.copy_to_model(x), positions, cache)
+    return C.all_reduce_sum(out, "model"), new_cache
 
 
 def _attention(cfg: ModelConfig, p, x, positions, cache):

@@ -34,7 +34,10 @@ dispatch metrics, the same on every rank.  ``init_cache`` then builds the
 rank's shard of the cache and ``reset_slot`` resets a global slot where
 this rank holds it.  ``pos`` stays whole on every rank (the rules
 replicate it).  The dense family serves on a mesh; the others raise
-(``check_mesh_servable``).
+(``check_mesh_servable``).  Inside ``runtime/steps.train_mesh_context``
+``forward(serve=False)`` and ``lm_loss`` take the rank's rows and give
+the global batch's losses and metrics on every rank; the dense family
+trains there, the others raise (``check_mesh_trainable``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
 from repro_torch.models.approx_ffn import _manual_serve_ctx
 from repro_torch.runtime.dispatch import plan_invoke_stats
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.activations import (manual_dp_context,
+                                             with_current_context)
 from repro_torch.sharding.rules import cache_pspecs
 
 
@@ -291,9 +295,11 @@ def _mamba_block(cfg: ModelConfig, p: MambaBlock, x, state):
 def _maybe_remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, recomputed in the backward under ``cfg.remat`` when
     autograd records (the reference's ``jax.checkpoint`` of the block
-    body): the same values, fewer activations kept."""
+    body): the same values, fewer activations kept.  The recompute runs
+    in the mesh context of the forward (``with_current_context``)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(with_current_context(fn), *args,
+                          use_reentrant=False)
     return fn(*args)
 
 
@@ -308,7 +314,19 @@ def _tick_router_loss(cfg: ModelConfig, params: Model, x0, votes):
     logp = F.log_softmax(t_logits, -1)
     loss = -logp.gather(1, tick_labels[:, None]).mean()
     acc = (t_logits.argmax(-1) == tick_labels).float().mean()
-    return loss, acc
+    return _global_means(loss, acc)
+
+
+def _global_means(*means):
+    """Means over this rank's rows as the global batch's: on a mesh (a
+    train mesh context) the mean of the data shards' means (equal
+    shards), the same on every rank; else as they are."""
+    mesh, dp = manual_dp_context()
+    if mesh is None:
+        return means
+    g = mesh.size(dp)
+    return tuple(m / g for m in C.all_reduce_sum(torch.stack(means),
+                                                  dp).unbind())
 
 
 def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
@@ -424,13 +442,18 @@ def lm_loss(cfg: ModelConfig, params: Model, inputs: torch.Tensor,
     training forward.  labels: (B, S).  Returns (loss + aux, metrics with
     ``lm_loss`` and ``aux_loss``).  The max is subtracted without a
     gradient, and the label's logit is gathered where the reference
-    contracts with a one-hot (the same value)."""
+    contracts with a one-hot (the same value).
+
+    On a mesh (``runtime/steps.train_mesh_context``) ``inputs`` and
+    ``labels`` are the rank's rows, and the loss is the global batch's
+    mean, the same on every rank (``check_mesh_trainable`` says which
+    configs and meshes train there)."""
     logits, _, aux, metrics = forward(cfg, params, inputs)
     logits = logits.float()
     shifted = logits - logits.amax(-1, keepdim=True).detach()
     lse = torch.logsumexp(shifted, -1)
     picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
-    loss = (lse - picked).mean()
+    (loss,) = _global_means((lse - picked).mean())
     return loss + aux, dict(metrics, lm_loss=loss, aux_loss=aux)
 
 
@@ -517,6 +540,35 @@ def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
             "heads over model): the reference falls back to "
             "compiler-placed sharding there, the port refuses (ROADMAP "
             "queue 3, layout departures)")
+
+
+def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int):
+    """Raise unless ``cfg`` trains on ``mesh`` with microbatches of
+    ``batch`` rows: the dense family, with the batch dividing over the
+    data axes and the heads, the kv heads, d_ff and the vocab over
+    "model" (every tensor-parallel branch of the train path engaged).
+    Where it fails the reference falls back to compiler-placed sharding;
+    the port refuses (ROADMAP queue 3)."""
+    topo = topology(cfg)
+    if topo.kind != "uniform" or cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family} family) does not train on a mesh "
+            "yet: ROADMAP queue 1, item 15 (the mesh for the MoE, hybrid "
+            "and xLSTM families)")
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    md = sizes.get("model", 1)
+    g = 1
+    for ax in ("pod", "data"):
+        g *= sizes.get(ax, 1)
+    if batch % g or any(n % md for n in (cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.d_ff, cfg.vocab)):
+        raise NotImplementedError(
+            f"mesh {dict(sizes)} does not divide the sharded train path of "
+            f"{cfg.name} at microbatch {batch} (the microbatch over the data "
+            f"axes, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
+            f"d_ff={cfg.d_ff} and vocab={cfg.vocab} over model): the "
+            "reference falls back to compiler-placed sharding there, the "
+            "port refuses (ROADMAP queue 3, layout departures)")
 
 
 def _local(rows, *tensors):

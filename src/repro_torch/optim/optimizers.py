@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.sharding import collectives as C
+
 
 def _f32_like(params):
     return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -82,16 +84,41 @@ def rmsprop_update(params, grads, opt, *, lr, decay=0.9, eps=1e-8):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None):
     """Scales the gradients IN PLACE so their global norm is at most
     ``max_norm`` (each scaled in float32 and cast back to its dtype) and
-    returns (them, the norm before scaling as a float32 tensor)."""
-    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                          for g in grads.values()))
+    returns (them, the norm before scaling as a float32 tensor).
+
+    On ``mesh`` the gradients are this rank's shards and ``specs`` their
+    PartitionSpecs: each leaf's squared sum is taken over its shard and
+    summed over exactly the axes its spec shards (a replicated leaf
+    counted once), so every rank gets the same, global norm."""
+    if mesh is None:
+        norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                              for g in grads.values()))
+    else:
+        norm = torch.sqrt(_sharded_sq_sum(grads, mesh, specs))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.copy_((g.to(torch.float32) * scale).to(g.dtype))
     return grads, norm
+
+
+def _sharded_sq_sum(grads, mesh, specs):
+    """The squared sum of sharded gradients: the leaves grouped by the
+    axes their specs shard, each group's local sum summed over those
+    axes, the groups added in one order on every rank."""
+    groups: dict = {}
+    for k, g in grads.items():
+        groups.setdefault(C.spec_axes(mesh, specs[k]), []).append(
+            torch.sum(g.to(torch.float32) ** 2))
+    total = 0.0
+    for axes in sorted(groups):
+        part = torch.stack(groups[axes]).sum()
+        for ax in axes:
+            part = C.all_reduce_sum(part, ax, mesh)
+        total = total + part
+    return total
 
 
 def cosine_schedule(step, *, base_lr, warmup, total):

@@ -443,10 +443,7 @@ class DecodeServer:
         """Each parameter's storage replaced, in place, by this rank's
         block under ``sharding/rules.param_pspecs`` (its spec kept as
         ``_pspec`` for ``collectives.unshard``); the full copy is freed."""
-        specs, _ = R.param_pspecs(self.mesh, params)
-        for name, p in params.named_parameters():
-            p.data = C.shard_tensor(self.mesh, p.data, specs[name])
-            p._pspec = specs[name]
+        C.shard_params(self.mesh, params)
 
     def _step_kw(self, point) -> dict:
         return dict(use_mcma_dispatch=self.use_mcma_dispatch,

@@ -13,13 +13,14 @@ a plain closure over the config; the serve steps run under
 
 The train step is microbatched forward and backward (gradients summed in
 float32 over ``grad_accum`` slices of the batch, then divided), global-norm
-clipping, the cosine learning rate and AdamW.  The train state is
+clipping, the cosine learning rate and AdamW; inside
+``train_mesh_context(mesh)`` it is one rank's part of the same step on a
+("data", "model") mesh.  The train state is
 ``{"params": Model, "opt": {"m", "v"}, "step"}`` and the step updates it
 in place: the moments and the parameters are written where they lie.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -31,18 +32,35 @@ from repro_torch.models import model as M
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                cosine_schedule)
 from repro_torch.runtime.dispatch import DISPATCH_BACKENDS
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context, mesh_context
 
 
-def init_train_state(key, cfg: ModelConfig, *, device=None) -> dict:
+def init_train_state(key, cfg: ModelConfig, *, device=None,
+                     mesh=None) -> dict:
     """Random parameters from ``key`` (an int seed or a ``torch.Generator``)
     with gradients on, zero float32 AdamW moments and step 0, on
-    ``device`` (default: the GPU, which must exist)."""
+    ``device`` (default: the GPU, which must exist).  On ``mesh`` each
+    parameter is this rank's shard of the same draw
+    (``collectives.shard_params``), and the moments are shards too."""
     params = M.init_model(key, cfg, device=resolve_device(device))
+    if mesh is not None:
+        C.shard_params(mesh, params)
     params.requires_grad_(True)
     named = dict(params.named_parameters())
     return {"params": params, "opt": adamw_init(named),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=next(iter(named.values())).device)}
+
+
+def _reduce_over_data(named: dict, grads: dict, mesh, dp) -> dict:
+    """Each rank's gradients as the sums over the data ranks: a leaf that
+    ``unshard`` gathered has its sum from the reduce-scatter already; the
+    leaves replicated over the data axes are all-reduced, in one
+    collective per dtype."""
+    rep = [k for k, p in named.items() if not C._dp_dims(p._pspec, dp)]
+    summed = C.all_reduce_sum_many([grads[k] for k in rep], dp, mesh)
+    return dict(grads, **dict(zip(rep, summed)))
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int = 1):
@@ -51,7 +69,28 @@ def loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int = 1):
     splits into equal slices along B, the gradients are summed in float32
     zeros and divided by ``grad_accum``, and the loss and every metric
     are the mean of the slices' (equal slices: for a token-meaned metric,
-    the full-batch value)."""
+    the full-batch value).
+
+    Inside ``train_mesh_context`` ``batch`` is this rank's rows
+    (``data/pipeline.local_batch``: its rows of each global microbatch,
+    in microbatch order, so slice i of them is its part of the single
+    device's slice i), ``params`` its shards, and the result is the
+    single device's: the global loss and metrics on every rank, and each
+    gradient this rank's shard of the single device's gradient (the
+    losses are global means, so a sum over the data ranks is the whole
+    gradient: ``_reduce_over_data``)."""
+    loss, metrics, grads = _rank_loss_and_grads(cfg, params, batch,
+                                                grad_accum)
+    mesh, dp = manual_dp_context()
+    if mesh is not None:
+        grads = _reduce_over_data(dict(params.named_parameters()), grads,
+                                  mesh, dp)
+    return loss, metrics, grads
+
+
+def _rank_loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int):
+    """``loss_and_grads`` on this rank's rows, before the gradients'
+    reduction over the data axes."""
     named = dict(params.named_parameters())
     inputs, labels = batch["inputs"], batch["labels"]
 
@@ -94,7 +133,11 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
     divide by grad_accum.  The metrics are the forward's (layer-meaned)
     plus ``loss``, ``grad_norm`` (before clipping) and ``lr``, as tensors
     on the device: reading one is the caller's host sync.  The cosine
-    schedule gives lr 0 at step 0 when ``warmup > 0``."""
+    schedule gives lr 0 at step 0 when ``warmup > 0``.  Inside
+    ``train_mesh_context`` the state is this rank's shards and the batch
+    its rows (``loss_and_grads``); the norm is clipped over the shards
+    and AdamW updates each rank's shards, so the result is the single
+    device's step, every metric the same on every rank."""
     decay = {}
 
     def train_step(state, batch):
@@ -103,7 +146,11 @@ def make_train_step(cfg: ModelConfig, *, grad_accum: int = 1,
             decay.update(decay_mask(cfg, params))
         loss, metrics, grads = loss_and_grads(cfg, params, batch,
                                               grad_accum)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        mesh, _ = manual_dp_context()
+        specs = None if mesh is None else {
+            k: p._pspec for k, p in params.named_parameters()}
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, mesh=mesh,
+                                           specs=specs)
         lr = cosine_schedule(state["step"], base_lr=base_lr, warmup=warmup,
                              total=total_steps)
         adamw_update(dict(params.named_parameters()), grads, state["opt"],
@@ -141,22 +188,18 @@ def mcma_serve_config(cfg: ModelConfig, *,
         cfg.approx, backend=backend))
 
 
-@contextlib.contextmanager
-def serve_mesh_context(mesh):
-    """The serve context of a mesh deployment: the mesh and the
-    batch-sharded activation spec (``sharding/activations``), which the
-    serve-mode model code reads to run as this rank's part of the SPMD
-    program (the dispatch engine per data shard with all-reduced stats,
-    tensor parallelism over "model").  ``mesh=None`` is a no-op, so
-    single-device callers share the code path.  Wraps every call of a
-    mesh server's steps (and ``init_cache`` / ``reset_slot``)."""
-    if mesh is None:
-        yield None
-        return
-    from repro_torch.sharding.activations import activation_sharding
-    from repro_torch.sharding.rules import P, dp_axes
-    with activation_sharding(P(dp_axes(mesh), None, None), mesh):
-        yield mesh
+# The serve and the train context of a mesh deployment are one context
+# manager, ``sharding/activations.mesh_context``: the mesh and the
+# batch-sharded activation spec, which the model code reads to run as this
+# rank's part of the SPMD program.  Served, every call of a mesh server's
+# steps (and ``init_cache`` / ``reset_slot``) runs inside it: the dispatch
+# engine per data shard with all-reduced stats, tensor parallelism over
+# "model".  Trained, ``loss_and_grads`` and ``make_train_step`` run inside
+# it on the rank's rows of the batch, tensor-parallel over "model", and
+# return the single device's gradients of the global loss, each rank its
+# shards.  ``mesh=None`` is a no-op, so single-device callers share the
+# code path.
+serve_mesh_context = train_mesh_context = mesh_context
 
 
 def _serve_cfg(cfg: ModelConfig, *, use_mcma_dispatch: bool,

@@ -1,5 +1,6 @@
 """Trainer (counterpart of ``repro/runtime/trainer.py``): the loop a
-training job runs on one device.
+training job runs, on one device or as one rank of a ("data", "model")
+mesh.
 
   * the train step of runtime/steps.py on the train state, in place;
   * deterministic data from ``data.pipeline.batch_at(step)``: a restart
@@ -13,8 +14,16 @@ training job runs on one device.
     outliers.
 
 One host read per step (``float(metrics["loss"])``, then the grad norm)
-ends the step's wall time.  A training mesh is not ported yet (ROADMAP queue 1,
-item 14).
+ends the step's wall time.
+
+With ``mesh`` (a ``launch/mesh.HostMesh``; every rank builds the same
+Trainer) the config must train there (``model.check_mesh_trainable``),
+the state is this rank's shards under ``sharding/rules.state_pspecs``,
+each step runs under ``steps.train_mesh_context`` on the rank's rows of
+the global batch (``data/pipeline.local_batch``), and checkpoints are
+saved whole and restored onto any mesh.  ``history``, the straggler
+flags and what ``run()`` returns are the same on every rank (a step's
+wall time is the slowest rank's); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -22,11 +31,12 @@ import dataclasses
 import time
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, local_batch
 from repro_torch.device import resolve_device
+from repro_torch.models import model as M
 from repro_torch.runtime import steps as steps_lib
+from repro_torch.sharding import collectives as C
 
 
 class PreemptionError(RuntimeError):
@@ -66,11 +76,16 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig, ds: SyntheticLM,
                  mesh=None, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a training mesh is not ported yet "
-                                      "(ROADMAP queue 1, item 14)")
         self.cfg, self.tc, self.ds, self.mesh = cfg, tc, ds, mesh
         self.device = resolve_device(device)
+        if mesh is not None:
+            if ds.n_hosts != 1 or ds.global_batch % tc.grad_accum:
+                raise ValueError(
+                    f"a mesh trains on one host's global batch of "
+                    f"{ds.global_batch} rows in {tc.grad_accum} equal "
+                    f"microbatches (n_hosts={ds.n_hosts})")
+            M.check_mesh_trainable(cfg, mesh,
+                                   ds.global_batch // tc.grad_accum)
         self.monitor = StragglerMonitor()
         self.history: list[dict] = []
         self.step_fn = steps_lib.make_train_step(
@@ -80,14 +95,22 @@ class Trainer:
         restored = None
         # ---- auto-restore ---------------------------------------------------
         if tc.ckpt_dir:
-            restored, at = ckpt_lib.restore(tc.ckpt_dir)
+            restored, at = ckpt_lib.restore_train_state(
+                tc.ckpt_dir, cfg, mesh=mesh, device=self.device)
         if restored is not None:
-            self.state = convert.train_state_from_jax(cfg, restored,
-                                                      device=self.device)
+            self.state = restored
             self.start_step = int(at)
         else:
-            self.state = steps_lib.init_train_state(seed, cfg,
-                                                    device=self.device)
+            self.state = steps_lib.init_train_state(
+                seed, cfg, device=self.device, mesh=mesh)
+        self.rank0 = mesh is None or mesh.rank == 0
+
+    def _batch_at(self, step: int) -> dict:
+        """The step's batch on the device: on a mesh this rank's rows."""
+        batch = self.ds.batch_at(step)
+        if self.mesh is not None:
+            batch = local_batch(batch, self.mesh, self.tc.grad_accum)
+        return {k: v.to(self.device) for k, v in batch.items()}
 
     def run(self) -> dict:
         t_start = time.time()
@@ -95,28 +118,33 @@ class Trainer:
         while step < self.tc.total_steps:
             if self.tc.fail_at is not None and step == self.tc.fail_at:
                 raise PreemptionError(f"injected preemption at step {step}")
-            batch = {k: v.to(self.device)
-                     for k, v in self.ds.batch_at(step).items()}
+            batch = self._batch_at(step)
             t0 = time.time()
-            self.state, metrics = self.step_fn(self.state, batch)
+            with steps_lib.train_mesh_context(self.mesh):
+                self.state, metrics = self.step_fn(self.state, batch)
             loss = float(metrics["loss"])           # blocks; honest step time
-            dt = time.time() - t0
+            dt = self._slowest(time.time() - t0)
             slow = self.monitor.observe(dt)
             step += 1
             rec = {"step": step, "loss": loss, "dt": dt, "slow": slow,
                    "grad_norm": float(metrics["grad_norm"])}
             self.history.append(rec)
-            if step % self.tc.log_every == 0 or step == self.tc.total_steps:
+            if self.rank0 and (step % self.tc.log_every == 0
+                               or step == self.tc.total_steps):
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"({dt:.2f}s{' SLOW' if slow else ''})", flush=True)
             if self.tc.ckpt_dir and (step % self.tc.ckpt_every == 0
                                      or step == self.tc.total_steps):
-                ckpt_lib.save(self.tc.ckpt_dir, step,
-                              convert.train_state_to_tree(self.cfg,
-                                                          self.state),
-                              keep_k=self.tc.keep_k)
+                ckpt_lib.save_train_state(self.tc.ckpt_dir, step, self.cfg,
+                                          self.state, mesh=self.mesh,
+                                          keep_k=self.tc.keep_k)
         return {"steps": step - self.start_step,
                 "final_loss": self.history[-1]["loss"] if self.history
                 else None,
-                "wall_s": time.time() - t_start,
+                "wall_s": self._slowest(time.time() - t_start),
                 "slow_steps": self.monitor.slow_steps}
+
+    def _slowest(self, seconds: float) -> float:
+        """A host time as the slowest rank's on a mesh (the same on every
+        rank), else as it is."""
+        return seconds if self.mesh is None else C.world_max(seconds)

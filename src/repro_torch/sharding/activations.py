@@ -38,6 +38,34 @@ def activation_sharding(spec, mesh=None):
         _SPEC.reset(tok)
 
 
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """The context of one rank's part of an SPMD program on ``mesh``: the
+    mesh and the residual stream batch-sharded over its data axes,
+    ``P(dp, None, None)``.  ``mesh=None`` is a no-op, so single-device
+    callers share the code path (``runtime/steps.serve_mesh_context`` and
+    ``train_mesh_context``)."""
+    if mesh is None:
+        yield None
+        return
+    from repro_torch.sharding.rules import P, dp_axes
+    with activation_sharding(P(dp_axes(mesh), None, None), mesh):
+        yield mesh
+
+
+def with_current_context(fn):
+    """``fn`` bound to the enclosing context's spec and mesh, which it
+    sees wherever it runs later: the backward's recompute of a
+    checkpointed block runs on autograd's device thread, which context
+    variables do not reach."""
+    spec, mesh = _SPEC.get(), _MESH.get()
+
+    def bound(*args):
+        with activation_sharding(spec, mesh):
+            return fn(*args)
+    return bound
+
+
 def current_mesh():
     """The mesh of the enclosing context, or None."""
     return _MESH.get()

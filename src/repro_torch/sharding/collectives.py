@@ -2,35 +2,50 @@
 ``all_gather`` (no reference counterpart: in the reference they are
 primitives of ``shard_map``).
 
-Every collective of the mesh serving path goes through here, so the
-backend is one choice (``launch/mesh.HostMesh``): gloo, or NCCL where
-each rank has a card of its own.  Gloo runs on host memory.  Ranks of one
-host that share an exchange arena (``use_host_arena``, given by
-``launch/mesh.spawn_world``) move a gather's payload through it instead
-of gloo's loopback TCP: each rank writes its part into its own slot, a
-gloo barrier, each reads its group's slots, a second barrier (so no slot
-is rewritten before its readers are done).  Otherwise a CUDA tensor under
-gloo is staged through a pinned host buffer and back.  Either way a CUDA
-tensor's trip through the host is copies the host waits for, counted in
-``COUNTS["staged"]`` (and its bytes), and no rank's compute moves off its
-device.
+Every collective of the mesh serving and training paths goes through
+here, so the backend is one choice (``launch/mesh.HostMesh``): gloo, or
+NCCL where each rank has a card of its own.  Gloo runs on host memory.
+Ranks of one host that share an exchange arena (``use_host_arena``, given
+by ``launch/mesh.spawn_world``) move a gather's payload through it
+instead of gloo's loopback TCP, in rounds of at most a slot: each rank
+writes its part into its own slot, a gloo barrier, each reads its
+group's slots, a second barrier (so no slot is rewritten before its
+readers are done).  Otherwise a CUDA tensor under gloo is staged through
+a pinned host buffer and back.  Either way a CUDA tensor's trip through
+the host is copies the host waits for, counted in ``COUNTS["staged"]``
+(and its bytes), and no rank's compute moves off its device.
 
 ``all_reduce_sum`` gathers the shards and adds them in rank order, so
 every rank of the group holds the same bits whatever the backend's
 reduction order, and the sum of int32 stats stays int32.  ``mesh=None``
 takes the mesh of the enclosing ``sharding/activations`` context.  Over
 an axis of size 1 nothing is sent.
+
+The collectives that the model's forward calls are
+``torch.autograd.Function``s, and their backward depends on who
+consumes the result: ``all_gather`` (consumers replicated over the
+axes, as the logits are) takes this rank's slice of the gradient;
+``all_reduce_sum`` (a row-parallel output) passes the gradient on;
+``copy_to_model`` (the identity on the replicated input of a
+column-parallel projection) sums it over "model"; ``model_columns`` (a
+replicated leaf cut to the rank's columns) gathers it whole; and
+``unshard`` (FSDP) reduce-scatters it over the data axes, in one
+collective as its forward gathers.  Their forward results are those of
+the plain collectives, bit for bit.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.activations import current_mesh
-from repro_torch.sharding.rules import dp_axes
+from repro_torch.sharding.rules import dp_axes, param_pspecs
 
 # launches of the collectives, and the host stagings and their bytes
-COUNTS = {"all_gather": 0, "all_reduce": 0, "staged": 0, "staged_bytes": 0}
+COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0, "staged": 0,
+          "staged_bytes": 0}
 _PINNED: dict = {}
 # [shared uint8 arena, bytes a rank's slot, page-locked here yet]
 _ARENA: list = []
@@ -39,8 +54,9 @@ _ARENA: list = []
 def use_host_arena(arena: torch.Tensor, slot_bytes: int):
     """Move gathers through ``arena``, a uint8 CPU tensor in memory shared
     by every rank of the world: rank r's slot is bytes [r * slot_bytes,
-    (r + 1) * slot_bytes).  At its first CUDA gather a process page-locks
-    the arena, so copies to and from the card run at the pinned rate."""
+    (r + 1) * slot_bytes).  Once CUDA is initialized a process page-locks
+    the arena at its next exchange, so copies to and from the card run at
+    the pinned rate."""
     _ARENA[:] = [arena, slot_bytes, False]
 
 
@@ -66,13 +82,13 @@ def _pinned(dtype, numel: int, role: str) -> torch.Tensor:
 
 def _gather_parts(t: torch.Tensor, axes, mesh) -> list:
     """Every rank's ``t`` along ``axes``, in rank order, on ``t``'s
-    device.  A CUDA tensor under gloo goes out through one pinned buffer
-    and the other ranks' parts come back through another (copies the
-    host waits for); this rank's own part is ``t`` itself."""
+    device; this rank's own part is ``t`` itself.  Under gloo with an
+    arena the parts move through it; else a CUDA tensor under gloo goes
+    out through one pinned buffer and the other ranks' parts come back
+    through another (copies the host waits for)."""
     n, group = mesh.size(axes), mesh.group(axes)
-    nbytes = t.numel() * t.element_size()
-    if mesh.backend == "gloo" and _ARENA and nbytes <= _ARENA[1]:
-        return _arena_gather(t, axes, mesh, nbytes)
+    if mesh.backend == "gloo" and _ARENA:
+        return _arena_gather(t, axes, mesh)
     if not (t.is_cuda and mesh.backend == "gloo"):
         src = t.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
@@ -88,43 +104,45 @@ def _gather_parts(t: torch.Tensor, axes, mesh) -> list:
     return [t if i == me else dst[i].to(t.device) for i in range(n)]
 
 
-def _arena_gather(t: torch.Tensor, axes, mesh, nbytes: int) -> list:
+def _arena():
+    """(arena, slot bytes), page-locked once a CUDA tensor uses it."""
     arena, slot, locked = _ARENA
-    if t.is_cuda and not locked:
+    if torch.cuda.is_initialized() and not locked:
         torch.cuda.cudart().cudaHostRegister(arena.data_ptr(),
                                              arena.numel(), 0)
         _ARENA[2] = True
+    return arena, slot
 
-    def part(r):
-        return arena[r * slot:r * slot + nbytes].view(t.dtype).view(t.shape)
-    part(mesh.rank).copy_(t)
-    group = mesh.group(axes)
-    dist.barrier(group=group)
-    parts = [t if r == mesh.rank else torch.empty_like(t).copy_(part(r))
-             for r in mesh.group_ranks(axes)]
-    dist.barrier(group=group)
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as flat uint8."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _arena_gather(t: torch.Tensor, axes, mesh) -> list:
+    """The gather through the arena, in rounds of at most a slot: each
+    rank writes its bytes into its own slot, a barrier, each reads the
+    group's slots, a second barrier (so no slot is rewritten before its
+    readers are done)."""
+    arena, slot = _arena()
+    t = t.contiguous()
+    src, ranks, group = _bytes(t), mesh.group_ranks(axes), mesh.group(axes)
+    parts = {r: torch.empty_like(t) for r in ranks if r != mesh.rank}
+    for a in range(0, src.numel(), slot):
+        b = min(a + slot, src.numel())
+        arena[mesh.rank * slot:mesh.rank * slot + b - a].copy_(src[a:b])
+        dist.barrier(group=group)
+        for r, p in parts.items():
+            _bytes(p)[a:b].copy_(arena[r * slot:r * slot + b - a])
+        dist.barrier(group=group)
     if t.is_cuda:
         COUNTS["staged"] += 1
-        COUNTS["staged_bytes"] += mesh.size(axes) * nbytes
-    return parts
+        COUNTS["staged_bytes"] += len(ranks) * src.numel()
+    return [t if r == mesh.rank else parts[r] for r in ranks]
 
 
-def all_gather(t: torch.Tensor, axes, dim: int = 0, mesh=None):
-    """The shards of ``t`` along ``axes``, concatenated on ``dim`` in
-    rank order (``jax.lax.all_gather(..., tiled=True)``)."""
-    mesh = _mesh(mesh)
-    if mesh.size(axes) == 1:
-        return t
-    COUNTS["all_gather"] += 1
-    return torch.cat(_gather_parts(t, axes, mesh), dim)
-
-
-def all_reduce_sum(t: torch.Tensor, axes, mesh=None):
-    """The sum of ``t`` over ``axes`` (``jax.lax.psum``), added in rank
-    order: bitwise equal on every rank of the group, dtype kept."""
-    mesh = _mesh(mesh)
-    if mesh.size(axes) == 1:
-        return t
+def _sum_parts(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, added in rank order."""
     COUNTS["all_reduce"] += 1
     parts = _gather_parts(t, axes, mesh)
     out = parts[0].clone()
@@ -133,17 +151,228 @@ def all_reduce_sum(t: torch.Tensor, axes, mesh=None):
     return out
 
 
+def _exchange(send: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """All-to-all over ``axes``: ``send`` is (n, ...) with row i bound for
+    the group's i-th rank; returns (n, ...) whose row i came from the
+    group's i-th rank.  Through the arena (in rounds of at most a slot)
+    each rank writes its ``send`` and reads only its own row of every
+    slot; else gloo's all-to-all (a CUDA tensor staged through pinned
+    buffers)."""
+    n, me, group = mesh.size(axes), mesh.index(axes), mesh.group(axes)
+    send = send.contiguous()
+    if mesh.backend == "gloo" and _ARENA:
+        arena, slot = _arena()
+        ranks = mesh.group_ranks(axes)
+        rows = send.view(n, -1).view(torch.uint8)          # (n, row bytes)
+        recv = torch.empty_like(send)
+        out = recv.view(n, -1).view(torch.uint8)
+        out[ranks.index(mesh.rank)] = rows[me]
+        w = max(slot // n, 1)
+        for a in range(0, rows.shape[1], w):
+            b = min(a + w, rows.shape[1])
+            arena[mesh.rank * slot:mesh.rank * slot + n * (b - a)].view(
+                n, b - a).copy_(rows[:, a:b])
+            dist.barrier(group=group)
+            for i, r in enumerate(ranks):
+                if r != mesh.rank:
+                    out[i, a:b].copy_(arena[r * slot:r * slot + n * (b - a)]
+                                      .view(n, b - a)[me])
+            dist.barrier(group=group)
+        if send.is_cuda:
+            COUNTS["staged"] += 1
+            COUNTS["staged_bytes"] += rows.numel() + (n - 1) * rows.shape[1]
+        return recv
+    if not (send.is_cuda and mesh.backend == "gloo"):
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv
+    src = _pinned(send.dtype, send.numel(), "in").view(send.shape)
+    src.copy_(send)
+    dst = _pinned(send.dtype, send.numel(), "out").view(send.shape)
+    dist.all_to_all_single(dst, src, group=group)
+    COUNTS["staged"] += 1
+    COUNTS["staged_bytes"] += 2 * send.numel() * send.element_size()
+    return dst.to(send.device)
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward: the parts concatenated.  Backward: this rank's slice of
+    the gradient, unsummed: every rank of the group computes the same
+    loss from the gathered tensor, so its gradient is already whole."""
+
+    @staticmethod
+    def forward(ctx, t, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh, ctx.n = axes, dim, mesh, t.shape[dim]
+        return torch.cat(_gather_parts(t, axes, mesh), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index(ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: the sum over the group.  Backward: the identity (a
+    row-parallel output: each rank's partial sum takes the whole
+    gradient of the replicated result)."""
+
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        return _sum_parts(t, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity.  Backward: the sum over "model" (the
+    replicated input of a column-parallel projection: each rank's columns
+    give a partial gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_parts(g.contiguous(), "model", ctx.mesh), None
+
+
+class _ModelColumns(torch.autograd.Function):
+    """Forward: this rank's ``n`` entries of a replicated leaf (a qkv
+    bias cut to the rank's columns).  Backward: the ranks' slices of the
+    gradient gathered over "model", so the leaf's gradient is whole and
+    the same on every model rank, as a replicated leaf's is."""
+
+    @staticmethod
+    def forward(ctx, b, n, mesh):
+        ctx.mesh = mesh
+        return b.narrow(0, mesh.index("model") * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["all_gather"] += 1
+        return torch.cat(_gather_parts(g.contiguous(), "model", ctx.mesh),
+                         0), None, None
+
+
+def all_gather(t: torch.Tensor, axes, dim: int = 0, mesh=None):
+    """The shards of ``t`` along ``axes``, concatenated on ``dim`` in
+    rank order (``jax.lax.all_gather(..., tiled=True)``).  For a consumer
+    replicated over ``axes`` (the logits): the backward takes this rank's
+    slice of the gradient."""
+    mesh = _mesh(mesh)
+    if mesh.size(axes) == 1:
+        return t
+    COUNTS["all_gather"] += 1
+    return _AllGather.apply(t, axes, dim, mesh)
+
+
+def all_reduce_sum(t: torch.Tensor, axes, mesh=None):
+    """The sum of ``t`` over ``axes`` (``jax.lax.psum``), added in rank
+    order: bitwise equal on every rank of the group, dtype kept.  The
+    backward is the identity."""
+    mesh = _mesh(mesh)
+    if mesh.size(axes) == 1:
+        return t
+    return _AllReduceSum.apply(t, axes, mesh)
+
+
+def all_reduce_sum_many(tensors, axes, mesh=None) -> list:
+    """``all_reduce_sum`` of each tensor, in one collective per dtype
+    (not differentiable: for gradients after the backward)."""
+    mesh = _mesh(mesh)
+    tensors = list(tensors)
+    if mesh.size(axes) == 1:
+        return tensors
+    out = list(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = _sum_parts(torch.cat([tensors[i].reshape(-1) for i in idx]),
+                          axes, mesh)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view(tensors[i].shape)
+            off += n
+    return out
+
+
+def copy_to_model(x: torch.Tensor, mesh=None):
+    """``x`` as the replicated input of a column-parallel projection: the
+    identity, whose backward sums the gradient over "model"."""
+    mesh = _mesh(mesh)
+    if mesh.size("model") == 1:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def model_columns(b: torch.Tensor, n: int, mesh=None):
+    """This rank's ``n`` entries of the replicated vector ``b`` along
+    "model" (its column block); the backward gathers the gradient whole."""
+    mesh = _mesh(mesh)
+    if b.shape[0] == n:
+        return b
+    return _ModelColumns.apply(b, n, mesh)
+
+
 def _dp_dims(spec, dp) -> list:
     """The dims a spec shards over the data axes ``dp``."""
     want = dp[0] if len(dp) == 1 else tuple(dp)
     return [i for i, s in enumerate(spec or ()) if s == want]
 
 
+class _Unshard(torch.autograd.Function):
+    """Forward: the tensors' data-sharded dims gathered, in one
+    collective.  Backward: the reduce-scatter, in one collective: each
+    gathered gradient summed over the data ranks (each rank's loss is
+    over rows of its own) and this rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, mesh, dp, dims, *tensors):
+        ctx.mesh, ctx.dp, ctx.dims = mesh, dp, dims
+        ctx.shapes = [t.shape for t in tensors]
+        ctx.like = tensors[0].new_empty(())
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        parts = _gather_parts(flat, dp, mesh)
+        out, off = [], 0
+        for t, dim in zip(tensors, dims):
+            n = t.numel()
+            out.append(torch.cat([p[off:off + n].view(t.shape)
+                                  for p in parts], dim))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, dp, g = ctx.mesh, ctx.dp, ctx.mesh.size(ctx.dp)
+        COUNTS["reduce_scatter"] += 1
+        # row r: every tensor's block bound for data rank r, flattened
+        send = torch.cat([
+            (ctx.like.new_zeros((g, *s)) if gr is None else
+             torch.stack(gr.chunk(g, dim)))
+            .reshape(g, -1) for gr, s, dim in zip(grads, ctx.shapes,
+                                                  ctx.dims)], 1)
+        recv = _exchange(send, dp, mesh)
+        out = recv[0].clone()
+        for r in recv[1:]:
+            out += r
+        res, off = [], 0
+        for s in ctx.shapes:
+            n = math.prod(s)
+            res.append(out[off:off + n].view(s))
+            off += n
+        return (None, None, None, *res)
+
+
 def unshard(*tensors, mesh=None) -> tuple:
     """FSDP unshard-on-use: each tensor's dims that its ``_pspec`` (its
-    spec, kept by the server's ``_shard_params``) shards over the data
-    axes are gathered back, in ONE collective for all of them;
-    model-sharded dims stay local."""
+    spec, kept by ``shard_params``) shards over the data axes are
+    gathered back, in ONE collective for all of them; model-sharded dims
+    stay local.  The backward reduce-scatters their gradients, again in
+    one collective."""
     mesh = _mesh(mesh)
     dp = dp_axes(mesh)
     todo = [i for i, t in enumerate(tensors)
@@ -153,16 +382,12 @@ def unshard(*tensors, mesh=None) -> tuple:
     dtype = tensors[todo[0]].dtype
     assert all(tensors[i].dtype == dtype for i in todo), \
         "unshard gathers tensors of one dtype at a time"
-    flat = torch.cat([tensors[i].reshape(-1) for i in todo])
     COUNTS["all_gather"] += 1
-    parts = _gather_parts(flat, dp, mesh)
-    out, off = list(tensors), 0
-    for i in todo:
-        t = tensors[i]
-        n = t.numel()
-        (dim,) = _dp_dims(t._pspec, dp)
-        out[i] = torch.cat([p[off:off + n].view(t.shape) for p in parts], dim)
-        off += n
+    dims = tuple(_dp_dims(tensors[i]._pspec, dp)[0] for i in todo)
+    full = _Unshard.apply(mesh, dp, dims, *(tensors[i] for i in todo))
+    out = list(tensors)
+    for i, f in zip(todo, full):
+        out[i] = f
     return tuple(out)
 
 
@@ -181,6 +406,51 @@ def shard_tensor(mesh, t: torch.Tensor, spec) -> torch.Tensor:
         i = mesh.index(s)
         idx.append(slice(i * w, (i + 1) * w))
     return t[tuple(idx)].contiguous()
+
+
+def shard_params(mesh, params, device=None) -> dict:
+    """Each parameter of ``params`` (an ``nn.Module``) replaced, in place,
+    by this rank's block under ``sharding/rules.param_pspecs``, on
+    ``device`` (default: where it lies), with its spec kept as ``_pspec``
+    for ``unshard`` and the train step; the whole copy is freed.  Returns
+    {name: spec}."""
+    specs, _ = param_pspecs(mesh, params)
+    for name, p in params.named_parameters():
+        p.data = shard_tensor(mesh, p.data, specs[name]).to(
+            device or p.device)
+        p._pspec = specs[name]
+    return specs
+
+
+def spec_axes(mesh, spec) -> tuple:
+    """The mesh axes ``spec`` shards over, in mesh order."""
+    named = {a for s in spec or () if s is not None
+             for a in ((s,) if isinstance(s, str) else s)}
+    return tuple(a for a in mesh.axis_names if a in named)
+
+
+def gather_whole(t: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+    """``t`` whole from the shards under ``spec`` (each sharded dim
+    gathered over its axes; not differentiable)."""
+    mesh = _mesh(mesh)
+    for dim, s in enumerate(spec or ()):
+        if s is not None and mesh.size(s) > 1:
+            COUNTS["all_gather"] += 1
+            t = torch.cat(_gather_parts(t.contiguous(), s, mesh), dim)
+    return t
+
+
+def world_max(x: float) -> float:
+    """The largest of every rank's ``x`` (a host value, the same on every
+    rank)."""
+    t = torch.tensor([x], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t[0])
+
+
+def barrier():
+    """Every rank of the world meets here."""
+    dist.barrier()
 
 
 def local_rows(mesh, dp, n: int) -> slice:

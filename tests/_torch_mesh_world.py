@@ -184,3 +184,178 @@ def run(rank: int, out_dir: str):
             ServeOptions, LibrarySpec, OperatingPoint, mesh=mesh) \
             + (dict(C.COUNTS),)
     torch.save(payload, f"{out_dir}/rank{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# The training world of tests/test_torch_train_mesh.py: 4 ranks, the train
+# step on (2, 2) and (4, 1) meshes, a Trainer checkpoint crossing meshes,
+# and the int8 error-feedback all-reduce on a ("pod",) mesh.
+# ---------------------------------------------------------------------------
+
+TRAIN_RANKS = 4
+TRAIN_MESHES = ((2, 2), (4, 1))
+GRAD_ACCUMS = (1, 2)
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 2
+CKPT_STEPS = (2, 4)             # saved at, continued to
+QUAD = dict(steps=300, lr=0.05)
+
+
+def train_cfg():
+    """The reference's mesh-test config (tests/test_sharding.py) with the
+    ApproxFFN and the tick router at error bound 1.4 (both kinds of
+    label at a random init)."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    cfg = dataclasses.replace(smoke_config(get_config("internlm2-1.8b")),
+                              d_model=64, n_heads=4, n_kv_heads=2, vocab=256)
+    return dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=True, route_scope="tick", error_bound=1.4))
+
+
+def train_dataset():
+    from repro_torch.data.pipeline import SyntheticLM
+    return SyntheticLM(vocab=256, seq_len=32, global_batch=8)
+
+
+def trainer_config(total: int, ckpt_dir: str = ""):
+    from repro_torch.runtime.trainer import TrainerConfig
+    return TrainerConfig(total_steps=total, ckpt_every=CKPT_STEPS[0],
+                         ckpt_dir=ckpt_dir, base_lr=TRAIN_LR, warmup=0,
+                         log_every=100)
+
+
+def _whole(mesh, named, tensors):
+    from repro_torch.sharding import collectives as C
+    return {k: C.gather_whole(t.detach(), named[k]._pspec, mesh).numpy()
+            for k, t in tensors.items()}
+
+
+def _train_case(mesh, cfg, jstate, batches, ga):
+    """The mesh's loss_and_grads (gradients gathered whole) on the first
+    batch, then TRAIN_STEPS train steps at warmup 0: their metrics, the
+    parameters gathered whole and each rank's own shards."""
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.runtime import steps as S
+    state = train_state_from_jax(cfg, jstate, device="cpu", mesh=mesh)
+    named = dict(state["params"].named_parameters())
+    local = [local_batch(b, mesh, ga) for b in batches]
+    with S.train_mesh_context(mesh):
+        loss, metrics, grads = S.loss_and_grads(cfg, state["params"],
+                                                local[0], ga)
+        step = S.make_train_step(cfg, grad_accum=ga, base_lr=TRAIN_LR,
+                                 warmup=0, total_steps=10)
+        ms = []
+        for i in range(TRAIN_STEPS):
+            state, m = step(state, local[i % len(local)])
+            ms.append({k: v.numpy() for k, v in m.items()})
+    return {"loss": loss.numpy(),
+            "metrics": {k: v.numpy() for k, v in metrics.items()},
+            "grads": _whole(mesh, named, grads), "steps": ms,
+            "params": _whole(mesh, named, named),
+            "shards": {k: (p.detach().numpy().copy(), tuple(p._pspec))
+                       for k, p in named.items()}}
+
+
+def _remat_case(mesh, cfg, jstate, batch):
+    """``loss_and_grads`` with ``cfg.remat`` on (grad_accum 2): the loss
+    and the gradients gathered whole."""
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.runtime import steps as S
+    cfg = dataclasses.replace(cfg, remat=True)
+    state = train_state_from_jax(cfg, jstate, device="cpu", mesh=mesh)
+    named = dict(state["params"].named_parameters())
+    with S.train_mesh_context(mesh):
+        loss, _, grads = S.loss_and_grads(cfg, state["params"],
+                                          local_batch(batch, mesh, 2), 2)
+    return {"loss": loss.numpy(), "grads": _whole(mesh, named, grads)}
+
+
+def _quadratic(mesh, targets):
+    """The reference's compression test (tests/test_runtime.py): each pod
+    rank's gradient of |w - target_r|^2, compressed and exact."""
+    from repro_torch.optim.compression import (ef_int8_allreduce_tree,
+                                               init_error_feedback)
+    from repro_torch.sharding import collectives as C
+    tgt = torch.from_numpy(targets[mesh.index("pod")])
+    w_c = torch.zeros(tgt.shape)
+    w_e = torch.zeros(tgt.shape)
+    err = init_error_feedback({"g": w_c})
+    for _ in range(QUAD["steps"]):
+        mean, err = ef_int8_allreduce_tree({"g": 2 * (w_c - tgt)}, err,
+                                           "pod", mesh)
+        w_c = w_c - QUAD["lr"] * mean["g"]
+        w_e = w_e - QUAD["lr"] * C.all_reduce_sum(2 * (w_e - tgt), "pod",
+                                                  mesh) / mesh.size("pod")
+    opt = torch.from_numpy(targets.mean(0))
+    return {"err_compressed": float(torch.linalg.norm(w_c - opt)),
+            "err_exact": float(torch.linalg.norm(w_e - opt))}
+
+
+def _wait_for_inputs(path: str, timeout_s: float = 300.0):
+    """The parent's inputs, once it has written them (it starts the ranks
+    first, so that their start-up overlaps its own); ``path + ".failed"``
+    says it never will."""
+    import os
+    import time
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if os.path.exists(path + ".failed") or time.monotonic() > deadline:
+            raise RuntimeError(f"no inputs at {path}")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
+def train_rank(rank: int, out_dir: str):
+    """One rank of the training world, on the inputs in
+    ``train_inputs.pt``; its payload to ``train_rank<r>.pt``."""
+    import shutil
+
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.optim.compression import ef_int8_allreduce_tree
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.sharding import collectives as C
+    torch.set_num_threads(1)
+    meshes = {shape: HostMesh(shape, ("data", "model"))
+              for shape in TRAIN_MESHES}
+    inp = _wait_for_inputs(f"{out_dir}/train_inputs.pt")
+    cfg = train_cfg()
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in inp["batches"]]
+    out = {"cases": {}}
+    for shape, mesh in meshes.items():
+        out.setdefault("coords", {})[shape] = mesh.coords
+        for ga in GRAD_ACCUMS:
+            C.reset_counts()
+            out["cases"][shape, ga] = dict(
+                _train_case(mesh, cfg, inp["jstate"], batches, ga),
+                counts=dict(C.COUNTS))
+    # remat: the recompute's collectives give the same gradients
+    out["remat"] = _remat_case(meshes[2, 2], cfg, inp["jstate"], batches[0])
+    # a checkpoint written on (2, 2) at step 2, continued on (4, 1) to 4
+    ck, ck2 = f"{out_dir}/ckpt", f"{out_dir}/ckpt_41"
+    ds = train_dataset()
+    Trainer(cfg, trainer_config(CKPT_STEPS[0], ck), ds, mesh=meshes[2, 2],
+            device="cpu").run()
+    if rank == 0:
+        shutil.copytree(ck, ck2)
+    C.barrier()
+    tr = Trainer(cfg, trainer_config(CKPT_STEPS[1], ck2), ds,
+                 mesh=meshes[4, 1], device="cpu")
+    out["resumed_from"] = tr.start_step
+    out["run"] = tr.run()
+    named = dict(tr.state["params"].named_parameters())
+    out["resumed"] = _whole(meshes[4, 1], named, named)
+    out["history"] = tr.history
+    # the int8 error-feedback all-reduce on a ("pod",) mesh of the ranks
+    pod = HostMesh((TRAIN_RANKS,), ("pod",))
+    ef = inp["ef"]
+    r = pod.index("pod")
+    mean, new_e = ef_int8_allreduce_tree(
+        {k: torch.from_numpy(v[r]) for k, v in ef["g"].items()},
+        {k: torch.from_numpy(v[r]) for k, v in ef["e"].items()}, "pod", pod)
+    out["ef"] = ({k: v.numpy() for k, v in mean.items()},
+                 {k: v.numpy() for k, v in new_e.items()})
+    out["quadratic"] = _quadratic(pod, inp["targets"])
+    torch.save(out, f"{out_dir}/train_rank{rank}.pt")

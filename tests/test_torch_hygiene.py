@@ -1,8 +1,8 @@
 """Rules of the PyTorch port that hold without the reference: it (and its
 example twins) imports neither ``jax`` nor the JAX package, its entry
-points never drop to the CPU quietly, a mesh refuses the families and
-layouts it does not serve yet (naming the ROADMAP item), and the QoS,
-library and autotune options serve."""
+points never drop to the CPU quietly, a serving or training mesh refuses
+the families and layouts it does not take yet (naming the ROADMAP item),
+and the QoS, library and autotune options serve."""
 import ast
 import dataclasses
 import pathlib
@@ -13,15 +13,18 @@ import torch
 
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.convert import params_from_jax
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import model as M
 from repro_torch.runtime.options import LibrarySpec, ServeOptions
 from repro_torch.runtime.server import DecodeServer, Request
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-       ROOT / "examples" / "approx_bessel_torch.py"]
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imports(path):
@@ -97,6 +100,58 @@ def test_mesh_refuses_a_layout_it_cannot_divide(shape):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         DecodeServer(cfg, params, options=ServeOptions(
             batch=4, use_mcma_dispatch=True, mesh=FakeMesh(shape)))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b",
+                                  "moonshot-v1-16b-a3b"])
+def test_train_mesh_refuses_unported_families(arch):
+    """The xLSTM, hybrid and MoE families do not train on a mesh yet:
+    neither ``Trainer(mesh=)`` nor the launcher's ``--mesh`` (which
+    refuses before it starts a rank)."""
+    cfg = smoke_config(get_config(arch))
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=4)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 15"):
+        Trainer(cfg, TrainerConfig(total_steps=1), ds,
+                mesh=FakeMesh((2, 2)), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, item 15"):
+        launch_train.main(["--arch", arch, "--smoke", "--steps", "1",
+                           "--batch", "4", "--device", "cpu", "--mesh",
+                           "2,2"])
+
+
+@pytest.mark.parametrize("shape,batch", [((3, 1), 4), ((1, 3), 6)],
+                         ids=["batch-over-data", "heads-over-model"])
+def test_train_mesh_refuses_a_layout_it_cannot_divide(shape, batch):
+    """A mesh the microbatch, the heads, the kv heads, d_ff or the vocab
+    do not divide is refused, where the reference falls back to
+    compiler-placed sharding (ROADMAP queue 3)."""
+    cfg = _cfg()
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        Trainer(cfg, TrainerConfig(total_steps=1), ds, mesh=FakeMesh(shape),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        launch_train.main(["--smoke", "--approx", "--steps", "1", "--batch",
+                           str(batch), "--device", "cpu", "--mesh",
+                           ",".join(map(str, shape))])
+
+
+def test_train_mesh_without_device_raises_when_there_is_no_gpu(monkeypatch):
+    """``--mesh`` without ``--device`` and without a GPU raises before any
+    rank starts: no rank carries on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--smoke", "--approx", "--steps", "1",
+                           "--mesh", "2,2"])
+
+
+def test_no_refusal_names_the_training_mesh_item():
+    """Item 14 (the training mesh) is done: no message of the port names
+    it."""
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        assert "item 14" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("field", sorted(QOS_LIBRARY_AUTOTUNE))
