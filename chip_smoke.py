@@ -208,6 +208,30 @@ Phases (any failure raises and the script exits non-zero):
      by token; then at 2 layers in float32, capacity factor E / top_k,
      forward(8192) at 4096..4103 against prefill(4096) + 8 decode steps
      (the ring wraps at the first) within 2e-3; no switch launch;
+  20b. the MoE family on a mesh, ONE world of 4 ranks sharing the card
+     over gloo and the exchange arena (the parent's tensors released
+     first): [serve moe mesh full width], moonshot uncut drawn as each
+     rank's shards (``model.init_model(mesh=)``) on a (1, 4) mesh, 16
+     whole experts a rank, through a mesh DecodeServer on phase 5's
+     stream: every rank's tokens, stats and tick log bitwise equal, 0
+     switch launches and dispatch plans; ms per tick by phase, tokens/s,
+     collectives and staged bytes a tick a rank, peak memory a rank, the
+     global drop share of one decode tick of 8 slots beside phase 18's,
+     the bf16 tokens equal to phase 18's paged run (printed, not gated);
+     float32 witnesses: moonshot at full widths cut to 2 layers on a
+     (2, 2) mesh (FSDP, EP and per-shard capacity engaged), a chunk and a
+     decode step within 1e-4 of one card's grouped oracle
+     (``moe.scan_chunk`` = a data shard's tokens) with gate_idx and keep
+     equal, and at capacity factor E / top_k of one card's plain path;
+     mixtral at 2 layers on (1, 4), 8 decode steps past the window from
+     one card's prefill(4096) within 1e-4 of one card's; then [train moe
+     mesh]: moonshot cut to 2 layers, bf16, remat, 8 x 512, grad_accum 2,
+     2 Trainer steps on (2, 2) (every rank's history, metrics and
+     replicated leaves bitwise equal, finite, 0 switch launches; ms per
+     step, tokens/s, collectives and staged GiB a step a rank, peak
+     memory a rank) and a float32 witness (4 x 64, 2 rows a data shard:
+     the loss within 1e-5 relative and every gradient within 1e-4
+     elementwise of one card's grouped oracle, routing equal);
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
@@ -215,8 +239,8 @@ Phases (any failure raises and the script exits non-zero):
      launches_by_run with the runs of phases 6b and 10 to 12 (6b's
      launches summed over its ranks, ``per_rank`` beside them) and, for
      switched_mlp, the two paper runs; their ``at_widths`` the d 2560
-     and d 8192 timings of phase 12; the MoE phases launch none of the
-     four), then the result line.
+     and d 8192 timings of phase 12; the MoE phases, on one card and on
+     a mesh, launch none of the four), then the result line.
 """
 from __future__ import annotations
 
@@ -328,6 +352,21 @@ TRAIN_MESH_LAUNCHER = ("--smoke", "--approx", "--steps", "2", "--mesh",
 TRAIN_MOE = dict(n_layers=2, parity=dict(batch=2, seq=32),
                  timed=dict(batch=8, seq=512, grad_accum=2, steps=2,
                             warmup=2))
+# the MoE family on a mesh: ONE world of 4 ranks sharing the card.
+# moonshot uncut served on a (1, 4) mesh (16 whole experts a rank, no
+# expert weights staged); the float32 witnesses on (2, 2), where FSDP, EP
+# and per-shard capacity all engage (moonshot: a (batch, seq - 1) chunk
+# and one decode step), and mixtral's ring on (1, 4) (its 2 layers of
+# experts gathered over (2, 2)'s data axis would stage 1.4 GB a layer a
+# step a rank); [train moe mesh] at [train moe]'s cut and shape on (2, 2)
+# with a float32 witness of 2 rows a data shard
+MOE_MESH = dict(serve=(1, 4), witness=(2, 2), ring=(1, 4), exchange_mib=128)
+MOE_MESH_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
+SWA_MESH_WITNESS = dict(n_layers=2, seq=8192, at=4096, decode=8, tol=1e-4)
+TRAIN_MOE_MESH = dict(shape=(2, 2), n_layers=2, batch=8, seq=512,
+                      grad_accum=2, steps=2, warmup=2,
+                      witness=dict(batch=4, seq=64, loss_tol=1e-5,
+                                   grad_tol=1e-4))
 
 
 def log(msg):
@@ -1872,19 +1911,20 @@ def train_resume(np, torch, dev="cuda"):
         f"uninterrupted run (losses {losses}), deterministic algorithms on")
 
 
-def train_mesh_bf16(torch, mesh):
-    """internlm2-1.8b uncut, bf16, TRAIN_DENSE's shape, 2 Trainer steps on
-    ``mesh``: the history, the metrics, the collectives and the switch
-    launches of the steps, the peak memory, a digest of every leaf
-    replicated over the data axes, and the shards' shapes."""
+def train_mesh_bf16(torch, mesh, cfg=None, shape=TRAIN_MESH):
+    """internlm2-1.8b uncut (or ``cfg``), bf16, TRAIN_DENSE's shape (or
+    ``shape``), 2 Trainer steps on ``mesh``: the history, the metrics,
+    the collectives and the switch launches of the steps, the peak
+    memory, a digest of every leaf replicated over the data axes, and the
+    shards' shapes."""
     import hashlib
 
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding.rules import dp_axes
-    cfg = train_cfg("internlm2-1.8b")
+    cfg = cfg or train_cfg("internlm2-1.8b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    tr, rec = train_run(torch, cfg, TRAIN_MESH, "cuda", mesh=mesh)
+    tr, rec = train_run(torch, cfg, shape, "cuda", mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     zero_switch()
@@ -1905,7 +1945,8 @@ def train_mesh_bf16(torch, mesh):
                n_local=sum(p.numel() for p in named.values()),
                metrics=[{k: float(m[k]) for k in (
                    "lm_loss", "grad_norm", "invocation", "router_acc",
-                   "tick_router_acc", "lr")} for m in rec.steps])
+                   "tick_router_acc", "aux_loss", "lr") if k in m}
+                   for m in rec.steps])
     shapes = {k: (tuple(p.shape), p.dtype) for k, p in named.items()}
     return out, shapes
 
@@ -3030,15 +3071,19 @@ class MoECapture:
 def drop_share(torch, cfg, calls):
     """The share of (token, expert) choices that the capacity drops over
     the recorded MoE applications, from the router's top-k and
-    ``capacity_slots`` on each one's input (``moe.route``).  Returns
-    (mean share, per-layer shares, slots per expert)."""
+    ``capacity_slots`` on each one's input (``moe.dropped_choices``: on a
+    mesh, called inside its serve context, each data shard's rows at its
+    own capacity and the counts summed over the data axes, so the share
+    is global).  Returns (mean share, per-layer shares, slots per expert
+    of a data shard)."""
     from repro_torch.models import moe
     shares = []
-    with torch.no_grad():
-        for p, x in calls:
-            r = moe.route(cfg, p.router, x.reshape(-1, x.shape[-1]))
-            shares.append((~r.keep).sum().item() / r.keep.numel())
-    return statistics.mean(shares), shares, r.cap
+    for p, x in calls:
+        dropped, total = moe.dropped_choices(cfg, p, x)
+        shares.append(int(dropped) / int(total))
+    t, m = x.shape[0] * x.shape[1], cfg.moe
+    cap = min(int(m.capacity_factor * t * m.top_k / m.n_experts) + 1, t)
+    return statistics.mean(shares), shares, cap
 
 
 def moe_stream(torch, cfg, params, prompts, label, **over):
@@ -3146,6 +3191,7 @@ def serve_moe(np, torch):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} "
             f"launches  {e.key[:80]}")
+    return dict(tokens=runs["paged 16"]["tokens"], share=share)
 
 
 def moe_witness(np, torch):
@@ -3488,6 +3534,496 @@ def serve_mesh(np, torch, single_tokens):
     return by_run
 
 
+def moe_mesh_serve(np, torch, mesh, single_tokens):
+    """[serve moe mesh full width], one rank: moonshot uncut, bf16, drawn
+    as this rank's shards (16 whole experts on a (1, 4) mesh), through a
+    mesh DecodeServer on the scheduler's stream; then one decode tick of
+    8 slots, each layer's global drop share.  Returns the run's record."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer, Request
+    from repro_torch.sharding import collectives as C
+    cfg = approx_cfg(MOE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_local = sum(p.numel() for p in params.parameters())
+    prompts = stream_prompts(np, cfg)
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        **SCHED, use_mcma_dispatch=True, backend="pallas", mesh=mesh))
+    torch.cuda.synchronize()
+    zero_switch()
+    C.reset_counts()
+    with PlanCounter() as plans:
+        reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
+    counts, launches = dict(C.COUNTS), switch_launches()
+    stats = st.asdict()
+    stats.pop("wall_s")
+    tokens = [list(r.out) for r in reqs]
+    out = dict(tokens=tokens, stats=stats, tick_log=list(srv.tick_log),
+               done=all(r.done and not r.aborted for r in reqs),
+               launches=launches, plans=plans.calls, counts=counts,
+               times=times, wall=wall, init_s=init_s, n_local=n_local,
+               agree=None if single_tokens is None else sum(
+                   x == y for a, b in zip(tokens, single_tokens)
+                   for x, y in zip(a, b)))
+    del srv
+    # one decode tick of 8 decoding slots, as serve_moe's on one card
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        **SCHED, use_mcma_dispatch=True, backend="pallas", mesh=mesh))
+    rng = np.random.default_rng(1)
+    for i in range(SCHED["batch"]):
+        srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 1)
+                           .astype(np.int32), max_new=64))
+    for _ in range(3):
+        srv.tick()
+    with MoECapture() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.tick()
+        torch.cuda.synchronize()
+        out["tick_ms"] = (time.perf_counter() - t0) * 1e3
+    with S.serve_mesh_context(mesh):
+        out["share"], out["shares"], out["slots"] = drop_share(
+            torch, cfg, cap.calls)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def moe_routing(torch, cfg, calls, mesh=None):
+    """Each recorded MoE application's routing over the whole batch:
+    (gate_idx, keep) of every token group as ``moe.route`` gives them
+    over all E experts.  On a mesh (inside its context) each data
+    shard's rows route at the shard's capacity with the router gathered
+    whole, and the shards are gathered in data order; on one card the
+    groups are ``moe.scan_chunk``'s (the grouped oracle's data shards)."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import P, dp_axes
+    out = []
+    with torch.no_grad():
+        for p, x in calls:
+            t, d = x.shape[0] * x.shape[1], x.shape[-1]
+            if mesh is None:
+                ck = cfg.moe.scan_chunk
+                groups = x.reshape(-1, ck if t > ck and t % ck == 0 else t,
+                                   d)
+                rs = [moe.route(cfg, p.router, g) for g in groups]
+                out.append((torch.cat([r.gate_idx for r in rs]).cpu(),
+                            torch.cat([r.keep for r in rs]).cpu()))
+                continue
+            router = C.gather_whole(p.router, p.router._pspec, mesh)
+            r = moe.route(cfg, router, x.reshape(t, d))
+            spec = P(dp_axes(mesh))
+            out.append(tuple(C.gather_whole(a, spec, mesh).cpu()
+                             for a in (r.gate_idx, r.keep)))
+    return out
+
+
+def moe_witness_logits(torch, cfg, params, toks, mesh=None, step_cfg=None):
+    """A (batch, seq) prompt through one chunk step (seq - 1 tokens,
+    under ``cfg``) and one decode step (under ``step_cfg``, default
+    ``cfg``) on a dense cache, on ``mesh`` under its serve context when
+    given: the decode step's logits (float32) and the routing of every
+    MoE application (``moe_routing``), the chunk's then the step's."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    b, s = toks.shape
+    step_cfg = step_cfg or cfg
+    with S.serve_mesh_context(mesh), torch.no_grad():
+        cache = M.init_cache(cfg, b, 2 * s, device="cuda")
+        with MoECapture() as chunk:
+            cache, _ = M.decode_chunk(
+                cfg, params, cache, toks[:, :-1],
+                torch.full((b,), s - 1, dtype=torch.int32, device="cuda"))
+        with MoECapture() as step:
+            logits, _ = M.decode(step_cfg, params, cache, toks[:, -1:])
+        torch.cuda.synchronize()
+        routing = moe_routing(torch, cfg, chunk.calls, mesh) \
+            + moe_routing(torch, step_cfg, step.calls, mesh)
+    return logits.float(), routing
+
+
+def grouped(cfg, tokens: int):
+    """``cfg`` with ``moe.scan_chunk`` = ``tokens``: on one card, the
+    grouped oracle of a mesh whose data shards hold ``tokens`` tokens
+    each (``local_rows`` is contiguous, so the groups are the shards)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, scan_chunk=tokens))
+
+
+def moe_mesh_witness(np, torch, mesh):
+    """The float32 witness of the MoE mesh, one rank: moonshot at full
+    widths cut to 2 layers on ``mesh`` ((2, 2): FSDP, EP and per-shard
+    capacity engaged); one chunk and one decode step at the reference's
+    capacity, then at capacity factor E / top_k.  Rank 0 also runs one
+    card's grouped oracle (and at E / top_k its plain path) and returns
+    the gaps and whether the routing agrees."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import dp_axes
+    w = MOE_MESH_WITNESS
+    cfg = dataclasses.replace(get_config(MOE), n_layers=w["n_layers"],
+                              param_dtype="float32", act_dtype="float32")
+    b, s = w["batch"], w["seq"]
+    g = mesh.size(dp_axes(mesh))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).cuda()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    runs = {}
+    for name, c in (("capacity", cfg), ("E/top_k", no_drop(cfg))):
+        logits, routing = moe_witness_logits(torch, c, params, toks, mesh)
+        runs[name] = dict(logits=logits, routing=routing)
+    del params
+    release(torch)
+    out = {"finite": all(bool(torch.isfinite(r["logits"]).all())
+                         for r in runs.values())}
+    C.barrier()
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        # the grouped oracle: the chunk's groups are the shards' b / g
+        # rows of s - 1 tokens, the decode step's their b / g tokens; at
+        # E / top_k one card's plain path (one group, nothing dropped)
+        want = {"capacity": moe_witness_logits(
+                    torch, grouped(cfg, b // g * (s - 1)), one, toks,
+                    step_cfg=grouped(cfg, b // g)),
+                "E/top_k": moe_witness_logits(torch, no_drop(cfg), one,
+                                              toks)}
+        for name, run in runs.items():
+            lg, routing = want[name]
+            out[name] = dict(
+                max_abs=float((run["logits"] - lg).abs().max()),
+                routing_equal=len(routing) == len(run["routing"]) and all(
+                    torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
+                    for a, b_ in zip(routing, run["routing"])),
+                dropped=sum(int((~r[1]).sum()) for r in routing),
+                choices=sum(r[1].numel() for r in routing))
+        del one, want
+        release(torch)
+    C.barrier()
+    return out
+
+
+def swa_mesh_witness(np, torch, mesh, out_dir):
+    """Mixtral's ring on a mesh, one rank: at full widths cut to 2 layers,
+    float32, capacity factor E / top_k.  Rank 0 runs one card:
+    forward(seq) read at at..at + decode - 1, and prefill(at) into the
+    window's ring plus ``decode`` steps; every rank then takes that
+    prefill's ring, sharded (``model.shard_cache``), and decodes the same
+    steps on ``mesh`` past the window (the ring wraps at the first).
+    Rank 0 returns the gaps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    w = SWA_MESH_WITNESS
+    cfg = dataclasses.replace(no_drop(get_config(SWA)),
+                              n_layers=w["n_layers"], param_dtype="float32",
+                              act_dtype="float32")
+    s, at, nd = w["seq"], w["at"], w["decode"]
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, s)).astype(np.int32)).cuda()
+    ring = f"{out_dir}/ring.pt"
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        with torch.no_grad():
+            want = M.forward(cfg, one, toks)[0][:, at:at + nd].float()
+            _, cache, _, _ = M.forward(cfg, one, toks[:, :at],
+                                       collect_cache=True)
+            torch.save({k: v.cpu() for k, v in cache.items()}, ring)
+            single = []
+            for j in range(nd):
+                lg, cache = M.decode(cfg, one, cache,
+                                     toks[:, at + j:at + j + 1])
+                single.append(lg.float())
+        single = torch.stack(single, 1)
+        del one, cache
+        release(torch)
+    C.barrier()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    got = []
+    with S.serve_mesh_context(mesh), torch.no_grad():
+        cache = M.shard_cache(mesh, {
+            k: v.cuda() for k, v in torch.load(ring).items()})
+        for j in range(nd):
+            lg, cache = M.decode(cfg, params, cache,
+                                 toks[:, at + j:at + j + 1])
+            got.append(lg.float())
+    got = torch.stack(got, 1)
+    out = dict(ring_rows=int(cache["k"].shape[2]), pos=cache["pos"].tolist(),
+               kv_local=int(cache["k"].shape[3]),
+               finite=bool(torch.isfinite(got).all()))
+    if mesh.rank == 0:
+        out.update(vs_single=float((got - single).abs().max()),
+                   vs_forward=float((got - want).abs().max()),
+                   single_vs_forward=float((single - want).abs().max()))
+    del params, cache
+    release(torch)
+    C.barrier()
+    return out
+
+
+def train_moe_mesh_witness(np, torch, mesh):
+    """The float32 witness of [train moe mesh], one rank: moonshot at its
+    widths cut to 2 layers, remat; ``loss_and_grads`` on ``mesh`` on the
+    rank's rows of a small batch, with its routing.  Rank 0 also runs one
+    card's grouped oracle (``moe.scan_chunk`` = a data shard's tokens)
+    and holds each gradient leaf, gathered whole one at a time, to it;
+    it returns the loss of each, the worst elementwise gap against the
+    gate, the squared sums of the gaps and of the gradient, and whether
+    the routing agrees."""
+    from repro_torch.data.pipeline import SyntheticLM, local_batch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import dp_axes
+    w = TRAIN_MOE_MESH["witness"]
+    cfg = train_cfg(MOE, n_layers=TRAIN_MOE_MESH["n_layers"],
+                    param_dtype="float32", act_dtype="float32")
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=w["seq"],
+                        global_batch=w["batch"], seed=1).batch_at(0)
+    local = {k: v.cuda() for k, v in local_batch(batch, mesh, 1).items()}
+    state = S.init_train_state(0, cfg, device="cuda", mesh=mesh)
+    named = dict(state["params"].named_parameters())
+    with S.train_mesh_context(mesh), MoECapture() as cap:
+        loss_m, _, grads_m = S.loss_and_grads(cfg, state["params"], local)
+    routing_m = moe_routing(torch, cfg, cap.calls, mesh)
+    del cap
+    out = dict(loss_mesh=float(loss_m))
+    want = None
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda").requires_grad_(True)
+        oracle = grouped(cfg, w["batch"] // mesh.size(dp_axes(mesh))
+                         * w["seq"])
+        full = {k: v.cuda() for k, v in batch.items()}
+        with MoECapture() as cap:
+            loss_s, _, want = S.loss_and_grads(oracle, one, full)
+        routing_s = moe_routing(torch, oracle, cap.calls)
+        del one, cap
+        out.update(loss_single=float(loss_s), routing_equal=len(
+            routing_s) == len(routing_m) and all(
+                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(routing_s, routing_m)),
+            dropped=sum(int((~r[1]).sum()) for r in routing_s),
+            choices=sum(r[1].numel() for r in routing_s))
+    worst, gap_sq, ref_sq, tol = 0.0, 0.0, 0.0, w["grad_tol"]
+    for k in list(grads_m):
+        g = C.gather_whole(grads_m.pop(k), named[k]._pspec, mesh)
+        if want is not None:
+            ref = want.pop(k)
+            gap = (g - ref).abs()
+            worst = max(worst, (gap / (tol + tol * ref.abs())).max().item())
+            gap_sq += float((gap.double() ** 2).sum())
+            ref_sq += float((ref.double() ** 2).sum())
+        del g
+    out.update(worst=worst, gap_sq=gap_sq, ref_sq=ref_sq)
+    del state, named, want
+    release(torch)
+    C.barrier()
+    return out
+
+
+def moe_mesh_rank(rank, out_dir, single_tokens):
+    """One rank of the MoE mesh world: [serve moe mesh full width] on a
+    (1, 4) mesh, the float32 witnesses (moonshot on (2, 2), mixtral's
+    ring on (1, 4)), then [train moe mesh] on (2, 2) (2 bf16 Trainer
+    steps, then its float32 witness); its payload to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import HostMesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {shape: HostMesh(shape, ("data", "model"))
+              for shape in (MOE_MESH["serve"], MOE_MESH["witness"])}
+    out = {"coords": {k: m.coords for k, m in meshes.items()}}
+    t0 = time.time()
+    out["serve"] = moe_mesh_serve(np, torch, meshes[MOE_MESH["serve"]],
+                                  single_tokens)
+    release(torch)
+    out["serve_s"] = time.time() - t0
+    t0 = time.time()
+    out["witness"] = moe_mesh_witness(np, torch, meshes[MOE_MESH["witness"]])
+    out["ring"] = swa_mesh_witness(np, torch, meshes[MOE_MESH["ring"]],
+                                   out_dir)
+    out["witness_s"] = time.time() - t0
+    t0 = time.time()
+    cfg = train_cfg(MOE, n_layers=TRAIN_MOE_MESH["n_layers"])
+    out["train"], _ = train_mesh_bf16(torch, meshes[TRAIN_MOE_MESH["shape"]],
+                                      cfg, TRAIN_MOE_MESH)
+    release(torch)
+    out["train_witness"] = train_moe_mesh_witness(
+        np, torch, meshes[TRAIN_MOE_MESH["shape"]])
+    out["train_s"] = time.time() - t0
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def moe_mesh_full_width(np, torch, single):
+    """[serve moe mesh full width], the MoE float32 witnesses and [train
+    moe mesh] in ONE world of 4 ranks sharing the card over gloo and the
+    exchange arena (``moe_mesh_rank``).  ``single``: [serve moe full
+    width]'s record (its paged tokens and drop share on one card).
+    Gates: the serve run drained with every rank's tokens, stats and
+    tick log bitwise equal and 0 switch launches and dispatch plans;
+    moonshot's float32 logits within 1e-4 of one card's grouped oracle
+    with equal routing, and at E / top_k of its plain path; mixtral's
+    ring on the mesh within 1e-4 of one card past the window; the train
+    steps bitwise equal on every rank and finite, 0 switch launches; the
+    train witness's loss within 1e-5 relative, its gradients within 1e-4
+    elementwise, equal routing."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn_world
+    ranks, top_k = 4, get_config(MOE).moe.top_k
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(moe_mesh_rank, ranks, (tmp, single["tokens"]),
+                    backend="gloo", exchange_mib=MOE_MESH["exchange_mib"])
+        log(f"  {ranks} ranks (gloo, one card, {MOE_MESH['exchange_mib']} "
+            f"MiB arena slots) in {time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    p0 = pay[0]
+    # [serve moe mesh full width]
+    sv = p0["serve"]
+    same = ("tokens", "stats", "tick_log", "done", "launches", "plans",
+            "share", "shares")
+    for r, p in enumerate(pay[1:], 1):
+        if any(p["serve"][k] != sv[k] for k in same):
+            raise AssertionError(f"moe mesh serve: rank {r} disagrees with "
+                                 "rank 0")
+    if not sv["done"] or any(p["serve"]["launches"] or p["serve"]["plans"]
+                             for p in pay):
+        raise AssertionError(f"moe mesh serve: done {sv['done']}, switch "
+                             f"launches {[p['serve']['launches'] for p in pay]}"
+                             f", plans {[p['serve']['plans'] for p in pay]}")
+    st, c = sv["stats"], sv["counts"]
+    ticks = st["ticks"]
+    n_tok = sum(len(t) for t in sv["tokens"])
+    med = {ph: statistics.median(v) if v else 0.0
+           for ph, v in sv["times"].items()}
+    log(f"  [serve moe mesh full width] {MOE} uncut on a "
+        f"{MOE_MESH['serve']} mesh ({sv['n_local']} parameters a rank, "
+        f"drawn as shards in {sv['init_s']:.1f} s): {ticks} ticks "
+        f"({len(sv['times']['decode'])} decode, {st['prefill_ticks']} "
+        f"prefill); rank 0 ms per decode tick median {med['decode']:.2f}, "
+        f"per prefill tick median {med['prefill']:.2f}; {n_tok} tokens in "
+        f"{sv['wall']:.3f} s = {n_tok / sv['wall']:.1f} tokens/s; per tick "
+        f"per rank {c['all_gather'] / ticks:.1f} all-gathers, "
+        f"{c['all_reduce'] / ticks:.1f} all-reduces, "
+        f"{c['reduce_scatter'] / ticks:.1f} reduce-scatters, "
+        f"{c['staged'] / ticks:.1f} host stagings of "
+        f"{c['staged_bytes'] / ticks / 2**20:.2f} MiB; every rank's tokens, "
+        f"stats and tick log bitwise equal; 0 switch launches, 0 dispatch "
+        f"plans; kv_bytes_resident {st['kv_bytes_resident']}")
+    log("  peak memory per rank: " + ", ".join(
+        f"{p['serve']['peak']} B ({p['serve']['peak'] / 2**30:.2f} GiB)"
+        for p in pay))
+    log(f"  one decode tick of {SCHED['batch']} slots: {sv['tick_ms']:.2f} "
+        f"ms (host clock); {sv['slots']} slot(s) per expert: global drop "
+        f"share {sv['share']:.4f} of the {SCHED['batch'] * top_k} expert "
+        "choices "
+        f"a layer (layers {min(sv['shares']):.4f} to "
+        f"{max(sv['shares']):.4f}); one card {single['share']:.4f}")
+    log(f"  bf16 tokens equal to one card's [serve moe full width] paged "
+        f"run: {sv['agree']} of {n_tok} (not gated: the partial outputs' sum "
+        "over model reassociates the combine; ROADMAP queue 3 f); rank 0's "
+        f"part {p0['serve_s']:.1f} s")
+    # the float32 witnesses
+    wt, mw = p0["witness"], MOE_MESH_WITNESS
+    for name in ("capacity", "E/top_k"):
+        x = wt[name]
+        if not (wt["finite"] and x["max_abs"] <= mw["tol"]
+                and x["routing_equal"]):
+            raise AssertionError(f"moe mesh float32 witness ({name}): max "
+                                 f"|mesh - one card| {x['max_abs']:.3g}, "
+                                 f"routing equal {x['routing_equal']}")
+    log(f"  float32 witness, {MOE} at full widths cut to "
+        f"{mw['n_layers']} layers on a {MOE_MESH['witness']} mesh, a "
+        f"({mw['batch']}, {mw['seq'] - 1}) chunk and one decode step: at "
+        f"capacity factor 1.25 within {wt['capacity']['max_abs']:.3g} of "
+        f"one card's grouped oracle (<= {mw['tol']}), gate_idx and keep "
+        f"equal ({wt['capacity']['dropped']} of "
+        f"{wt['capacity']['choices']} choices dropped); at E/top_k within "
+        f"{wt['E/top_k']['max_abs']:.3g} of one card's plain path, routing "
+        "equal")
+    rg, sw = p0["ring"], SWA_MESH_WITNESS
+    want_pos = [sw["at"] + sw["decode"]]
+    if not (all(p["ring"]["finite"] and p["ring"]["pos"] == want_pos
+                for p in pay) and rg["vs_single"] <= sw["tol"]
+            and rg["vs_forward"] <= 2e-3):
+        raise AssertionError(f"mixtral ring on a mesh: {rg}")
+    log(f"  float32 witness, {SWA} at full widths cut to "
+        f"{sw['n_layers']} layers on a {MOE_MESH['ring']} mesh (a ring of "
+        f"{rg['ring_rows']} rows and {rg['kv_local']} kv heads a rank): "
+        f"{sw['decode']} decode steps past the window from one card's "
+        f"prefill({sw['at']}) within {rg['vs_single']:.3g} of one card's "
+        f"steps (<= {sw['tol']}) and {rg['vs_forward']:.3g} of "
+        f"forward({sw['seq']}) (one card's own {rg['single_vs_forward']:.3g}"
+        f"); rank 0's witnesses {p0['witness_s']:.1f} s")
+    # [train moe mesh]
+    b0, sh = p0["train"], TRAIN_MOE_MESH
+    for r, p in enumerate(pay[1:], 1):
+        b = p["train"]
+        if b["history"] != b0["history"] or b["metrics"] != b0["metrics"]:
+            raise AssertionError(f"train moe mesh: rank {r}'s history or "
+                                 "metrics differ from rank 0's")
+        for k, (axes, digest) in b["digests"].items():
+            same_blk = all(p["coords"][sh["shape"]][a]
+                           == p0["coords"][sh["shape"]][a] for a in axes)
+            if same_blk and digest != b0["digests"][k][1]:
+                raise AssertionError(f"train moe mesh: rank {r}'s {k} "
+                                     "differs from rank 0's")
+    if any(p["train"]["launches"] for p in pay):
+        raise AssertionError("train moe mesh: switch launches")
+    for h, m in zip(b0["history"], b0["metrics"]):
+        if not all(np.isfinite([h["loss"], h["grad_norm"]])):
+            raise AssertionError(f"train moe mesh: step {h['step']} not "
+                                 "finite")
+        log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms (slowest rank), "
+            f"loss {h['loss']:.4f}, " + ", ".join(
+                f"{k} {v:.4g}" for k, v in m.items()))
+    steps = len(b0["history"])
+    ms = b0["history"][-1]["dt"] * 1e3
+    c = b0["counts"]
+    log(f"  [train moe mesh] {MOE} cut to {sh['n_layers']} layers at its "
+        f"widths, bf16, remat, {sh['batch']} x {sh['seq']}, grad_accum "
+        f"{sh['grad_accum']}, a {sh['shape']} mesh: {ms:.1f} ms a step "
+        f"(step {steps}), {sh['batch'] * sh['seq'] / ms * 1e3:.0f} tokens/s"
+        f"; per step per rank {c['all_gather'] / steps:.0f} all-gathers, "
+        f"{c['all_reduce'] / steps:.0f} all-reduces, "
+        f"{c['reduce_scatter'] / steps:.0f} reduce-scatters, "
+        f"{c['staged'] / steps:.0f} host stagings of "
+        f"{c['staged_bytes'] / steps / 2**30:.2f} GiB; 0 switch launches; "
+        f"every rank's history, metrics and replicated leaves bitwise equal"
+        f"; init {b0['init_s']:.1f} s, {steps} steps {b0['run_s']:.1f} s")
+    log("  peak memory per rank: " + ", ".join(
+        f"{p['train']['peak']} B ({p['train']['peak'] / 2**30:.2f} GiB)"
+        for p in pay) + f"; {b0['n_local']} parameters a rank")
+    tw, tt = p0["train_witness"], sh["witness"]
+    rel = math.sqrt(tw["gap_sq"] / max(tw["ref_sq"], 1e-300))
+    loss_gap = abs(tw["loss_mesh"] - tw["loss_single"])
+    if not (loss_gap <= tt["loss_tol"] * abs(tw["loss_single"])
+            and tw["worst"] <= 1.0 and tw["routing_equal"]
+            and all(p["train_witness"]["loss_mesh"] == tw["loss_mesh"]
+                    for p in pay)):
+        raise AssertionError(f"train moe mesh float32 witness: loss gap "
+                             f"{loss_gap:.3g}, worst gradient gap "
+                             f"{tw['worst']:.3g} of the gate, routing equal "
+                             f"{tw['routing_equal']}")
+    log(f"  float32 witness ({sh['n_layers']} layers, {tt['batch']} x "
+        f"{tt['seq']}, {tt['batch'] // sh['shape'][0]} rows a data shard): "
+        f"loss {tw['loss_mesh']:.7f} (mesh) {tw['loss_single']:.7f} (one "
+        f"card's grouped oracle), gap {loss_gap:.3g}; gradients within "
+        f"{tw['worst']:.3g} of the 1e-4 elementwise gate, ||mesh - one "
+        f"card|| / ||one card|| {rel:.3g}; routing equal "
+        f"({tw['dropped']} of {tw['choices']} choices dropped); rank 0's "
+        f"train part {p0['train_s']:.1f} s")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -3648,14 +4184,17 @@ def main() -> int:
     # the MoE family: moonshot alone holds 56 GB, so every earlier
     # phase's tensors go first; each phase's peak is printed
     release(torch)
+    moe_runs = {}
     for name, phase in (("serve moe full width", serve_moe),
                         ("moe float32 witness", moe_witness),
-                        ("sliding window full width", swa_full_width)):
+                        ("sliding window full width", swa_full_width),
+                        ("moe mesh world", lambda np, torch: moe_mesh_full_width(
+                            np, torch, moe_runs["serve moe full width"]))):
         log(f"[{name}]")
         log(f"  {torch.cuda.memory_allocated()} B allocated before")
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
-        phase(np, torch)
+        moe_runs[name] = phase(np, torch)
         log(f"  phase {time.time() - t0:.1f} s, peak memory "
             f"{torch.cuda.max_memory_allocated()} B")
         release(torch)

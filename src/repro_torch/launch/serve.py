@@ -26,10 +26,13 @@ the per-tier ledger is printed; ``--library-size`` builds a library model and pr
 the swaps; ``--autotune`` prints the rung trajectory and the ladder the
 served counts suggest.
 
-Mesh deployments (``--data``/``--model``, the dense family): one process
-per rank serves the same requests SPMD (``DecodeServer(mesh=...)``:
-parameters and cache sharded by the rules, each data shard dispatching
-its own rows, tensor parallelism over "model").  Run outside a process
+Mesh deployments (``--data``/``--model``, the dense and MoE families):
+one process per rank serves the same requests SPMD
+(``DecodeServer(mesh=...)``: parameters drawn as the rank's shards and
+the cache sharded by the rules, each data shard dispatching its own
+rows, tensor parallelism over "model", an MoE's experts over "model"
+with ``--model`` dividing them, e.g. ``--arch moonshot-v1-16b-a3b --data
+1 --model 4``).  Run outside a process
 group, the launcher spawns its ``data x model`` ranks itself (gloo on the
 CPU or when ranks share a card, NCCL when each has its own), having
 built the kernels once first; run inside one (``torchrun``), it serves as
@@ -121,7 +124,7 @@ def _serve(args):
             cfg.approx, enable=True,
             library_size=options.library.library_size
             if options.library else cfg.approx.library_size))
-    params = M.init_model(args.seed, cfg, device=device)
+    params = M.init_model(args.seed, cfg, device=device, mesh=mesh)
     server = DecodeServer(cfg, params, options=options)
     out = print if lead else (lambda *a, **k: None)
 

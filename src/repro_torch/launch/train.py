@@ -13,7 +13,9 @@ tokens.
 one process each (``launch/mesh.spawn_world``, gloo), each building the
 same Trainer; on the CPU with ``--device cpu``, else every rank on the
 GPU (ranks share the card when there is one).  Rank 0 prints.  The dense
-family trains there (``model.check_mesh_trainable``).
+and MoE families train there, the MoE expert-parallel with the model
+axis dividing its experts (``model.check_mesh_trainable``; e.g. ``--arch
+moonshot-v1-16b-a3b --mesh 2,2``).
 """
 from __future__ import annotations
 

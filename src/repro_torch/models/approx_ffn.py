@@ -47,7 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import LANE, _pad_to, gather_resident_stacks
-from repro_torch.models.layers import FFN, ffn_fwd, param
+from repro_torch.models.layers import FFN, draw, ffn_fwd, param
 from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
                                           mcma_dispatch, plan_invoke_stats)
 from repro_torch.sharding import collectives as C
@@ -76,9 +76,9 @@ class ApproxFFN(nn.Module):
         self.a_b2 = param((n + 1, d_p), cfg.pdtype, device, fill=fill)
         if gen is not None:
             w1, _, w2, _ = approx_stacks(cfg, self)
-            w1.copy_(param(w1.shape, cfg.pdtype, device, gen, d ** -0.5))
-            w2.copy_(param(w2.shape, cfg.pdtype, device, gen,
-                           a.d_hidden ** -0.5))
+            w1.copy_(draw(w1.shape, cfg.pdtype, device, gen, d ** -0.5))
+            w2.copy_(draw(w2.shape, cfg.pdtype, device, gen,
+                          a.d_hidden ** -0.5))
 
 
 def init_approx_ffn(gen, cfg: ModelConfig, device) -> ApproxFFN:

@@ -48,6 +48,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+from contextlib import contextmanager
+from contextvars import ContextVar
 
 import torch
 import torch.nn as nn
@@ -58,18 +60,43 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import manual_dp_context
 
 
+# what ``param`` makes of each tensor it draws, while ``param_hook`` is on
+_PARAM_HOOK: ContextVar = ContextVar("param_hook", default=None)
+
+
+@contextmanager
+def param_hook(fn):
+    """Every ``param`` made inside is ``fn(tensor)`` (an ``nn.Parameter``)
+    instead of the tensor as drawn: ``model.init_model(mesh=)`` records
+    the creation order with it, then cuts each tensor to a rank's block as
+    soon as it is drawn."""
+    tok = _PARAM_HOOK.set(fn)
+    try:
+        yield
+    finally:
+        _PARAM_HOOK.reset(tok)
+
+
+def draw(shape, dtype, device, gen, scale) -> torch.Tensor:
+    """normal(0, 1) * ``scale`` from ``gen``, drawn in float32 and cast to
+    ``dtype`` (a parameter's draw, or a block of one)."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(scale).to(dtype)
+
+
 def param(shape, dtype, device, gen=None, scale=None, fill=None):
     """A frozen parameter (training turns ``requires_grad`` on: runtime/
     steps.init_train_state): ``fill`` everywhere, normal(0, 1) * ``scale``
-    from ``gen``, or uninitialized storage when neither is given."""
+    from ``gen``, or uninitialized storage when neither is given; inside
+    ``param_hook`` what its function makes of that tensor."""
     if fill is not None:
         t = torch.full(shape, fill, dtype=dtype, device=device)
     elif gen is not None:
-        t = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device).mul_(scale).to(dtype)
+        t = draw(shape, dtype, device, gen, scale)
     else:
         t = torch.empty(shape, dtype=dtype, device=device)
-    return nn.Parameter(t, requires_grad=False)
+    hook = _PARAM_HOOK.get()
+    return nn.Parameter(t, requires_grad=False) if hook is None else hook(t)
 
 
 # ---------------------------------------------------------------------------

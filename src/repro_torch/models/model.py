@@ -33,11 +33,13 @@ cache, and return the global logits and the global (all-reduced)
 dispatch metrics, the same on every rank.  ``init_cache`` then builds the
 rank's shard of the cache and ``reset_slot`` resets a global slot where
 this rank holds it.  ``pos`` stays whole on every rank (the rules
-replicate it).  The dense family serves on a mesh; the others raise
+replicate it).  The dense and MoE families serve on a mesh (the MoE
+expert-parallel, ``models/moe._moe_fwd_manual``, its aux loss the data
+shards' mean on every rank); the hybrid and xLSTM families raise
 (``check_mesh_servable``).  Inside ``runtime/steps.train_mesh_context``
 ``forward(serve=False)`` and ``lm_loss`` take the rank's rows and give
-the global batch's losses and metrics on every rank; the dense family
-trains there, the others raise (``check_mesh_trainable``).
+the global batch's losses and metrics on every rank; the dense and MoE
+families train there, the others raise (``check_mesh_trainable``).
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ from repro_torch.runtime.dispatch import plan_invoke_stats
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import (manual_dp_context,
                                              with_current_context)
-from repro_torch.sharding.rules import cache_pspecs
+from repro_torch.sharding.rules import cache_pspecs, param_pspecs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,13 +160,39 @@ class Model(nn.Module):
                 gen, cfg.d_model ** -0.5)
 
 
-def init_model(key, cfg: ModelConfig, *, device=None) -> Model:
+def init_model(key, cfg: ModelConfig, *, device=None, mesh=None) -> Model:
     """Random parameters from ``key``, an int seed or a ``torch.Generator``
-    on ``device`` (default: the GPU, which must exist)."""
+    on ``device`` (default: the GPU, which must exist).  On ``mesh`` each
+    parameter is this rank's block of the same draw under
+    ``sharding/rules.param_pspecs`` (its spec kept as ``_pspec``), cut as
+    soon as it is drawn, so the whole model never exists at once."""
     dev = resolve_device(device)
     gen = key if isinstance(key, torch.Generator) \
         else torch.Generator(device=dev).manual_seed(int(key))
-    return Model(cfg, dev, gen)
+    if mesh is None:
+        return Model(cfg, dev, gen)
+    made = []                       # the parameters in creation order
+
+    def record(t):
+        made.append(nn.Parameter(t, requires_grad=False))
+        return made[-1]
+    with L.param_hook(record):
+        meta = Model(cfg, torch.device("meta"))
+    specs, _ = param_pspecs(mesh, meta)
+    names = {id(p): n for n, p in meta.named_parameters()}
+    todo = iter([specs[names[id(p)]] for p in made])
+
+    def shard(t):
+        spec = next(todo)
+        p = nn.Parameter(C.shard_tensor(mesh, t, spec), requires_grad=False)
+        p._pspec = spec
+        return p
+    with L.param_hook(shard):
+        model = Model(cfg, dev, gen)
+    C.shard_params(mesh, model)    # the constants made outside ``param``
+    for name, p in model.named_parameters():
+        assert p._pspec == specs[name], (name, p._pspec, specs[name])
+    return model
 
 
 def _dense_block(cfg: ModelConfig, p: DenseBlock, x, positions, cache, *,
@@ -515,28 +543,60 @@ def shard_cache(mesh, cache: dict) -> dict:
     return walk(cache, cache_pspecs(mesh, cache))
 
 
+def _mesh_sizes(mesh):
+    """({axis: size}, |model|, the data axes' size)."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    g = 1
+    for ax in ("pod", "data"):
+        g *= sizes.get(ax, 1)
+    return sizes, sizes.get("model", 1), g
+
+
+def _check_family(cfg: ModelConfig, mesh, what: str):
+    """Raise for the families with no mesh yet (the hybrid and xLSTM:
+    item 15), and for an MoE whose experts the model axis does not
+    divide (expert parallelism needs E % |model| == 0; the reference
+    falls back to compiler-placed tensor parallelism inside each
+    expert)."""
+    if topology(cfg).kind != "uniform":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family} family) does not {what} on a mesh "
+            "yet: ROADMAP queue 1, item 15 (the mesh for the hybrid and "
+            "xLSTM families)")
+    sizes, md, _ = _mesh_sizes(mesh)
+    e = cfg.moe.n_experts
+    if e and ("model" not in sizes or e % md):
+        raise NotImplementedError(
+            f"mesh {dict(sizes)}: the {e} experts of {cfg.name} do not "
+            f"divide over its model axis (expert parallelism, "
+            "E % |model| == 0): the reference falls back to "
+            "compiler-placed tensor parallelism inside each expert there, "
+            "the port refuses (ROADMAP queue 3, layout departures)")
+
+
 def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: the
     dense family, with the batch dividing over the data axes and d_ff,
     the attention heads and the kv heads dividing over "model" (the
-    sharded serve path's predicate, ``approx_ffn._manual_serve_ctx``).
-    Where it fails the reference falls back to compiler-placed sharding;
-    the port has no such fallback (ROADMAP queue 3)."""
-    topo = topology(cfg)
-    if topo.kind != "uniform" or cfg.moe.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family) does not serve on a mesh "
-            "yet: ROADMAP queue 1, item 15 (the mesh for the MoE, hybrid "
-            "and xLSTM families)")
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    md = sizes.get("model", 1)
-    ok = _manual_serve_ctx(cfg, batch, mesh)[0] is not None \
-        and cfg.n_heads % md == 0 and cfg.n_kv_heads % md == 0
+    sharded serve path's predicate, ``approx_ffn._manual_serve_ctx``);
+    the MoE family, with the experts, the heads and the kv heads over
+    "model" and the batch over the data axes.  Where it fails the
+    reference falls back to compiler-placed sharding; the port has no
+    such fallback (ROADMAP queue 3)."""
+    _check_family(cfg, mesh, "serve")
+    sizes, md, g = _mesh_sizes(mesh)
+    if cfg.moe.n_experts:
+        ok = batch % g == 0
+    else:
+        ok = _manual_serve_ctx(cfg, batch, mesh)[0] is not None
+    ok = ok and cfg.n_heads % md == 0 and cfg.n_kv_heads % md == 0
     if not ok:
+        width = f"{cfg.moe.n_experts} experts" if cfg.moe.n_experts \
+            else f"d_ff={cfg.d_ff}"
         raise NotImplementedError(
             f"mesh {dict(sizes)} does not divide the sharded serve path of "
             f"{cfg.name} at batch {batch} (batch over the data axes, "
-            f"d_ff={cfg.d_ff}, {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
+            f"{width}, {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
             "heads over model): the reference falls back to "
             "compiler-placed sharding there, the port refuses (ROADMAP "
             "queue 3, layout departures)")
@@ -544,29 +604,24 @@ def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
 
 def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` trains on ``mesh`` with microbatches of
-    ``batch`` rows: the dense family, with the batch dividing over the
-    data axes and the heads, the kv heads, d_ff and the vocab over
-    "model" (every tensor-parallel branch of the train path engaged).
-    Where it fails the reference falls back to compiler-placed sharding;
-    the port refuses (ROADMAP queue 3)."""
-    topo = topology(cfg)
-    if topo.kind != "uniform" or cfg.moe.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family) does not train on a mesh "
-            "yet: ROADMAP queue 1, item 15 (the mesh for the MoE, hybrid "
-            "and xLSTM families)")
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    md = sizes.get("model", 1)
-    g = 1
-    for ax in ("pod", "data"):
-        g *= sizes.get(ax, 1)
+    ``batch`` rows: the dense or MoE family, with the batch dividing over
+    the data axes and the heads, the kv heads, the vocab and d_ff (the
+    MoE: the experts) over "model" (every tensor- and expert-parallel
+    branch of the train path engaged).  Where it fails the reference
+    falls back to compiler-placed sharding; the port refuses (ROADMAP
+    queue 3)."""
+    _check_family(cfg, mesh, "train")
+    sizes, md, g = _mesh_sizes(mesh)
+    width = cfg.moe.n_experts or cfg.d_ff
     if batch % g or any(n % md for n in (cfg.n_heads, cfg.n_kv_heads,
-                                          cfg.d_ff, cfg.vocab)):
+                                          width, cfg.vocab)):
+        what = f"{cfg.moe.n_experts} experts" if cfg.moe.n_experts \
+            else f"d_ff={cfg.d_ff}"
         raise NotImplementedError(
             f"mesh {dict(sizes)} does not divide the sharded train path of "
             f"{cfg.name} at microbatch {batch} (the microbatch over the data "
             f"axes, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
-            f"d_ff={cfg.d_ff} and vocab={cfg.vocab} over model): the "
+            f"{what} and vocab={cfg.vocab} over model): the "
             "reference falls back to compiler-placed sharding there, the "
             "port refuses (ROADMAP queue 3, layout departures)")
 

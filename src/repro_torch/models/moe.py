@@ -18,8 +18,22 @@ which the reference's stable sort visits them, and sums them from zeros
 in that order, so no atomic adds reorder the sum from call to call.
 The aux load-balancing loss is Switch/GShard's, E * sum_e(f_e * p_e).
 
-The mesh branch (``_moe_fwd_manual``, ``_moe_local_experts``) comes with
-the MoE family's mesh (ROADMAP queue 1, item 15); on one device
+On a mesh (inside ``runtime/steps.serve_mesh_context`` or
+``train_mesh_context``) with "model" an axis that divides the E experts,
+``moe_fwd`` takes the reference's expert-parallel branch,
+``_moe_fwd_manual``: each model rank owns E / |model| experts (stored
+FSDP over the data axes and gathered at use), routes its data shard's
+tokens globally (the router gathered whole) and computes only its own
+experts' pairs (``_moe_local_experts``); the partial outputs are summed
+over "model" in rank order, so every rank holds the same bits.  Capacity
+is per (data shard, expert), the scan_chunk groups do not apply there,
+and the aux loss is the data shards' mean.  In the backward a model
+rank's combine sees only its own experts' pairs, while the router's
+logits and the aux loss are the same on every model rank: the gate
+values and the tokens bound for the expert buffer pass through
+``collectives.copy_to_model`` (their partial gradients summed over
+"model"), the router's gather over "model" takes its slice, and the aux
+term reaches the router and x once.  On one device
 ``_moe_local_experts`` over all E experts is ``_moe_group``.
 """
 from __future__ import annotations
@@ -34,6 +48,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import param
 from repro_torch.runtime import dispatch as D
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context
 
 
 class MoE(nn.Module):
@@ -69,8 +85,8 @@ class Routing(NamedTuple):
     cap: int
 
 
-def route(cfg: ModelConfig, router: torch.Tensor,
-          xt: torch.Tensor) -> Routing:
+def route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor, *,
+          n_local: int | None = None, offset: int = 0) -> Routing:
     """Router logits in ``xt``'s dtype (the reference's source rounds
     them so; compiled, XLA folds that rounding into an f32 product, which
     in bf16 can flip a near-tied choice), the softmax in f32, the top-k by
@@ -78,7 +94,10 @@ def route(cfg: ModelConfig, router: torch.Tensor,
     slots of the shared dispatch engine.  xt: (T, d).  The capacity is
     computed in Python floats as the reference computes it, over every
     row of the group: padded chunk rows and idle decode slots compete
-    for slots as real ones do."""
+    for slots as real ones do.  ``n_local`` / ``offset``: only the pairs
+    of experts [offset, offset + n_local) are kept (an expert-parallel
+    rank's buffer of ``n_local * cap`` slots), with the capacity of the
+    global E (default: all E experts)."""
     t = xt.shape[0]
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     cap = min(int(cfg.moe.capacity_factor * t * k / e) + 1, t)
@@ -87,14 +106,129 @@ def route(cfg: ModelConfig, router: torch.Tensor,
     gate_vals, gate_idx = vals[:, :k], idx[:, :k].to(torch.int32)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
     order, e_sorted, rank, _ = D.class_sort_ranks(gate_idx.reshape(t * k), e)
-    keep, slot = D.capacity_slots(e_sorted, rank, cap, n_local=e)
+    keep, slot = D.capacity_slots(e_sorted, rank, cap,
+                                  n_local=e if n_local is None else n_local,
+                                  offset=offset)
     return Routing(probs, gate_vals, gate_idx, order, keep, slot, cap)
 
 
 def moe_fwd(cfg: ModelConfig, p: MoE, x: torch.Tensor):
-    """x: (B, S, d) -> (out, aux_loss), through token groups of
-    ``moe.scan_chunk`` (``_moe_chunked``)."""
+    """x: (B, S, d) -> (out, aux_loss).  On a mesh whose "model" axis
+    divides the experts: expert parallelism (``_moe_fwd_manual``), x the
+    rank's rows; elsewhere on a mesh the reference falls back to
+    compiler-placed tensor parallelism inside each expert, which the port
+    refuses (``model.check_mesh_servable`` / ``check_mesh_trainable``
+    name it first).  Without a mesh: token groups of ``moe.scan_chunk``
+    (``_moe_chunked``)."""
+    mesh, dp = manual_dp_context()
+    if mesh is not None:
+        md = mesh.size("model") if "model" in mesh.axis_names else 0
+        if not md or cfg.moe.n_experts % md:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.moe.n_experts} experts over a model axis "
+                f"of {md}: the reference falls back to compiler-placed "
+                "tensor parallelism inside each expert there, the port "
+                "refuses (ROADMAP queue 3, layout departures)")
+        return _moe_fwd_manual(cfg, p, x, mesh, dp, md)
     return _moe_chunked(cfg, p, x)
+
+
+def _moe_fwd_manual(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, dp,
+                    md: int):
+    """Expert parallelism, one rank's part: this model rank owns experts
+    [e_off, e_off + E / |model|), x (B_local, S, d) is its data shard's
+    tokens, replicated over "model".  The router (d, E) and the expert
+    stacks are gathered over the data axes in ONE collective
+    (``collectives.unshard``, whose backward reduce-scatters), the
+    router's columns then over "model" (a replicated consumer: the
+    backward takes its slice); the rank's experts run on its pairs and
+    the partial outputs are summed over "model".  Capacity is per (data
+    shard, expert), over the rank's tokens (idle and padded rows
+    included) with the global E; the aux loss is averaged over the data
+    shards, the same on every rank."""
+    e = cfg.moe.n_experts
+    names = ("w_in", "w_out") + (("w_gate",) if cfg.gated_ffn else ())
+    router, *stacks = C.unshard(p.router, *(getattr(p, n) for n in names),
+                                mesh=mesh)
+    if router.shape[1] != e:
+        router = C.all_gather(router, "model", 1, mesh)
+    w = dict(zip(names, stacks))
+    e_loc = e // md
+    e_off = mesh.index("model") * e_loc
+    assert w["w_in"].shape[0] == e_loc, (w["w_in"].shape, e_loc)
+    y_part, aux = _moe_local_experts(cfg, router, w, x, e_loc, e_off)
+    y = C.all_reduce_sum(y_part, "model", mesh)
+    return y, C.all_reduce_sum(aux, dp, mesh) / mesh.size(dp)
+
+
+def _moe_local_experts(cfg: ModelConfig, router: torch.Tensor, w: dict,
+                       x: torch.Tensor, e_loc: int, e_off: int):
+    """Route the tokens x (B, S, d) to experts [e_off, e_off + e_loc) of
+    the E (global top-k routing, local compute): ``router`` (d, E) whole,
+    ``w`` the e_loc experts' stacks.  Returns the partial output (zeros
+    for the pairs whose experts live elsewhere) and the aux loss over
+    these tokens.  Each token's pairs are summed from zeros in ascending
+    expert id, no atomics.  With fewer than E experts (a model rank of a
+    mesh) the gate values and the tokens bound for the buffer pass
+    through ``copy_to_model``: their gradients here are partial."""
+    b, s, d = x.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    r = route(cfg, router, xt, n_local=e_loc, offset=e_off)
+    gate_vals, xs = r.gate_vals, xt
+    if e_loc < e:
+        gate_vals, xs = C.copy_to_model(gate_vals), C.copy_to_model(xt)
+    order = r.order.long()
+    tok = order // k                       # the token of each sorted pair
+    xe = D.scatter_rows(xs[tok], r.slot, r.keep, e_loc * r.cap) \
+        .reshape(e_loc, r.cap, d)
+    h = torch.bmm(xe, w["w_in"].to(x.dtype))
+    if cfg.gated_ffn:
+        h = F.silu(torch.bmm(xe, w["w_gate"].to(x.dtype))) * h
+    else:
+        h = F.silu(h)
+    ye = torch.bmm(h, w["w_out"].to(x.dtype))
+    contrib = D.gather_rows(ye.reshape(e_loc * r.cap, d), r.slot, r.keep) \
+        * gate_vals.reshape(t * k)[order][:, None].to(ye.dtype)
+    # each token's k pairs, in ascending expert id (the stable sort's
+    # order), summed from zeros in that fixed order
+    parts = contrib[torch.argsort(tok, stable=True)].reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + parts[:, j]
+    frac_tokens = F.one_hot(r.gate_idx[:, 0].long(), e).float().mean(0)
+    frac_probs = r.probs.mean(0)
+    aux = e * (frac_tokens * frac_probs).sum() * cfg.moe.aux_weight
+    return out.reshape(b, s, d), aux
+
+
+def dropped_choices(cfg: ModelConfig, p: MoE, x: torch.Tensor):
+    """(dropped, total) (token, expert) choices of one MoE application on
+    x (B, S, d) as its forward routes them, over the whole batch: on a
+    mesh each data shard routes its own rows at its own capacity (the
+    router gathered whole) and both counts are summed over the data
+    axes, the same on every rank; without a mesh ``moe.scan_chunk``'s
+    groups each route at theirs.  int64 tensors."""
+    mesh, dp = manual_dp_context()
+    b, s, d = x.shape
+    t, ck = b * s, cfg.moe.scan_chunk
+    with torch.no_grad():
+        if mesh is None:
+            router = p.router
+            groups = x.reshape(t // ck, ck, d) \
+                if ck and t > ck and t % ck == 0 else x.reshape(1, t, d)
+        else:
+            router = C.gather_whole(p.router, p.router._pspec, mesh)
+            groups = x.reshape(1, t, d)
+        dropped = sum(int((~route(cfg, router, g).keep).sum())
+                      for g in groups)
+        out = torch.tensor([dropped, groups.shape[0] * groups.shape[1]
+                            * cfg.moe.top_k], dtype=torch.int64,
+                           device=x.device)
+        if mesh is not None:
+            out = C.all_reduce_sum(out, dp, mesh)
+    return out[0], out[1]
 
 
 def _moe_chunked(cfg: ModelConfig, p: MoE, x: torch.Tensor):
@@ -120,31 +254,8 @@ def _moe_chunked(cfg: ModelConfig, p: MoE, x: torch.Tensor):
 
 
 def _moe_group(cfg: ModelConfig, p: MoE, x: torch.Tensor):
-    """One token group.  x: (B, S, d) -> (out, aux_loss)."""
-    b, s, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
-    t = b * s
-    xt = x.reshape(t, d)
-    r = route(cfg, p.router, xt)
-    order = r.order.long()
-    tok = order // k                       # the token of each sorted pair
-    xe = D.scatter_rows(xt[tok], r.slot, r.keep, e * r.cap) \
-        .reshape(e, r.cap, d)
-    h = torch.bmm(xe, p.w_in.to(x.dtype))
-    if cfg.gated_ffn:
-        h = F.silu(torch.bmm(xe, p.w_gate.to(x.dtype))) * h
-    else:
-        h = F.silu(h)
-    ye = torch.bmm(h, p.w_out.to(x.dtype))
-    contrib = D.gather_rows(ye.reshape(e * r.cap, d), r.slot, r.keep) \
-        * r.gate_vals.reshape(t * k)[order][:, None].to(ye.dtype)
-    # each token's k pairs, in ascending expert id (the stable sort's
-    # order), summed from zeros in that fixed order
-    parts = contrib[torch.argsort(tok, stable=True)].reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        out = out + parts[:, j]
-    frac_tokens = F.one_hot(r.gate_idx[:, 0].long(), e).float().mean(0)
-    frac_probs = r.probs.mean(0)
-    aux = e * (frac_tokens * frac_probs).sum() * cfg.moe.aux_weight
-    return out.reshape(b, s, d), aux
+    """One token group.  x: (B, S, d) -> (out, aux_loss): every expert
+    local (``_moe_local_experts`` over all E)."""
+    w = {n: getattr(p, n) for n in ("w_in", "w_out", "w_gate")
+         if hasattr(p, n)}
+    return _moe_local_experts(cfg, p.router, w, x, cfg.moe.n_experts, 0)

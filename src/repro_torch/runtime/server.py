@@ -58,18 +58,21 @@ cache.  The server feeds token ids, so an
 architecture that takes embeddings (``input_mode="embeddings"``) is
 refused.
 
-``mesh`` (a ``launch/mesh.HostMesh``) serves the dense family SPMD, one
-process per rank: every rank runs this same host loop on the same
+``mesh`` (a ``launch/mesh.HostMesh``) serves the dense and MoE families
+SPMD, one process per rank: every rank runs this same host loop on the same
 submitted requests (admission, the page allocator and the tier table are
 deterministic and replicated), holds only its shard of the parameters
 (``_shard_params``: sliced by ``sharding/rules.param_pspecs``, the full
-copy freed) and of the cache, and runs every step under
+copy freed; parameters drawn as shards, ``model.init_model(mesh=)``,
+are kept) and of the cache, and runs every step under
 ``steps.serve_mesh_context``: each data shard dispatches its own rows at
 per-shard capacities, the exact FFN and attention run tensor-parallel
-over "model", and the logits and invoke stats come back gathered and
-all-reduced, so the sampled tokens and what the controllers read are
-bitwise equal on every rank.  The xLSTM, hybrid and MoE families, and a
-mesh that does not divide the model, raise (``model.check_mesh_servable``).
+over "model" (an MoE's experts expert-parallel, each model rank its
+E / |model|, routing per data shard at per-shard capacities), and the
+logits and invoke stats come back gathered and all-reduced, so the
+sampled tokens and what the controllers read are bitwise equal on every
+rank.  The xLSTM and hybrid families, and a mesh that does not divide
+the model, raise (``model.check_mesh_servable``).
 """
 from __future__ import annotations
 
@@ -206,7 +209,8 @@ class DecodeServer:
         """``DecodeServer(cfg, params, options=ServeOptions(...))``: serve
         ``params`` (a ``models.model.Model``) on the device it lives on.
         With ``options.mesh`` the server takes ``params`` over: each
-        parameter's storage becomes this rank's shard."""
+        parameter's storage becomes this rank's shard (a model too large
+        for one device is drawn as shards: ``model.init_model(mesh=)``)."""
         o = self.options = options if options is not None else ServeOptions()
         self.mesh = o.mesh
         if self.mesh is not None:
@@ -442,7 +446,8 @@ class DecodeServer:
     def _shard_params(self, params: M.Model):
         """Each parameter's storage replaced, in place, by this rank's
         block under ``sharding/rules.param_pspecs`` (its spec kept as
-        ``_pspec`` for ``collectives.unshard``); the full copy is freed."""
+        ``_pspec`` for ``collectives.unshard``); the full copy is freed.
+        A parameter that is a shard already stays as it is."""
         C.shard_params(self.mesh, params)
 
     def _step_kw(self, point) -> dict:

@@ -42,10 +42,9 @@ def init_train_state(key, cfg: ModelConfig, *, device=None,
     with gradients on, zero float32 AdamW moments and step 0, on
     ``device`` (default: the GPU, which must exist).  On ``mesh`` each
     parameter is this rank's shard of the same draw
-    (``collectives.shard_params``), and the moments are shards too."""
-    params = M.init_model(key, cfg, device=resolve_device(device))
-    if mesh is not None:
-        C.shard_params(mesh, params)
+    (``model.init_model(mesh=)``), and the moments are shards too."""
+    params = M.init_model(key, cfg, device=resolve_device(device),
+                          mesh=mesh)
     params.requires_grad_(True)
     named = dict(params.named_parameters())
     return {"params": params, "opt": adamw_init(named),

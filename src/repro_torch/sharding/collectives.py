@@ -392,9 +392,10 @@ def unshard(*tensors, mesh=None) -> tuple:
 
 
 def shard_tensor(mesh, t: torch.Tensor, spec) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec`` (a contiguous copy): each
-    dim named by the spec split evenly over its axes, at the rank's
-    position along them."""
+    """This rank's block of ``t`` under ``spec`` (a contiguous copy, never
+    a view: a block along the leading dim would otherwise keep the whole
+    storage alive): each dim named by the spec split evenly over its
+    axes, at the rank's position along them."""
     idx = []
     for dim, s in enumerate(spec):
         if s is None:
@@ -405,20 +406,22 @@ def shard_tensor(mesh, t: torch.Tensor, spec) -> torch.Tensor:
         w = t.shape[dim] // n
         i = mesh.index(s)
         idx.append(slice(i * w, (i + 1) * w))
-    return t[tuple(idx)].contiguous()
+    return t[tuple(idx)].clone(memory_format=torch.contiguous_format)
 
 
 def shard_params(mesh, params, device=None) -> dict:
     """Each parameter of ``params`` (an ``nn.Module``) replaced, in place,
     by this rank's block under ``sharding/rules.param_pspecs``, on
     ``device`` (default: where it lies), with its spec kept as ``_pspec``
-    for ``unshard`` and the train step; the whole copy is freed.  Returns
-    {name: spec}."""
+    for ``unshard`` and the train step; the whole copy is freed.  A
+    parameter that is a shard already (``model.init_model(mesh=)``) is
+    kept.  Returns {name: spec}."""
     specs, _ = param_pspecs(mesh, params)
     for name, p in params.named_parameters():
-        p.data = shard_tensor(mesh, p.data, specs[name]).to(
-            device or p.device)
-        p._pspec = specs[name]
+        if getattr(p, "_pspec", None) is None:  # not a shard already
+            p.data = shard_tensor(mesh, p.data, specs[name])
+            p._pspec = specs[name]
+        p.data = p.data.to(device or p.device)
     return specs
 
 

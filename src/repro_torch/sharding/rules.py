@@ -306,10 +306,12 @@ def approx_serve_specs(mesh, *, gated: bool, plan=None,
 
 
 def moe_manual_specs(mesh, *, gated: bool) -> dict:
-    """Specs of the expert-parallel MoE path: expert stacks EP over
-    "model" and FSDP over data, the router TP over both, tokens
-    batch-sharded, the aux loss replicated.  (The port's MoE does not
-    serve on a mesh yet: ROADMAP queue 1, item 15.)"""
+    """Specs of the expert-parallel MoE path (``models/moe.
+    _moe_fwd_manual``): expert stacks EP over "model" and FSDP over data,
+    the router TP over both, tokens batch-sharded, the aux loss
+    replicated.  Where E divides over "model" these are the specs
+    ``param_pspecs`` gives the MoE's leaves, which the port's parameters
+    carry (``_pspec``) and the manual path gathers by."""
     dp = _dp_axes(mesh)
     weights = {"router": P(dp, "model"),
                "w_in": P("model", dp, None), "w_out": P("model", dp, None)}

@@ -44,10 +44,6 @@ NAME_EXCEPTIONS = {
     ("repro.models.moe", "init_moe"): "an nn.Module constructor (MoE)",
     ("repro.models.xlstm", "init_mlstm"): "an nn.Module constructor (MLSTM)",
     ("repro.models.xlstm", "init_slstm"): "an nn.Module constructor (SLSTM)",
-    ("repro.models.moe", "_moe_fwd_manual"):
-        "item 15: expert parallelism on a mesh",
-    ("repro.models.moe", "_moe_local_experts"):
-        "item 15: expert parallelism on a mesh",
 }
 
 
