@@ -58,15 +58,15 @@ Phases (any failure raises and the script exits non-zero):
      switch kernels against their PyTorch versions, timed in bf16, on
      plans of the top rung and of a ladder_from_counts rung and on stacks
      gathered from the library;
-  6b. [serve mesh full width]: the same model and stream served by a
+  6b. [serve mesh full width]: the same model at its widths cut to 12
+     of its 24 layers (``MESH_LAYERS``) and the same stream served by a
      DecodeServer on a (2, 2) ("data", "model") mesh: 4 ranks, one
      process each, sharing the card over gloo (every collective of a
      CUDA tensor staged through pinned host memory), on both kernel
-     backends: every rank launches its backend's kernel 24 times a tick;
+     backends: every rank launches its backend's kernel 12 times a tick;
      tokens, drain stats and tick logs bitwise equal on every rank;
      invocation in [0, 1]; ms per tick, collectives and host stagings
-     per tick printed, and the bf16 tokens' agreement with phase 5's
-     single-device run (not gated); then a float32 witness at full
+     per tick printed; then a float32 witness at full
      widths cut to 2 layers, no-clip capacities: the mesh server's tokens
      equal to the single-device server's and a chunk + decode step's
      logits within 1e-4; then launch/serve.py --data 2 --model 2 (the
@@ -143,7 +143,8 @@ Phases (any failure raises and the script exits non-zero):
   16. [train resume]: the internlm2 smoke config on the card under
      torch.use_deterministic_algorithms: saved at step 3, a new Trainer
      resumes to step 6 and equals an uninterrupted run bitwise;
-  16b. [train mesh full width]: internlm2-1.8b uncut, bf16, remat, the
+  16b. [train mesh full width]: internlm2-1.8b at its widths cut to 12
+     of its 24 layers (``MESH_LAYERS``), bf16, remat, the
      ApproxFFN and tick router at error bound 1.4, 8 x 512, grad_accum 2,
      2 Trainer steps on a (2, 2) ("data", "model") mesh of 4 ranks
      sharing the card over gloo (128 MiB exchange-arena slots): every
@@ -232,15 +233,39 @@ Phases (any failure raises and the script exits non-zero):
      memory a rank) and a float32 witness (4 x 64, 2 rows a data shard:
      the loss within 1e-5 relative and every gradient within 1e-4
      elementwise of one card's grouped oracle, routing equal);
+  20c. the hybrid and xLSTM families on a mesh, ONE more world of 4
+     ranks ([ssm mesh world], ``ssm_mesh_full_width``): [serve hybrid
+     mesh full width], zamba2-2.7b uncut drawn as shards on a (2, 2)
+     mesh, MCMA at tick scope on its shared block, 8 requests of 4 + 4
+     tokens (token by token: 7 ticks) through a mesh DecodeServer on both
+     backends: each backend's kernel 9 times a tick on every rank, tokens
+     equal across the backends, every rank's runs bitwise equal; [serve
+     xlstm mesh full width], xlstm-1.3b uncut on a (1, 4) mesh (one sLSTM
+     head a rank), the same stream: ``slstm_scan`` 6 times a tick on
+     every rank; for each, ms a tick, collectives and staged bytes a tick
+     a rank, peak memory a rank and the bf16 tokens equal to one card's
+     (printed); float32 witnesses at one group (zamba2 6 layers, xlstm
+     8), 8 rows decoding 9 tokens from an empty cache: every block
+     teacher-forced within 1e-4 of one card, the group end to end within
+     1e-4 of the logits' scale with equal greedy tokens (the bf16 gaps
+     printed); [train ssm mesh]: both cut to one group at their widths,
+     bf16, remat, 8 x 256 on (2, 2), 2 Trainer steps (bitwise equal on
+     every rank, finite; the sLSTM kernel 2 a step a rank under remat)
+     and a float32 witness (the loss within 1e-5 relative, the gradients
+     within 1e-3 of one card's in norm, beside one card's own noise under
+     a 1e-7 relative move of its parameters). The kernel phase times
+     ``slstm_scan`` at a mesh rank's shapes too;
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
      describing every kernel (the switch kernels'
      launches_by_run with the runs of phases 6b and 10 to 12 (6b's
      launches summed over its ranks, ``per_rank`` beside them) and, for
-     switched_mlp, the two paper runs; their ``at_widths`` the d 2560
-     and d 8192 timings of phase 12; the MoE phases, on one card and on
-     a mesh, launch none of the four), then the result line.
+     switched_mlp, the two paper runs, and phase 20c's runs; their
+     ``at_widths`` the d 2560 and d 8192 timings of phase 12;
+     slstm_scan's ``at_rank_shapes`` a mesh rank's shapes; the MoE
+     phases, on one card and on a mesh, launch none of the four), then
+     the result line.
 """
 from __future__ import annotations
 
@@ -275,6 +300,12 @@ MLP_FULL = (2048, 2048, 256, 2048)   # ApproxFFN rows, d_in, d_hidden, d_out
 MLP_BLOCK = 256
 # the sLSTM at xlstm-1.3b width: prefill (S = prompt) and decode (S = 1)
 SLSTM_FULL = {"prefill": (256, 8, 4, 512), "decode": (1, 8, 4, 512)}
+# a mesh rank's sLSTM: its H / |model| heads of its rows (timed, with the
+# full-width shapes): decode on (1, 4) (one head a rank), decode on a
+# model axis of 2, and the [train ssm mesh] microbatch on (2, 2)
+SLSTM_RANK = {"rank decode h1": (1, 8, 1, 512),
+              "rank decode h2": (1, 8, 2, 512),
+              "rank train": (256, 4, 2, 512)}
 SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
 # and at batches a larger slot table gives it (checked, not timed)
 SLSTM_WIDE_BATCH = [(16, 64, 4, 512), (4, 256, 4, 512)]
@@ -330,6 +361,11 @@ SWA_WITNESS = dict(n_layers=2, seq=8192, at=4096, decode=8)
 # card over gloo; the float32 witness at full widths cut to 2 layers, its
 # logits from a (batch, seq) chunk then one decode step
 MESH_SHAPE = (2, 2)
+# internlm2 in the two mesh phases ([serve mesh full width], [train mesh
+# full width]) at its widths cut to 12 of its 24 layers: with the SSM mesh
+# world added the script took 1223.0 s on a slow host (PR 24), past the
+# 1200 s it must end within
+MESH_LAYERS = 12
 MESH_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
 MESH_LAUNCHER = ("--smoke", "--approx", "--mcma-dispatch", "--data", "2",
                  "--model", "2", "--batch", "4", "--requests", "6",
@@ -367,6 +403,37 @@ TRAIN_MOE_MESH = dict(shape=(2, 2), n_layers=2, batch=8, seq=512,
                       grad_accum=2, steps=2, warmup=2,
                       witness=dict(batch=4, seq=64, loss_tol=1e-5,
                                    grad_tol=1e-4))
+# the hybrid and xLSTM families on a mesh: ONE world of 4 ranks sharing
+# the card.  zamba2 uncut on (2, 2) through both weight-switch kernels,
+# xlstm uncut on (1, 4) (one sLSTM head a rank), on a short stream (these
+# families prefill token by token: a tick a prompt token; 8 + 8 tokens,
+# 15 ticks, then 6 + 6, took the script past 750 s and 1200 s on slow
+# hosts); float32
+# witnesses at one group of each (the uncut float32 zamba2 amplifies
+# rounding to O(1), ROADMAP queue 3 k), ``steps`` tokens decoded one by
+# one from an empty cache against one card; [train ssm mesh] both
+# families at their widths cut to one group on (2, 2) (the sLSTM's
+# per-rank microbatch (256, 4, 2, 512)), with a float32 witness whose
+# gradients are held in norm at 1e-3 (a reduction missing or counted
+# twice moves them by O(1); the mesh's other summation order through the
+# uncut one-group zamba2 moved them by 1.86e-4, so the gate of 1e-4 first
+# written fell below the rounding noise, which the witness measures)
+SSM_MESH = dict(hybrid=(2, 2), xlstm=(1, 4), exchange_mib=128)
+SSM_STREAM = dict(batch=8, max_len=64, n_requests=8, prompt_len=4,
+                  max_new=4)
+SSM_WITNESS = dict(batch=8, steps=9, tol=1e-4)
+TRAIN_SSM_MESH = dict(shape=(2, 2), batch=8, seq=256, grad_accum=1, steps=2,
+                      warmup=2,
+                      witness=dict(batch=4, seq=64, loss_tol=1e-5,
+                                   norm_tol=1e-3, grad_tol=1e-4))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def log(msg):
@@ -673,15 +740,15 @@ def mlp_kernel_phase(np, torch, flush):
 
 def slstm_kernel_phase(np, torch, flush):
     """slstm_scan against its PyTorch version over the sweeps (1e-5),
-    xlstm-1.3b's prefill and decode shapes (timed), its width at larger
-    batches and its train shape, with float32 and bfloat16 recurrent
-    weights."""
+    xlstm-1.3b's prefill and decode shapes and a mesh rank's shapes
+    (timed), its width at larger batches and its train shape, with
+    float32 and bfloat16 recurrent weights."""
     from repro_torch.kernels import slstm_scan as K
     from repro_torch.kernels.sweeps import SLSTM_SHAPES, slstm_inputs
     out = {}
     cases = [(s, slstm_inputs(*s), None) for s in SLSTM_SHAPES]
     cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), name)
-              for name, s in SLSTM_FULL.items()]
+              for name, s in {**SLSTM_FULL, **SLSTM_RANK}.items()]
     cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), "wide")
               for s in SLSTM_WIDE_BATCH]
     cases += [(SLSTM_TRAIN, slstm_inputs(*SLSTM_TRAIN,
@@ -2083,7 +2150,8 @@ def train_mesh_rank(rank, out_dir):
     mesh = HostMesh(TRAIN_MESH["shape"], ("data", "model"))
     out = {"coords": mesh.coords}
     t0 = time.time()
-    out["bf16"], shapes = train_mesh_bf16(torch, mesh)
+    out["bf16"], shapes = train_mesh_bf16(
+        torch, mesh, train_cfg("internlm2-1.8b", n_layers=MESH_LAYERS))
     release(torch)
     out["witness"] = train_mesh_witness(np, torch, mesh)
     release(torch)
@@ -2093,7 +2161,8 @@ def train_mesh_rank(rank, out_dir):
 
 
 def train_mesh_full_width(np, torch):
-    """[train mesh full width]: internlm2-1.8b uncut, bf16, TRAIN_DENSE's
+    """[train mesh full width]: internlm2-1.8b cut to ``MESH_LAYERS``
+    layers at its widths, bf16, TRAIN_DENSE's
     shape, 2 Trainer steps on a (2, 2) mesh of 4 ranks sharing the card
     over gloo and the exchange arena; the float32 witness; the int8
     error-feedback all-reduce on a ("pod",) mesh of the same ranks; then
@@ -2142,7 +2211,8 @@ def train_mesh_full_width(np, torch):
     ms = b0["history"][-1]["dt"] * 1e3
     tokens = sh["batch"] * sh["seq"]
     c = b0["counts"]
-    log(f"  internlm2-1.8b, 24 layers, bf16, remat, {sh['batch']} x "
+    log(f"  internlm2-1.8b, {MESH_LAYERS} of its 24 layers, bf16, remat, "
+        f"{sh['batch']} x "
         f"{sh['seq']}, grad_accum {sh['grad_accum']}: {ms:.1f} ms a step "
         f"(step {steps}), {tokens / ms * 1e3:.0f} tokens/s; per step per "
         f"rank {c['all_gather'] / steps:.0f} all-gathers, "
@@ -3407,6 +3477,13 @@ def mesh_run(torch, np, cfg, params, prompts, backend, mesh):
                 times=times, wall=wall)
 
 
+def mesh_cfg():
+    """internlm2-1.8b as [serve mesh full width] serves it: MCMA on, cut
+    to ``MESH_LAYERS`` layers."""
+    return dataclasses.replace(approx_cfg("internlm2-1.8b"),
+                               n_layers=MESH_LAYERS)
+
+
 def mesh_rank(rank, out_dir):
     """One rank of [serve mesh full width]: the bf16 stream on both
     backends, then the float32 witness; its payload to ``out_dir``."""
@@ -3418,7 +3495,7 @@ def mesh_rank(rank, out_dir):
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_host_mesh(data=MESH_SHAPE[0], model=MESH_SHAPE[1])
-    cfg = approx_cfg("internlm2-1.8b")
+    cfg = mesh_cfg()
     prompts = stream_prompts(np, cfg)
     out = {"coords": mesh.coords, "runs": {}}
     for b in ("pallas", "pallas_fused"):
@@ -3445,19 +3522,20 @@ def mesh_rank(rank, out_dir):
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
 
-def serve_mesh(np, torch, single_tokens):
-    """[serve mesh full width]: internlm2-1.8b uncut, bf16, served by a
+def serve_mesh(np, torch):
+    """[serve mesh full width]: internlm2-1.8b at its widths cut to
+    ``MESH_LAYERS`` layers, bf16, served by a
     DecodeServer on a (2, 2) ("data", "model") mesh of 4 ranks sharing the
     card over gloo, on the scheduler's stream on both backends, then a
     float32 witness at full widths cut to 2 layers, then the launcher
     with ``--data 2 --model 2``.  Gates: each rank launches its backend's
     kernel once a layer a tick; tokens, stats and tick logs bitwise equal
     on every rank; invocation in [0, 1]; the witness's tokens equal to the
-    single-device server's and its logits within 1e-4.  The bf16 tokens
-    are compared with ``single_tokens`` (the single-device pallas run of
-    the scheduler phase), not gated.  Returns the kernels line's runs."""
+    single-device server's and its logits within 1e-4.  (No bf16 token
+    comparison with the scheduler phase's single-device run: that one
+    has all 24 layers.)  Returns the kernels line's runs."""
     from repro_torch.launch.mesh import spawn_world
-    cfg = approx_cfg("internlm2-1.8b")
+    cfg = mesh_cfg()
     ranks = MESH_SHAPE[0] * MESH_SHAPE[1]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
@@ -3486,8 +3564,6 @@ def serve_mesh(np, torch, single_tokens):
             raise AssertionError(f"mesh {b}: done {run['done']}, launches "
                                  f"per rank {launches} (want {want}), "
                                  f"invocation {inv}")
-        agree = sum(x == y for a, c in zip(run["tokens"], single_tokens)
-                    for x, y in zip(a, c))
         n_tok = sum(len(t) for t in run["tokens"])
         med = {ph: statistics.median(v) if v else 0.0
                for ph, v in run["times"].items()}
@@ -3502,9 +3578,8 @@ def serve_mesh(np, torch, single_tokens):
             f"tick per rank {col['all_gather'] / ticks:.1f} all-gathers, "
             f"{col['all_reduce'] / ticks:.1f} all-reduces, "
             f"{col['staged'] / ticks:.1f} host stagings of "
-            f"{col['staged_bytes'] / ticks / 2**20:.1f} MiB; bf16 tokens "
-            f"equal to the single-device server's: {agree} of {n_tok} (not "
-            "gated); kv_bytes_resident "
+            f"{col['staged_bytes'] / ticks / 2**20:.1f} MiB; "
+            "kv_bytes_resident "
             f"{run['stats']['kv_bytes_resident']}")
         by_run[b] = dict(run=f"mesh {MESH_SHAPE} {b}, all ranks",
                          ticks=ticks, launches=sum(launches),
@@ -4024,6 +4099,530 @@ def moe_mesh_full_width(np, torch, single):
         f"train part {p0['train_s']:.1f} s")
 
 
+def one_group(arch) -> int:
+    """The layers of one group of a hybrid (Mamba2 blocks + the shared
+    block) or xLSTM (mLSTM blocks + the sLSTM block) config."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg.attn_every if cfg.family == "hybrid" else cfg.ssm.slstm_every
+
+
+def ssm_run(torch, cfg, params, prompts, backend, mesh):
+    """The SSM mesh world's short stream through a DecodeServer (on
+    ``mesh`` when given), tick scope: tokens, stats, tick log, the switch
+    and sLSTM launches and the collectives counted from 0 after the
+    server is built, the tick times."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    from repro_torch.sharding import collectives as C
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        batch=SSM_STREAM["batch"], max_len=SSM_STREAM["max_len"],
+        use_mcma_dispatch=True, backend=backend, route_scope="tick",
+        mesh=mesh))
+    torch.cuda.synchronize()
+    zero_switch()
+    K.slstm_scan.launches = 0
+    C.reset_counts()
+    reqs, st, times, wall, _ = drive(torch, srv, prompts,
+                                     SSM_STREAM["max_new"])
+    stats = st.asdict()
+    stats.pop("wall_s")
+    return dict(tokens=[list(r.out) for r in reqs],
+                done=all(r.done and not r.aborted for r in reqs),
+                stats=stats, tick_log=list(srv.tick_log),
+                switch=switch_launches(), slstm=K.slstm_scan.launches,
+                collectives=dict(C.COUNTS), times=times, wall=wall)
+
+
+def ssm_mesh_serve(np, torch, arch, mesh):
+    """[serve hybrid mesh full width] or [serve xlstm mesh full width],
+    one rank: ``arch`` uncut, bf16, drawn as this rank's shards, MCMA at
+    tick scope (the hybrid's shared block; the xLSTM has no ApproxFFN),
+    the short stream through a mesh DecodeServer on each backend (the
+    hybrid: both weight-switch kernels); then rank 0 serves the same
+    stream on one card, for the tokens to compare (not gated)."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    cfg = approx_cfg(arch, route_scope="tick")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    out = dict(init_s=time.time() - t0,
+               n_local=sum(p.numel() for p in params.parameters()))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, SSM_STREAM["prompt_len"])
+               .astype(np.int32) for _ in range(SSM_STREAM["n_requests"])]
+    backends = ("pallas", "pallas_fused") if cfg.family == "hybrid" \
+        else ("pallas",)
+    out["runs"] = {b: ssm_run(torch, cfg, params, prompts, b, mesh)
+                   for b in backends}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del params
+    release(torch)
+    C.barrier()
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        single = ssm_run(torch, cfg, one, prompts, "pallas", None)
+        out["single"] = dict(tokens=single["tokens"],
+                             decode_ms=statistics.median(
+                                 single["times"]["decode"]))
+        del one
+        release(torch)
+    C.barrier()
+    return out
+
+
+def ssm_decode_logits(torch, cfg, params, toks, mesh):
+    """``toks`` (B, n) decoded one by one from an empty cache through the
+    decode step at tick scope (on ``mesh`` under its serve context): each
+    step's logits, float32, (B, n, V)."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    step = S.make_decode_step(cfg, use_mcma_dispatch=True,
+                              route_scope="tick", backend="pallas")
+    b, n = toks.shape
+    out = []
+    with S.serve_mesh_context(mesh):
+        cache = M.init_cache(cfg, b, n, device="cuda")
+        for j in range(n):
+            lg, cache = step(params, cache, toks[:, j:j + 1])
+            out.append(lg.float())
+    torch.cuda.synchronize()
+    return torch.stack(out, 1)
+
+
+def ssm_block_outputs(torch, cfg, params, toks, mesh, feed=None):
+    """One group's blocks of ``cfg`` (the hybrid's Mamba2 blocks then its
+    shared block, exact FFN; the xLSTM's mLSTM blocks then its sLSTM
+    block) decoding ``toks`` (B, n) one token a step from an empty cache
+    (on ``mesh`` under its serve context, this rank's rows and heads).
+    Each block takes the previous block's output, or with ``feed`` (the
+    inputs one card recorded, {block: (B, n, d)}) that block's recorded
+    input (teacher forcing).  Returns ({block: input}, {block: output}),
+    each (B, n, d) float32 over the whole batch."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import P, dp_axes
+    b, n = toks.shape
+    ins, outs = {}, {}
+    with S.serve_mesh_context(mesh), torch.no_grad():
+        rows = slice(None) if mesh is None else C.local_rows(
+            mesh, dp_axes(mesh), b)
+        cache = M.init_cache(cfg, b, n, device="cuda")
+        hybrid = cfg.family == "hybrid"
+        core = params.mamba[0] if hybrid else params.mlstm[0]
+        names = [f"{'mamba' if hybrid else 'mlstm'} {j}"
+                 for j in range(len(core))] + \
+            ["shared" if hybrid else "slstm"]
+        x_tok = L.embed_fwd(cfg, params.embed, toks[rows])
+        for t in range(n):
+            x = x_tok[:, t:t + 1]
+            for i, name in enumerate(names):
+                if feed is not None:
+                    x = feed[name][rows, t:t + 1].cuda()
+                ins.setdefault(name, []).append(x)
+                if name == "shared":
+                    pos = torch.full((x.shape[0],), t, dtype=torch.int32,
+                                     device=x.device)
+                    x, _, _, _ = M._dense_block(
+                        cfg, params.shared, x, pos[:, None],
+                        M._layer_cache(cache, 0, pos))
+                elif name == "slstm":
+                    st = {k: v[0] for k, v in cache["slstm"].items()}
+                    x, st = M._slstm_block(cfg, params.slstm[0], x, st)
+                    for k, v in st.items():
+                        cache["slstm"][k][0] = v
+                else:
+                    head = "mamba" if hybrid else "mlstm"
+                    st = {k: v[0, i] for k, v in cache[head].items()}
+                    fn = M._mamba_block if hybrid else M._mlstm_block
+                    x, st = fn(cfg, core[i], x, st)
+                    for k, v in st.items():
+                        cache[head][k][0, i] = v
+                outs.setdefault(name, []).append(x)
+        whole = (lambda t: t) if mesh is None else \
+            (lambda t: C.gather_whole(t.contiguous(), P(dp_axes(mesh)),
+                                      mesh))
+        pack = lambda d: {k: whole(torch.cat(v, 1)).float()
+                          for k, v in d.items()}
+        ins, outs = pack(ins), pack(outs)
+    torch.cuda.synchronize()
+    return ins, outs
+
+
+def ssm_mesh_witness(np, torch, arch, mesh, out_dir):
+    """The float32 witness of an SSM family on a mesh, one rank: ``arch``
+    at its widths cut to one group, ``SSM_WITNESS``'s tokens decoded one
+    by one from an empty cache on ``mesh``, end to end (through the
+    decode step, no capacity clips) and block by block teacher-forced
+    (each block fed the input it had on one card; the hybrid's shared
+    block with its exact FFN).  Rank 0 also runs one card and returns the
+    gaps: end to end, and each kind of block's largest."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    w = SSM_WITNESS
+    cfg = dataclasses.replace(
+        approx_cfg(arch, route_scope="tick", **NO_CLIP),
+        n_layers=one_group(arch), param_dtype="float32",
+        act_dtype="float32")
+    exact = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, enable=False))
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (w["batch"], w["steps"])).astype(np.int32)).cuda()
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                               act_dtype="bfloat16")
+    feed = f"{out_dir}/{arch}_feed.pt"
+    out = {"layers": cfg.n_layers}
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        want = ssm_decode_logits(torch, cfg, one, toks, None)
+        del one
+        one = M.init_model(0, bf16, device="cuda")
+        want_bf16 = ssm_decode_logits(torch, bf16, one, toks, None)
+        del one
+        one = M.init_model(0, exact, device="cuda")
+        ins, want_blocks = ssm_block_outputs(torch, exact, one, toks, None)
+        torch.save({k: v.cpu() for k, v in ins.items()}, feed)
+        del one, ins
+        release(torch)
+    C.barrier()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    got = ssm_decode_logits(torch, cfg, params, toks, mesh)
+    del params
+    params = M.init_model(0, exact, device="cuda", mesh=mesh)
+    _, got_blocks = ssm_block_outputs(torch, exact, params, toks, mesh,
+                                      feed=torch.load(feed))
+    del params
+    params = M.init_model(0, bf16, device="cuda", mesh=mesh)
+    got_bf16 = ssm_decode_logits(torch, bf16, params, toks, mesh)
+    del params
+    release(torch)
+    out["finite"] = bool(torch.isfinite(got).all()) and all(
+        bool(torch.isfinite(v).all()) for v in got_blocks.values())
+    if mesh.rank == 0:
+        gaps = {}
+        for name, v in got_blocks.items():
+            kind = name.split()[0]
+            gaps[kind] = max(gaps.get(kind, 0.0),
+                             float((v - want_blocks[name]).abs().max()))
+        out.update(max_abs=float((got - want).abs().max()),
+                   scale=float(want.abs().max()),
+                   tokens_equal=bool(torch.equal(got.argmax(-1),
+                                                 want.argmax(-1))),
+                   blocks=gaps,
+                   bf16=dict(mesh=float((got_bf16 - want_bf16).abs().max()),
+                             vs_f32=float((want_bf16 - want).abs().max()),
+                             tokens=float((got_bf16.argmax(-1)
+                                           == want_bf16.argmax(-1))
+                                          .float().mean())))
+    C.barrier()
+    return out
+
+
+def ssm_train_cfg(arch, **kw):
+    """``arch`` cut to one group as [train ssm mesh] trains it: remat on;
+    the hybrid with MCMA on its shared block (the ApproxFFN's
+    co-training and the tick router, at TRAIN_ERROR_BOUND)."""
+    cfg = train_cfg(arch, n_layers=one_group(arch), **kw)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, enable=True, route_scope="tick",
+            error_bound=TRAIN_ERROR_BOUND))
+    return cfg
+
+
+def train_ssm_mesh_witness(np, torch, arch, mesh):
+    """The float32 witness of [train ssm mesh], one rank: ``arch`` at its
+    widths cut to one group, remat; ``loss_and_grads`` on ``mesh`` on the
+    rank's rows of a small batch.  Rank 0 also runs one card and holds
+    each gradient leaf, gathered whole one at a time, to it: the loss of
+    each, the squared sums of the gaps and of the gradient, the worst
+    leaf's relative gap in norm and the worst elementwise gap against the
+    gate."""
+    from repro_torch.data.pipeline import SyntheticLM, local_batch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    w = TRAIN_SSM_MESH["witness"]
+    cfg = ssm_train_cfg(arch, param_dtype="float32", act_dtype="float32")
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=w["seq"],
+                        global_batch=w["batch"], seed=1).batch_at(0)
+    local = {k: v.cuda() for k, v in local_batch(batch, mesh, 1).items()}
+    state = S.init_train_state(0, cfg, device="cuda", mesh=mesh)
+    named = dict(state["params"].named_parameters())
+    with S.train_mesh_context(mesh):
+        loss_m, _, grads_m = S.loss_and_grads(cfg, state["params"], local)
+    out = dict(loss_mesh=float(loss_m))
+    want = None
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda").requires_grad_(True)
+        full = {k: v.cuda() for k, v in batch.items()}
+        loss_s, _, want = S.loss_and_grads(cfg, one, full)
+        # the gradients' own rounding-level noise: one card again with
+        # every parameter moved by a relative 1e-7 (seeded)
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in one.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen)
+                       .to(p.device))
+        _, _, moved = S.loss_and_grads(cfg, one, full)
+        floor = [0.0, 0.0]
+        for k, g in moved.items():
+            floor[0] += float(((g - want[k]).double() ** 2).sum())
+            floor[1] += float((want[k].double() ** 2).sum())
+        del one, moved
+        out.update(loss_single=float(loss_s),
+                   floor=math.sqrt(floor[0] / max(floor[1], 1e-300)))
+    worst, leaf, gap_sq, ref_sq, tol = 0.0, (0.0, ""), 0.0, 0.0, \
+        w["grad_tol"]
+    for k in list(grads_m):
+        g = C.gather_whole(grads_m.pop(k), named[k]._pspec, mesh)
+        if want is not None:
+            ref = want.pop(k)
+            gap = (g - ref).abs()
+            worst = max(worst, (gap / (tol + tol * ref.abs())).max().item())
+            g2, r2 = float((gap.double() ** 2).sum()), \
+                float((ref.double() ** 2).sum())
+            leaf = max(leaf, (math.sqrt(g2 / max(r2, 1e-300)), k))
+            gap_sq += g2
+            ref_sq += r2
+        del g
+    out.update(worst=worst, worst_leaf=leaf, gap_sq=gap_sq, ref_sq=ref_sq)
+    del state, named, want
+    release(torch)
+    C.barrier()
+    return out
+
+
+def ssm_mesh_rank(rank, out_dir):
+    """One rank of the SSM mesh world: [serve hybrid mesh full width] on
+    (2, 2) and [serve xlstm mesh full width] on (1, 4), each with its
+    float32 witness, then [train ssm mesh] on (2, 2) (2 bf16 Trainer
+    steps of each family cut to one group, then its float32 witness); its
+    payload to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.launch.mesh import HostMesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = {SSM_MESH["hybrid"], SSM_MESH["xlstm"], TRAIN_SSM_MESH["shape"]}
+    meshes = {s: HostMesh(s, ("data", "model")) for s in shapes}
+    out = {"coords": {k: m.coords for k, m in meshes.items()}}
+    for key, arch in (("hybrid", HYBRID), ("xlstm", "xlstm-1.3b")):
+        mesh = meshes[SSM_MESH[key]]
+        t0 = time.time()
+        out[key] = ssm_mesh_serve(np, torch, arch, mesh)
+        out[key]["witness"] = ssm_mesh_witness(np, torch, arch, mesh,
+                                               out_dir)
+        out[key]["s"] = time.time() - t0
+    mesh = meshes[TRAIN_SSM_MESH["shape"]]
+    for key, arch in (("hybrid", HYBRID), ("xlstm", "xlstm-1.3b")):
+        t0 = time.time()
+        K.slstm_scan.launches = 0
+        run, _ = train_mesh_bf16(torch, mesh, ssm_train_cfg(arch),
+                                 TRAIN_SSM_MESH)
+        run["slstm"] = K.slstm_scan.launches
+        release(torch)
+        run["witness"] = train_ssm_mesh_witness(np, torch, arch, mesh)
+        run["s"] = time.time() - t0
+        out[f"train_{key}"] = run
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def ssm_mesh_full_width(np, torch):
+    """[serve hybrid mesh full width], [serve xlstm mesh full width] and
+    [train ssm mesh] in ONE world of 4 ranks sharing the card over gloo
+    and the exchange arena (``ssm_mesh_rank``).  Gates: every rank's
+    runs (tokens, stats, tick log, launches) bitwise equal; every request
+    served; the hybrid's tokens equal across its two backends and each
+    backend's kernel launched once a group a tick on every rank (9 a
+    tick), the other not at all; the xLSTM's ``slstm_scan`` launched once
+    a group a tick on every rank, no switch launch; the float32 witnesses
+    block by block within 1e-4 of one card, and at one group end to end
+    within 1e-4 of the logits' scale with equal greedy tokens (the
+    bf16 gaps printed); the train steps
+    bitwise equal on every rank and finite, the sLSTM's launches
+    steps x 2 (remat) on every rank; the train witnesses' loss within
+    1e-5 relative and their gradients within 1e-3 of one card's in norm
+    (printed beside one card's own noise under a 1e-7 relative move of
+    its parameters).
+    Returns the kernels line's runs: {kernel: [run records]}."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import model as M
+    ranks, smi = 4, card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(ssm_mesh_rank, ranks, (tmp,), backend="gloo",
+                    exchange_mib=SSM_MESH["exchange_mib"])
+        log(f"  {ranks} ranks (gloo, one card, {SSM_MESH['exchange_mib']} "
+            f"MiB arena slots) in {time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    p0 = pay[0]
+    strip = lambda run: {k: v for k, v in run.items()
+                         if k not in ("times", "wall")}
+    by_run = {"switched_mlp": [], "switched_mlp_fused": [], "slstm_scan": []}
+    kernel_of = {"pallas": "switched_mlp",
+                 "pallas_fused": "switched_mlp_fused"}
+    for key, arch in (("hybrid", HYBRID), ("xlstm", "xlstm-1.3b")):
+        shape, sv = SSM_MESH[key], p0[key]
+        groups = M.topology(approx_cfg(arch)).n_groups
+        for r, p in enumerate(pay[1:], 1):
+            for b in sv["runs"]:
+                if strip(p[key]["runs"][b]) != strip(sv["runs"][b]):
+                    raise AssertionError(f"{key} mesh {b}: rank {r} "
+                                         "disagrees with rank 0")
+        for b, run in sv["runs"].items():
+            ticks = run["stats"]["ticks"]
+            want = groups * ticks
+            mine = run["switch"] if key == "hybrid" else run["slstm"]
+            other = run["slstm"] if key == "hybrid" else run["switch"]
+            if not run["done"] or mine != want or other:
+                raise AssertionError(
+                    f"{key} mesh {b}: done {run['done']}, launches {mine} "
+                    f"(want {groups} x {ticks}), other kernels {other}")
+            kern = kernel_of[b] if key == "hybrid" else "slstm_scan"
+            by_run[kern].append(dict(
+                run=f"{arch} mesh {shape} {b}, all ranks", ticks=ticks,
+                launches=ranks * mine, per_rank=mine))
+            col = run["collectives"]
+            med = statistics.median(run["times"]["decode"])
+            n_tok = sum(len(t) for t in run["tokens"])
+            single = sv["single"]
+            agree = sum(x == y for a, c in zip(run["tokens"],
+                                               single["tokens"])
+                        for x, y in zip(a, c))
+            log(f"  [serve {key} mesh full width] {arch} uncut on a {shape} "
+                f"mesh ({sv['n_local']} parameters a rank, drawn as shards "
+                f"in {sv['init_s']:.1f} s), {b}: {ticks} ticks (prompts "
+                f"token by token, {run['stats']['prefill_ticks']} prefill); "
+                f"rank 0 ms per tick median {med:.2f} (one card "
+                f"{single['decode_ms']:.2f}); {n_tok} tokens in "
+                f"{run['wall']:.3f} s = {n_tok / run['wall']:.1f} tokens/s; "
+                f"{kern} launches per rank {mine} = {groups} x {ticks}; per "
+                f"tick per rank {col['all_gather'] / ticks:.1f} all-gathers, "
+                f"{col['gather_for_split'] / ticks:.1f} gathers for heads, "
+                f"{col['all_reduce'] / ticks:.1f} all-reduces, "
+                f"{col['staged'] / ticks:.1f} host stagings of "
+                f"{col['staged_bytes'] / ticks / 2**20:.2f} MiB; every "
+                f"rank's tokens, stats and tick log bitwise equal; bf16 "
+                f"tokens equal to one card's: {agree} of {n_tok} (not "
+                f"gated); {smi}")
+        if key == "hybrid" and sv["runs"]["pallas"]["tokens"] != \
+                sv["runs"]["pallas_fused"]["tokens"]:
+            raise AssertionError("hybrid mesh: tokens differ between "
+                                 "pallas and pallas_fused")
+        log("  peak memory per rank: " + ", ".join(
+            f"{p[key]['peak']} B ({p[key]['peak'] / 2**30:.2f} GiB)"
+            for p in pay) + f"; {smi}")
+        wt, tol = sv["witness"], SSM_WITNESS["tol"]
+        # block by block within tol; end to end within tol of the logits'
+        # scale (at this random init they reach about 5, and a one-group
+        # stack amplifies the mesh's other summation order: ROADMAP queue
+        # 3 k)
+        if not (all(p[key]["witness"]["finite"] for p in pay)
+                and max(wt["blocks"].values()) <= tol
+                and wt["max_abs"] <= tol * wt["scale"]
+                and wt["tokens_equal"]):
+            raise AssertionError(f"{key} mesh float32 witness: {wt}")
+        log(f"  float32 witness, {arch} at its widths cut to one group "
+            f"({wt['layers']} layers) on a {shape} mesh, "
+            f"{SSM_WITNESS['batch']} rows decoded {SSM_WITNESS['steps']} "
+            f"tokens one by one from an empty cache: block by block "
+            f"(teacher-forced, each fed its input on one card) within "
+            + ", ".join(f"{k} {v:.3g}" for k, v in wt["blocks"].items())
+            + f" of one card's (<= {tol}); end to end through the decode "
+            f"step within {wt['max_abs']:.3g} = "
+            f"{wt['max_abs'] / wt['scale']:.3g} of the logits' scale "
+            f"{wt['scale']:.3g} (<= {tol}), greedy tokens equal; in bf16 "
+            f"the mesh {wt['bf16']['mesh']:.3g} from one card's logits "
+            f"(one card's bf16 {wt['bf16']['vs_f32']:.3g} from its float32"
+            f"), greedy tokens {wt['bf16']['tokens']:.3f} equal (printed); "
+            f"rank 0's part {sv['s']:.1f} s")
+    sh = TRAIN_SSM_MESH
+    for key, arch in (("hybrid", HYBRID), ("xlstm", "xlstm-1.3b")):
+        name = f"train_{key}"
+        b0 = p0[name]
+        for r, p in enumerate(pay[1:], 1):
+            b = p[name]
+            if b["history"] != b0["history"] or b["metrics"] != b0["metrics"]:
+                raise AssertionError(f"train ssm mesh {key}: rank {r}'s "
+                                     "history or metrics differ")
+            for k, (axes, digest) in b["digests"].items():
+                same_blk = all(p["coords"][sh["shape"]][a]
+                               == p0["coords"][sh["shape"]][a] for a in axes)
+                if same_blk and digest != b0["digests"][k][1]:
+                    raise AssertionError(f"train ssm mesh {key}: rank {r}'s "
+                                         f"{k} differs from rank 0's")
+        steps = len(b0["history"])
+        want_slstm = steps * sh["grad_accum"] * 2 if key == "xlstm" else 0
+        if any(p[name]["slstm"] != want_slstm for p in pay) or \
+                (key == "xlstm" and any(p[name]["launches"] for p in pay)):
+            raise AssertionError(
+                f"train ssm mesh {key}: slstm launches "
+                f"{[p[name]['slstm'] for p in pay]} (want {want_slstm}), "
+                f"switch {[p[name]['launches'] for p in pay]}")
+        if want_slstm:
+            by_run["slstm_scan"].append(dict(
+                run=f"{arch} train mesh {sh['shape']}, all ranks",
+                steps=steps, launches=ranks * want_slstm,
+                per_rank=want_slstm))
+        for h, m in zip(b0["history"], b0["metrics"]):
+            if not all(np.isfinite([h["loss"], h["grad_norm"]])):
+                raise AssertionError(f"train ssm mesh {key}: step "
+                                     f"{h['step']} not finite")
+            log(f"  step {h['step']}: {h['dt'] * 1e3:.1f} ms (slowest "
+                f"rank), loss {h['loss']:.4f}, " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in m.items()))
+        ms = b0["history"][-1]["dt"] * 1e3
+        c = b0["counts"]
+        log(f"  [train ssm mesh] {arch} cut to one group "
+            f"({one_group(arch)} layers) at its widths, bf16, remat, "
+            f"{sh['batch']} x {sh['seq']}, grad_accum {sh['grad_accum']}, "
+            f"a {sh['shape']} mesh: {ms:.1f} ms a step (step {steps}), "
+            f"{sh['batch'] * sh['seq'] / ms * 1e3:.0f} tokens/s; per step "
+            f"per rank {c['all_gather'] / steps:.0f} all-gathers, "
+            f"{c['gather_for_split'] / steps:.0f} gathers for heads, "
+            f"{c['all_reduce'] / steps:.0f} all-reduces, "
+            f"{c['reduce_scatter'] / steps:.0f} reduce-scatters, "
+            f"{c['staged'] / steps:.0f} host stagings of "
+            f"{c['staged_bytes'] / steps / 2**30:.3f} GiB; slstm_scan "
+            f"launches per rank {b0['slstm']}, switch {b0['launches']}; "
+            f"every rank's history, metrics and replicated leaves bitwise "
+            f"equal; init {b0['init_s']:.1f} s; {smi}")
+        log("  peak memory per rank: " + ", ".join(
+            f"{p[name]['peak']} B ({p[name]['peak'] / 2**30:.2f} GiB)"
+            for p in pay) + f"; {b0['n_local']} parameters a rank")
+        tw, tt = b0["witness"], sh["witness"]
+        rel = math.sqrt(tw["gap_sq"] / max(tw["ref_sq"], 1e-300))
+        loss_gap = abs(tw["loss_mesh"] - tw["loss_single"])
+        if not (loss_gap <= tt["loss_tol"] * abs(tw["loss_single"])
+                and rel <= tt["norm_tol"]
+                and all(p[name]["witness"]["loss_mesh"] == tw["loss_mesh"]
+                        for p in pay)):
+            raise AssertionError(f"train ssm mesh {key} float32 witness: "
+                                 f"loss gap {loss_gap:.3g}, gradients "
+                                 f"{rel:.3g} off in norm (worst leaf "
+                                 f"{tw['worst_leaf']}, the noise floor "
+                                 f"{tw['floor']:.3g})")
+        log(f"  float32 witness ({tt['batch']} x {tt['seq']}, "
+            f"{tt['batch'] // sh['shape'][0]} rows a data shard): loss "
+            f"{tw['loss_mesh']:.7f} (mesh) {tw['loss_single']:.7f} (one "
+            f"card), gap {loss_gap:.3g}; ||mesh - one card|| / ||one card|| "
+            f"{rel:.3g} (<= {tt['norm_tol']}; one card's own under a 1e-7 "
+            f"relative move of its parameters {tw['floor']:.3g}), worst leaf "
+            f"{tw['worst_leaf'][1]} {tw['worst_leaf'][0]:.3g}, worst element "
+            f"{tw['worst']:.3g} of the {tt['grad_tol']} elementwise band "
+            f"(printed); rank 0's part {b0['s']:.1f} s")
+    return by_run
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -4047,10 +4646,7 @@ def main() -> int:
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -4089,9 +4685,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[serve scheduler full width]")
-    # the single-device tokens the mesh phase compares with (the servers
-    # themselves are released)
-    sched_tokens = serve_scheduler(np, torch)["pallas"]["tokens"]
+    serve_scheduler(np, torch)
     torch.cuda.empty_cache()
 
     log("[serve qos library autotune full width]")
@@ -4103,7 +4697,7 @@ def main() -> int:
     log("[serve mesh full width]")
     t0 = time.time()
     release(torch)
-    mesh_runs = serve_mesh(np, torch, sched_tokens)
+    mesh_runs = serve_mesh(np, torch)
     release(torch)
     log(f"  phase {time.time() - t0:.1f} s")
 
@@ -4199,6 +4793,15 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated()} B")
         release(torch)
 
+    # the hybrid and xLSTM families on a mesh: the shared block's switch
+    # kernels and the sLSTM kernel per rank on its heads
+    log("[ssm mesh world]")
+    log(f"  {torch.cuda.memory_allocated()} B allocated before")
+    t0 = time.time()
+    ssm_runs = ssm_mesh_full_width(np, torch)
+    log(f"  phase {time.time() - t0:.1f} s")
+    release(torch)
+
     # every process a phase started (ranks, fork servers, launchers,
     # compilers) has ended before the result is printed
     left = child_processes()
@@ -4219,6 +4822,8 @@ def main() -> int:
         switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b] \
             + [mesh_runs[b]]
     switch_runs["pallas"] += arch_runs + paper_runs
+    switch_runs["pallas"] += ssm_runs["switched_mlp"]
+    switch_runs["pallas_fused"] += ssm_runs["switched_mlp_fused"]
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",
@@ -4236,7 +4841,7 @@ def main() -> int:
              [dict(run=f"xlstm {k}", launches=v)
               for k, v in slstm_launches.items()]
              + [dict(run="xlstm train", steps=TRAIN_XLSTM["steps"],
-                     launches=train_slstm)])):
+                     launches=train_slstm)] + ssm_runs["slstm_scan"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -4246,6 +4851,11 @@ def main() -> int:
             "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None})
+        if name == "slstm_scan":
+            # a mesh rank's shapes: its heads of its rows
+            rows[-1]["at_rank_shapes"] = [
+                dict(shape=list(shape), **slstm[k, "bfloat16"])
+                for k, shape in SLSTM_RANK.items()]
         if name in ("switched_mlp", "switched_mlp_fused"):
             # one decode step's inputs at d 2560 and d 8192
             rows[-1]["at_widths"] = [dict(d_model=d, **nums[name])

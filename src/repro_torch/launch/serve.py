@@ -26,13 +26,14 @@ the per-tier ledger is printed; ``--library-size`` builds a library model and pr
 the swaps; ``--autotune`` prints the rung trajectory and the ladder the
 served counts suggest.
 
-Mesh deployments (``--data``/``--model``, the dense and MoE families):
-one process per rank serves the same requests SPMD
-(``DecodeServer(mesh=...)``: parameters drawn as the rank's shards and
-the cache sharded by the rules, each data shard dispatching its own
-rows, tensor parallelism over "model", an MoE's experts over "model"
-with ``--model`` dividing them, e.g. ``--arch moonshot-v1-16b-a3b --data
-1 --model 4``).  Run outside a process
+Mesh deployments (``--data``/``--model``, every family): one process per
+rank serves the same requests SPMD (``DecodeServer(mesh=...)``:
+parameters drawn as the rank's shards and the cache sharded by the
+rules, each data shard dispatching its own rows, tensor parallelism over
+"model", an MoE's experts over "model" with ``--model`` dividing them,
+e.g. ``--arch moonshot-v1-16b-a3b --data 1 --model 4``; the hybrid's
+Mamba2 heads and the xLSTM's heads over "model", e.g. ``--arch
+xlstm-1.3b --data 2 --model 2``).  Run outside a process
 group, the launcher spawns its ``data x model`` ranks itself (gloo on the
 CPU or when ranks share a card, NCCL when each has its own), having
 built the kernels once first; run inside one (``torchrun``), it serves as
@@ -82,7 +83,7 @@ def main(argv=None):
     backend = "gloo"
     if device.type == "cuda":
         from repro_torch.kernels import build
-        build.build_all(("switched_mlp", "fused_dispatch"))
+        build.build_all()
         if torch.cuda.device_count() >= world:
             backend = "nccl"
     spawn_world(_rank_main, world, (args,), backend=backend)

@@ -12,10 +12,12 @@ tokens.
 ``--mesh D,M`` trains on a (D, M) ("data", "model") mesh: D * M ranks,
 one process each (``launch/mesh.spawn_world``, gloo), each building the
 same Trainer; on the CPU with ``--device cpu``, else every rank on the
-GPU (ranks share the card when there is one).  Rank 0 prints.  The dense
-and MoE families train there, the MoE expert-parallel with the model
-axis dividing its experts (``model.check_mesh_trainable``; e.g. ``--arch
-moonshot-v1-16b-a3b --mesh 2,2``).
+GPU (ranks share the card when there is one).  Rank 0 prints.  Every
+family trains there when the mesh divides it
+(``model.check_mesh_trainable``): the MoE expert-parallel with the model
+axis dividing its experts (e.g. ``--arch moonshot-v1-16b-a3b --mesh
+2,2``), the hybrid and the xLSTM with it dividing their heads (e.g.
+``--arch zamba2-2.7b --mesh 2,2``).
 """
 from __future__ import annotations
 

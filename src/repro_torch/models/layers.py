@@ -130,6 +130,36 @@ def norm_fwd(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  width: int | None = None) -> torch.Tensor:
+    """RMSNorm of ``x * silu(z)`` (the Mamba2 and mLSTM output norms), the
+    statistic in f32.  ``width``: on a mesh ``x`` holds this rank's heads
+    of rows ``width`` wide, and the sum of squares is all-reduced over
+    "model" before the rsqrt; its backward sums over "model" too
+    (``copy_to_model``), since every rank's columns read the one
+    statistic."""
+    xf = (x * F.silu(z)).float()
+    if width is None:
+        ms = (xf * xf).mean(-1, keepdim=True)
+    else:
+        ss = C.copy_to_model((xf * xf).sum(-1, keepdim=True))
+        ms = C.all_reduce_sum(ss, "model") / width
+    r = torch.rsqrt(ms + 1e-6)
+    return (xf * r).to(x.dtype) * scale.to(x.dtype)
+
+
+def model_blocks(t: torch.Tensor, parts: int, mesh) -> list:
+    """This rank's block along "model" of each of ``parts`` equal runs of
+    the last dim of ``t``, a column-parallel output gathered whole over
+    "model" first (``collectives.gather_for_split``): a rank's heads of
+    [x | z], of gate-major [i | f] or [z | i | f | o], or its share of
+    [u | g]."""
+    t = C.gather_for_split(t, -1, mesh)
+    md = mesh.size("model")
+    v = t.reshape(*t.shape[:-1], parts, md, t.shape[-1] // (parts * md))
+    return list(v[..., C.model_index(mesh), :].unbind(-2))
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

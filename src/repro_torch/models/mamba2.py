@@ -10,15 +10,31 @@ PyTorch, as it is plain JAX in the reference; the state and every sum the
 reference takes in f32 are f32 here.
 
 State layout: h (B, H, P, N) with P = head dim, N = d_state.
+
+On a mesh (inside ``runtime/steps.serve_mesh_context`` or
+``train_mesh_context``) the block is tensor-parallel over "model" by
+heads, each rank holding its heads' state and the data-sharded dims of
+its weights gathered at use (``collectives.unshard``).  ``w_dt`` and
+``w_out`` are head-aligned as stored (column and row split).  ``w_xz``
+is [x | z] and ``w_bc`` is [B | C], so a contiguous column split hands
+one rank x and another z: their outputs are gathered whole over "model"
+(``collectives.gather_for_split``, whose backward reduce-scatters) and
+each rank takes x and z of its heads, and B and C whole (every head
+reads them).  The replicated per-head leaves are cut to the rank's heads
+(``model_columns``), the gated RMSNorm's sum of squares is all-reduced
+over "model", and the output projection's partial sums too.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -49,19 +65,41 @@ class Mamba(nn.Module):
         self.norm_scale = L.param((d_in,), dt, device, fill=1.0)
 
 
-def _gated_rmsnorm(x, z, scale):
-    xf = (x * F.silu(z)).float()
-    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
-    return (xf * r).to(x.dtype) * scale.to(x.dtype)
+# one core's weights as a mesh rank uses them (its heads)
+_MambaW = collections.namedtuple(
+    "_MambaW", "w_xz w_bc w_dt dt_bias a_log d_skip w_out norm_scale")
 
 
-def _proj(cfg: ModelConfig, p: Mamba, u: torch.Tensor):
-    """The shared input projections.  u: (B, S, d).  Returns xh (B, S, H,
-    P), z (B, S, d_in), b and c (B, S, N), dt and its log-decay da (B, S,
-    H), the last two in f32."""
-    _, n_heads, p_hd, _ = mamba_dims(cfg)
-    x, z = (u @ p.w_xz.to(u.dtype)).chunk(2, dim=-1)
-    b, c = (u @ p.w_bc.to(u.dtype)).chunk(2, dim=-1)
+def _rank_weights(cfg: ModelConfig, p: Mamba, mesh):
+    """(this rank's head count, the core's weights as the forward uses
+    them): every head and the module itself, or on a mesh the rank's
+    heads."""
+    if mesh is None:
+        return mamba_dims(cfg)[1], p
+    w_xz, w_bc, w_dt, w_out = C.unshard(p.w_xz, p.w_bc, p.w_dt, p.w_out)
+    h_l, n_heads = w_dt.shape[1], mamba_dims(cfg)[1]
+    # a per-head leaf (H,) or a per-channel one (H * P,): its rank's heads
+    cut = lambda v: C.model_columns(v, v.shape[0] // n_heads * h_l)
+    return h_l, _MambaW(w_xz, w_bc, w_dt, cut(p.dt_bias), cut(p.a_log),
+                        cut(p.d_skip), w_out, cut(p.norm_scale))
+
+
+def _proj(cfg: ModelConfig, p, u: torch.Tensor, n_heads: int | None = None,
+          mesh=None):
+    """The shared input projections of ``n_heads`` heads (default all;
+    ``p`` a ``Mamba`` or a ``_MambaW``).  u: (B, S, d).  Returns xh (B,
+    S, H, P), z (B, S, H * P), b and c (B, S, N), dt and its log-decay da
+    (B, S, H), the last two in f32.  On a mesh the rank's heads (module
+    docstring)."""
+    p_hd = cfg.ssm.head_dim
+    n_heads = n_heads or mamba_dims(cfg)[1]
+    xz, bc = u @ p.w_xz.to(u.dtype), u @ p.w_bc.to(u.dtype)
+    if mesh is None:
+        x, z = xz.chunk(2, dim=-1)
+        b, c = bc.chunk(2, dim=-1)
+    else:
+        x, z = L.model_blocks(xz, 2, mesh)
+        b, c = C.gather_for_split(bc, -1, mesh).chunk(2, dim=-1)
     # jax.nn.softplus's formula, logaddexp(x, 0)
     dt = torch.logaddexp((u @ p.w_dt.to(u.dtype)).float() + p.dt_bias.float(),
                          torch.zeros((), device=u.device))
@@ -103,11 +141,16 @@ def mamba_fwd(cfg: ModelConfig, p: Mamba, u: torch.Tensor,
 
     With a ``state`` and S == 1: the O(1) decode update.  Otherwise the
     chunked SSD over chunks of ``min(ssm.chunk, S)`` (S must divide),
-    from ``state["h"]`` or zeros."""
+    from ``state["h"]`` or zeros.  On a mesh ``u`` is the rank's rows,
+    the state its rows and heads, and y the rank's rows, whole."""
+    mesh = manual_dp_context()[0]
+    n_heads, w = _rank_weights(cfg, p, mesh)
+    if mesh is not None:
+        u = C.copy_to_model(u)
     bsz, s, _ = u.shape
-    xh, z, b, c, dt, da = _proj(cfg, p, u)
-    _, n_heads, p_hd, n = mamba_dims(cfg)
-    d_skip = p.d_skip.float()
+    xh, z, b, c, dt, da = _proj(cfg, w, u, n_heads, mesh)
+    d_in, _, p_hd, n = mamba_dims(cfg)
+    d_skip = w.d_skip.float()
     if state is not None and s == 1:
         # h = exp(da) h + dt x b^T ; y = h c
         x0 = xh[:, 0].float()
@@ -131,8 +174,12 @@ def mamba_fwd(cfg: ModelConfig, p: Mamba, u: torch.Tensor,
             ys.append(yc)
         y = torch.cat(ys, 1) + xh.float() * d_skip[None, None, :, None]
     y = y.reshape(bsz, s, n_heads * p_hd).to(u.dtype)
-    y = _gated_rmsnorm(y, z, p.norm_scale)
-    return y @ p.w_out.to(u.dtype), {"h": h}
+    y = L.gated_rmsnorm(y, z, w.norm_scale,
+                        None if mesh is None else d_in)
+    out = y @ w.w_out.to(u.dtype)
+    if mesh is not None:
+        out = C.all_reduce_sum(out, "model")
+    return out, {"h": h}
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device) -> dict:

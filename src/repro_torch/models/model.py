@@ -33,13 +33,16 @@ cache, and return the global logits and the global (all-reduced)
 dispatch metrics, the same on every rank.  ``init_cache`` then builds the
 rank's shard of the cache and ``reset_slot`` resets a global slot where
 this rank holds it.  ``pos`` stays whole on every rank (the rules
-replicate it).  The dense and MoE families serve on a mesh (the MoE
-expert-parallel, ``models/moe._moe_fwd_manual``, its aux loss the data
-shards' mean on every rank); the hybrid and xLSTM families raise
-(``check_mesh_servable``).  Inside ``runtime/steps.train_mesh_context``
+replicate it).  Every family serves on a mesh: the MoE expert-parallel
+(``models/moe._moe_fwd_manual``, its aux loss the data shards' mean on
+every rank), the hybrid's Mamba2 blocks and the xLSTM's mLSTM and sLSTM
+blocks tensor-parallel by heads (``models/mamba2.py``,
+``models/xlstm.py``: each rank holds its rows' and heads' recurrent
+state).  Inside ``runtime/steps.train_mesh_context``
 ``forward(serve=False)`` and ``lm_loss`` take the rank's rows and give
-the global batch's losses and metrics on every rank; the dense and MoE
-families train there, the others raise (``check_mesh_trainable``).
+the global batch's losses and metrics on every rank.  A mesh that does
+not divide the widths a family splits is refused
+(``check_mesh_servable``, ``check_mesh_trainable``).
 """
 from __future__ import annotations
 
@@ -57,7 +60,6 @@ from repro_torch.models import mamba2, moe, xlstm
 from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
                                            approx_ffn_train, execute_plan,
                                            make_tick_plan)
-from repro_torch.models.approx_ffn import _manual_serve_ctx
 from repro_torch.runtime.dispatch import plan_invoke_stats
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import (manual_dp_context,
@@ -518,18 +520,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                         for k, a in st.items()}
                  for name, st in init.items()}
         cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        return cache
-    c = L.init_attn_cache(cfg, batch, max_len, dev, page_size=page_size,
-                          n_pages=kv_pages)
-    n = cfg.n_layers if topo.kind == "uniform" else topo.n_groups
-    c["k"] = c["k"][None].repeat(n, *([1] * c["k"].ndim))
-    c["v"] = c["v"][None].repeat(n, *([1] * c["v"].ndim))
-    if topo.kind == "hybrid":
-        h = mamba2.init_mamba_state(cfg, batch, dev)["h"]
-        c["mamba"] = {"h": h.expand(topo.n_groups, topo.per_group,
-                                    *h.shape).clone()}
+    else:
+        cache = L.init_attn_cache(cfg, batch, max_len, dev,
+                                  page_size=page_size, n_pages=kv_pages)
+        n = cfg.n_layers if topo.kind == "uniform" else topo.n_groups
+        for k in ("k", "v"):
+            cache[k] = cache[k][None].repeat(n, *([1] * cache[k].ndim))
+        if topo.kind == "hybrid":
+            h = mamba2.init_mamba_state(cfg, batch, dev)["h"]
+            cache["mamba"] = {"h": h.expand(topo.n_groups, topo.per_group,
+                                            *h.shape).clone()}
     mesh, _ = manual_dp_context()
-    return c if mesh is None else shard_cache(mesh, c)
+    return cache if mesh is None else shard_cache(mesh, cache)
 
 
 def shard_cache(mesh, cache: dict) -> dict:
@@ -552,17 +554,10 @@ def _mesh_sizes(mesh):
     return sizes, sizes.get("model", 1), g
 
 
-def _check_family(cfg: ModelConfig, mesh, what: str):
-    """Raise for the families with no mesh yet (the hybrid and xLSTM:
-    item 15), and for an MoE whose experts the model axis does not
-    divide (expert parallelism needs E % |model| == 0; the reference
-    falls back to compiler-placed tensor parallelism inside each
-    expert)."""
-    if topology(cfg).kind != "uniform":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family) does not {what} on a mesh "
-            "yet: ROADMAP queue 1, item 15 (the mesh for the hybrid and "
-            "xLSTM families)")
+def _check_experts(cfg: ModelConfig, mesh):
+    """Raise for an MoE whose experts the model axis does not divide
+    (expert parallelism needs E % |model| == 0; the reference falls back
+    to compiler-placed tensor parallelism inside each expert)."""
     sizes, md, _ = _mesh_sizes(mesh)
     e = cfg.moe.n_experts
     if e and ("model" not in sizes or e % md):
@@ -574,56 +569,67 @@ def _check_family(cfg: ModelConfig, mesh, what: str):
             "the port refuses (ROADMAP queue 3, layout departures)")
 
 
+def _model_widths(cfg: ModelConfig, train: bool) -> dict:
+    """{what: width} of the widths the tensor-parallel branches split over
+    "model": the attention heads and kv heads, d_ff (an MoE: its experts)
+    and the Mamba2 heads and B/C columns (the hybrid); the xLSTM's heads
+    and its sLSTM's d_up; the vocab too in training."""
+    kind = topology(cfg).kind
+    if kind == "xlstm":
+        widths = {"heads": cfg.n_heads, "d_up": xlstm.slstm_d_up(cfg)}
+    else:
+        widths = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
+        if cfg.moe.n_experts:
+            widths["experts"] = cfg.moe.n_experts
+        else:
+            widths["d_ff"] = cfg.d_ff
+        if kind == "hybrid":
+            widths["Mamba2 heads"] = mamba2.mamba_dims(cfg)[1]
+            widths["B/C columns"] = 2 * cfg.ssm.d_state
+    if train:
+        widths["vocab"] = cfg.vocab
+    return widths
+
+
+def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
+    """Raise unless ``batch`` divides over the data axes and every width
+    of ``_model_widths`` over "model" (ROADMAP queue 3)."""
+    _check_experts(cfg, mesh)
+    sizes, md, g = _mesh_sizes(mesh)
+    widths = _model_widths(cfg, train)
+    if "model" in sizes and batch % g == 0 \
+            and not any(n % md for n in widths.values()):
+        return
+    what = ("the sharded train path", "microbatch") if train \
+        else ("the sharded serve path", "batch")
+    raise NotImplementedError(
+        f"mesh {dict(sizes)} does not divide {what[0]} of {cfg.name} at "
+        f"{what[1]} {batch} (the {what[1]} over the data axes; "
+        + ", ".join(f"{k}={n}" for k, n in widths.items())
+        + " over model): the reference falls back to compiler-placed "
+        "sharding there, the port refuses (ROADMAP queue 3, layout "
+        "departures)")
+
+
 def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: the
-    dense family, with the batch dividing over the data axes and d_ff,
-    the attention heads and the kv heads dividing over "model" (the
-    sharded serve path's predicate, ``approx_ffn._manual_serve_ctx``);
-    the MoE family, with the experts, the heads and the kv heads over
-    "model" and the batch over the data axes.  Where it fails the
-    reference falls back to compiler-placed sharding; the port has no
-    such fallback (ROADMAP queue 3)."""
-    _check_family(cfg, mesh, "serve")
-    sizes, md, g = _mesh_sizes(mesh)
-    if cfg.moe.n_experts:
-        ok = batch % g == 0
-    else:
-        ok = _manual_serve_ctx(cfg, batch, mesh)[0] is not None
-    ok = ok and cfg.n_heads % md == 0 and cfg.n_kv_heads % md == 0
-    if not ok:
-        width = f"{cfg.moe.n_experts} experts" if cfg.moe.n_experts \
-            else f"d_ff={cfg.d_ff}"
-        raise NotImplementedError(
-            f"mesh {dict(sizes)} does not divide the sharded serve path of "
-            f"{cfg.name} at batch {batch} (batch over the data axes, "
-            f"{width}, {cfg.n_heads} heads and {cfg.n_kv_heads} kv "
-            "heads over model): the reference falls back to "
-            "compiler-placed sharding there, the port refuses (ROADMAP "
-            "queue 3, layout departures)")
+    batch divides over the data axes, and over "model" the attention
+    heads, the kv heads and d_ff (the sharded serve path's predicate,
+    ``approx_ffn._manual_serve_ctx``; an MoE: its experts), the hybrid's
+    Mamba2 heads and B/C columns, the xLSTM's heads and d_up.  Where it
+    fails the reference falls back to compiler-placed sharding; the port
+    has no such fallback (ROADMAP queue 3)."""
+    _check_widths(cfg, mesh, batch, train=False)
 
 
 def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` trains on ``mesh`` with microbatches of
-    ``batch`` rows: the dense or MoE family, with the batch dividing over
-    the data axes and the heads, the kv heads, the vocab and d_ff (the
-    MoE: the experts) over "model" (every tensor- and expert-parallel
-    branch of the train path engaged).  Where it fails the reference
-    falls back to compiler-placed sharding; the port refuses (ROADMAP
-    queue 3)."""
-    _check_family(cfg, mesh, "train")
-    sizes, md, g = _mesh_sizes(mesh)
-    width = cfg.moe.n_experts or cfg.d_ff
-    if batch % g or any(n % md for n in (cfg.n_heads, cfg.n_kv_heads,
-                                          width, cfg.vocab)):
-        what = f"{cfg.moe.n_experts} experts" if cfg.moe.n_experts \
-            else f"d_ff={cfg.d_ff}"
-        raise NotImplementedError(
-            f"mesh {dict(sizes)} does not divide the sharded train path of "
-            f"{cfg.name} at microbatch {batch} (the microbatch over the data "
-            f"axes, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
-            f"{what} and vocab={cfg.vocab} over model): the "
-            "reference falls back to compiler-placed sharding there, the "
-            "port refuses (ROADMAP queue 3, layout departures)")
+    ``batch`` rows: ``check_mesh_servable``'s widths and the vocab over
+    "model", the microbatch over the data axes (every tensor-, expert-
+    and head-parallel branch of the train path engaged).  Where it fails
+    the reference falls back to compiler-placed sharding; the port
+    refuses (ROADMAP queue 3)."""
+    _check_widths(cfg, mesh, batch, train=True)
 
 
 def _local(rows, *tensors):
@@ -766,7 +772,7 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     kind = topology(cfg).kind
     if kind == "xlstm":
         x = _decode_xlstm(cfg, params, cache, x)
-        cache["pos"] = pos + 1
+        cache["pos"] = pos_all + 1
     else:
         plan = _tick_plan(cfg, params, x, row_mask, serve, tier,
                           tier_margins, residency)

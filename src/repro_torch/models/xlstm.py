@@ -21,8 +21,28 @@ and ``w_h``.
 
 Deviations from the official xLSTM code (as in the reference): no causal
 conv1d front, qk dim = d_in/2, sigmoid forget gate.
+
+On a mesh (inside ``runtime/steps.serve_mesh_context`` or
+``train_mesh_context``) both blocks are tensor-parallel over "model" by
+heads, each rank holding its heads' state, with the data-sharded dims of
+the weights gathered at use (``collectives.unshard``).  The mLSTM's
+``w_q``, ``w_k``, ``w_v``, ``w_z`` (column) and ``w_out`` (row) are
+head-aligned as stored; ``w_if`` is [i | f] per head, so its output is
+gathered over "model" (``collectives.gather_for_split``, whose backward
+reduce-scatters) and each rank takes i and f of its heads; the gated
+RMSNorm's sum of squares is all-reduced over "model".  The sLSTM's
+``w_x`` is gate-major [z | i | f | o]: its output is gathered the same
+way and each rank takes the four gates of its heads; ``w_h`` (H, hd,
+4 hd), whose 4 hd columns the rules split, is gathered whole and each
+rank runs the recurrence kernel on its H / |model| heads.  The ranks'
+``ys`` are gathered into y (B, S, d) for the GeGLU, whose [u | g]
+output each rank cuts to its d_up share, and ``w_down`` is row-parallel
+with the partial sums all-reduced.  Replicated leaves (``b_if``, ``b``,
+``norm_scale``) are cut to the rank's heads (``model_columns``).
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn as nn
@@ -31,6 +51,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_trainable
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.activations import manual_dp_context
 
 I_CLAMP = 8.0  # clamp on the exponential input gate pre-activation
 
@@ -73,26 +95,46 @@ class MLSTM(nn.Module):
         self.norm_scale = L.param((d_in,), dt, device, fill=1.0)
 
 
-def _mlstm_gates(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
-    """Returns q, k, v (headed), log_f, log_i — all f32 except qkv."""
-    _, _, _, h, hd_v, hd_qk = mlstm_dims(cfg)
+# one mLSTM core's weights as a mesh rank uses them (its heads)
+_MLSTMW = collections.namedtuple(
+    "_MLSTMW", "w_q w_k w_v w_z w_if b_if w_out norm_scale")
+
+
+def _mlstm_weights(cfg: ModelConfig, p: MLSTM, mesh):
+    """(this rank's head count, the core's weights as the forward uses
+    them): every head and the module itself, or on a mesh the rank's
+    heads."""
+    if mesh is None:
+        return cfg.n_heads, p
+    w_q, w_k, w_v, w_z, w_if, w_out = C.unshard(p.w_q, p.w_k, p.w_v, p.w_z,
+                                                p.w_if, p.w_out)
+    _, _, _, _, hd_v, hd_qk = mlstm_dims(cfg)
+    h = w_q.shape[1] // hd_qk
+    return h, _MLSTMW(w_q, w_k, w_v, w_z, w_if,
+                      C.model_columns(p.b_if, 2 * h, groups=2), w_out,
+                      C.model_columns(p.norm_scale, h * hd_v))
+
+
+def _mlstm_gates(cfg: ModelConfig, p, x: torch.Tensor, h: int | None = None,
+                 mesh=None):
+    """Returns q, k, v (headed), log_f, log_i — all f32 except qkv — of
+    ``h`` heads (default all; on a mesh the rank's)."""
+    _, _, _, h_all, hd_v, hd_qk = mlstm_dims(cfg)
+    h = h or h_all
     b, s, _ = x.shape
     # the reference multiplies by the scale rounded to x's dtype
     k_scale = float(torch.tensor(hd_qk ** -0.5, dtype=x.dtype))
     q = (x @ p.w_q.to(x.dtype)).reshape(b, s, h, hd_qk)
     k = (x @ p.w_k.to(x.dtype)).reshape(b, s, h, hd_qk) * k_scale
     v = (x @ p.w_v.to(x.dtype)).reshape(b, s, h, hd_v)
-    gates = (x @ p.w_if.to(x.dtype)).float() + p.b_if.float()
+    gates = x @ p.w_if.to(x.dtype)
+    if mesh is not None:                 # [i | f] of the rank's heads
+        gates = torch.cat(L.model_blocks(gates, 2, mesh), -1)
+    gates = gates.float() + p.b_if.float()
     i_pre, f_pre = gates[..., :h], gates[..., h:]
     log_i = i_pre.clamp(max=I_CLAMP)                     # (B, S, H)
     log_f = F.logsigmoid(f_pre)                          # (B, S, H), <= 0
     return q, k, v, log_f, log_i
-
-
-def _gated_rmsnorm(x, z, scale):
-    xf = (x * F.silu(z)).float()
-    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
-    return (xf * r).to(x.dtype) * scale.to(x.dtype)
 
 
 def _mlstm_chunk(c_st, n_st, qc, kc, vc, lfc, lic, mask):
@@ -128,11 +170,17 @@ def _mlstm_chunk(c_st, n_st, qc, kc, vc, lfc, lic, mask):
 def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
               state: dict | None = None):
     """x: (B, S, d) -> (y, new_state).  state: {"c": (B,H,hdv,hdqk),
-    "n": (B,H,hdqk)}; decode path when S == 1 and state is given."""
+    "n": (B,H,hdqk)}; decode path when S == 1 and state is given.  On a
+    mesh x and y are the rank's rows and the state its rows and heads."""
+    mesh = manual_dp_context()[0]
+    h, w = _mlstm_weights(cfg, p, mesh)
+    if mesh is not None:
+        x = C.copy_to_model(x)
     b, s, _ = x.shape
-    _, d_in, _, h, hd_v, hd_qk = mlstm_dims(cfg)
-    q, k, v, log_f, log_i = _mlstm_gates(cfg, p, x)
-    z = x @ p.w_z.to(x.dtype)
+    _, d_in, _, _, hd_v, hd_qk = mlstm_dims(cfg)
+    q, k, v, log_f, log_i = _mlstm_gates(cfg, w, x, h, mesh)
+    z = x @ w.w_z.to(x.dtype)
+    width = None if mesh is None else d_in
 
     if state is not None and s == 1:
         c, n = state["c"], state["n"]
@@ -146,9 +194,9 @@ def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
         num = torch.einsum("bhvk,bhk->bhv", c, qf)
         den = torch.einsum("bhk,bhk->bh", n, qf).abs()
         y = num / den.clamp(min=1.0)[..., None]
-        y = y.reshape(b, 1, d_in).to(x.dtype)
-        y = _gated_rmsnorm(y, z, p.norm_scale)
-        return y @ p.w_out.to(x.dtype), {"c": c, "n": n}
+        y = y.reshape(b, 1, h * hd_v).to(x.dtype)
+        y = L.gated_rmsnorm(y, z, w.norm_scale, width)
+        return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c, "n": n}
 
     # ----- chunkwise parallel (prefill) --------------------------------------
     ck = min(cfg.ssm.chunk, s)
@@ -157,7 +205,7 @@ def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     chunks = [t.reshape(b, nc, ck, *t.shape[2:]).transpose(0, 1)
               for t in (q, k, v, log_f, log_i)]
     if state is None:
-        state = init_mlstm_state(cfg, b, device=x.device)
+        state = init_mlstm_state(cfg, b, device=x.device, n_heads=h)
     c_st, n_st = state["c"], state["n"]
     mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
                                  device=x.device))
@@ -166,13 +214,22 @@ def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
         y, c_st, n_st = _mlstm_chunk(c_st, n_st,
                                      *(t[ci] for t in chunks), mask)
         ys.append(y)
-    y = torch.stack(ys, 1).reshape(b, s, d_in).to(x.dtype)
-    y = _gated_rmsnorm(y, z, p.norm_scale)
-    return y @ p.w_out.to(x.dtype), {"c": c_st, "n": n_st}
+    y = torch.stack(ys, 1).reshape(b, s, h * hd_v).to(x.dtype)
+    y = L.gated_rmsnorm(y, z, w.norm_scale, width)
+    return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c_st, "n": n_st}
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, *, device):
+def _row_out(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel projection's output: on a mesh the partial sums
+    all-reduced over "model"."""
+    return y if mesh is None else C.all_reduce_sum(y, "model")
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, *, device,
+                     n_heads: int | None = None):
+    """Zero states of ``n_heads`` heads (default all)."""
     _, _, _, h, hd_v, hd_qk = mlstm_dims(cfg)
+    h = n_heads or h
     return {"c": torch.zeros((batch, h, hd_v, hd_qk), dtype=torch.float32,
                              device=device),
             "n": torch.zeros((batch, h, hd_qk), dtype=torch.float32,
@@ -188,6 +245,11 @@ def slstm_dims(cfg: ModelConfig):
     return d, h, d // h
 
 
+def slstm_d_up(cfg: ModelConfig) -> int:
+    """The post-FFN's width: 4/3 of d_model, rounded up to 128."""
+    return (4 * cfg.d_model // 3 + 127) // 128 * 128
+
+
 class SLSTM(nn.Module):
     """The sLSTM core's parameters (the reference's ``init_slstm``)."""
 
@@ -195,7 +257,7 @@ class SLSTM(nn.Module):
         super().__init__()
         d, h, hd = slstm_dims(cfg)
         s, dt = d ** -0.5, cfg.pdtype
-        d_up = (4 * d // 3 + 127) // 128 * 128          # post-FFN at ratio 4/3
+        d_up = slstm_d_up(cfg)                          # post-FFN at ratio 4/3
         # input projections for gates z, i, f, o (fused)
         self.w_x = L.param((d, 4 * d), dt, device, gen, s)
         # block-diagonal recurrent weights, per head: (H, hd, 4*hd)
@@ -213,30 +275,51 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     ``w_h`` in shared memory across its CTAs for all S steps, with one
     barrier per step among the CTAs of a head.  When autograd records, the
     call goes through ``slstm_scan_trainable``: the same launch forward, a
-    recompute of the plain scan in the backward."""
+    recompute of the plain scan in the backward.  On a mesh each rank
+    runs the recurrence on its heads (module docstring)."""
+    mesh = manual_dp_context()[0]
     b, s, d = x.shape
     _, h, hd = slstm_dims(cfg)
-    xg = x @ p.w_x.to(x.dtype) + p.b.to(x.dtype)        # (B, S, 4d)
+    if mesh is None:
+        w_x, w_h, w_up, w_down = p.w_x, p.w_h, p.w_up, p.w_down
+        xg = x @ w_x.to(x.dtype) + p.b.to(x.dtype)          # (B, S, 4d)
+    else:
+        w_x, w_h, w_up, w_down = C.unshard(p.w_x, p.w_h, p.w_up, p.w_down)
+        h //= mesh.size("model")
+        # the four gates of the rank's heads, and their recurrent weights
+        xg = torch.cat(L.model_blocks(C.copy_to_model(x) @ w_x.to(x.dtype),
+                                      4, mesh), -1) \
+            + C.model_columns(p.b, 4 * h * hd, groups=4).to(x.dtype)
+        me = C.model_index(mesh)
+        w_h = C.gather_for_split(w_h, 2, mesh)[me * h:(me + 1) * h]
     # the kernel's (S, B, H, 4*hd) layout, gates [z|i|f|o] per head
     xg = xg.reshape(b, s, 4, h, hd).permute(1, 0, 3, 2, 4) \
         .reshape(s, b, h, 4 * hd).float().contiguous()
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
-    wh = p.w_h.to(x.dtype).contiguous()
+        state = init_slstm_state(cfg, b, device=x.device, n_heads=h)
+    wh = w_h.to(x.dtype).contiguous()
     scan = slstm_scan_trainable if torch.is_grad_enabled() and (
         xg.requires_grad or wh.requires_grad) else slstm_scan
     ys, (hf, cf, nf, mf) = scan(
         xg, wh, *(state[k].contiguous() for k in ("h", "c", "n", "m")))
-    y = ys.permute(1, 0, 2, 3).reshape(b, s, d).to(x.dtype)
+    y = ys.permute(1, 0, 2, 3).reshape(b, s, h * hd).to(x.dtype)
     # post up/down FFN (GeGLU at ratio ~4/3, per the sLSTM block design);
     # the reference's gelu is the tanh approximation
-    u, g = (y @ p.w_up.to(x.dtype)).chunk(2, dim=-1)
-    y = (u * F.gelu(g, approximate="tanh")) @ p.w_down.to(x.dtype)
+    if mesh is None:
+        u, g = (y @ w_up.to(x.dtype)).chunk(2, dim=-1)
+    else:               # y whole, then the rank's share of u and of g
+        y = C.gather_for_split(y, -1, mesh)
+        u, g = L.model_blocks(y @ w_up.to(x.dtype), 2, mesh)
+    y = _row_out((u * F.gelu(g, approximate="tanh")) @ w_down.to(x.dtype),
+                 mesh)
     return y, {"h": hf, "c": cf, "n": nf, "m": mf}
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, *, device):
+def init_slstm_state(cfg: ModelConfig, batch: int, *, device,
+                     n_heads: int | None = None):
+    """Zero states (m at -1e30) of ``n_heads`` heads (default all)."""
     _, h, hd = slstm_dims(cfg)
+    h = n_heads or h
     z = torch.zeros((batch, h, hd), dtype=torch.float32, device=device)
     return {"h": z, "c": z.clone(), "n": z.clone(),
             "m": torch.full((batch, h, hd), -1e30, dtype=torch.float32,

@@ -58,8 +58,8 @@ cache.  The server feeds token ids, so an
 architecture that takes embeddings (``input_mode="embeddings"``) is
 refused.
 
-``mesh`` (a ``launch/mesh.HostMesh``) serves the dense and MoE families
-SPMD, one process per rank: every rank runs this same host loop on the same
+``mesh`` (a ``launch/mesh.HostMesh``) serves every family SPMD, one
+process per rank: every rank runs this same host loop on the same
 submitted requests (admission, the page allocator and the tier table are
 deterministic and replicated), holds only its shard of the parameters
 (``_shard_params``: sliced by ``sharding/rules.param_pspecs``, the full
@@ -68,11 +68,12 @@ are kept) and of the cache, and runs every step under
 ``steps.serve_mesh_context``: each data shard dispatches its own rows at
 per-shard capacities, the exact FFN and attention run tensor-parallel
 over "model" (an MoE's experts expert-parallel, each model rank its
-E / |model|, routing per data shard at per-shard capacities), and the
-logits and invoke stats come back gathered and all-reduced, so the
-sampled tokens and what the controllers read are bitwise equal on every
-rank.  The xLSTM and hybrid families, and a mesh that does not divide
-the model, raise (``model.check_mesh_servable``).
+E / |model|, routing per data shard at per-shard capacities; the Mamba2,
+mLSTM and sLSTM blocks by heads, each rank holding its rows' and heads'
+recurrent state), and the logits and invoke stats come back gathered
+and all-reduced, so the sampled tokens and what the controllers read
+are bitwise equal on every rank.  A mesh that does not divide the model
+raises (``model.check_mesh_servable``).
 """
 from __future__ import annotations
 

@@ -28,10 +28,13 @@ axes, as the logits are) takes this rank's slice of the gradient;
 ``all_reduce_sum`` (a row-parallel output) passes the gradient on;
 ``copy_to_model`` (the identity on the replicated input of a
 column-parallel projection) sums it over "model"; ``model_columns`` (a
-replicated leaf cut to the rank's columns) gathers it whole; and
-``unshard`` (FSDP) reduce-scatters it over the data axes, in one
-collective as its forward gathers.  Their forward results are those of
-the plain collectives, bit for bit.
+replicated leaf cut to the rank's columns) gathers it whole;
+``gather_for_split`` (a column-parallel output gathered whole for
+consumers that each take another slice of it: a rank's heads of a
+projection whose columns are not laid out by heads) reduce-scatters it
+over "model"; and ``unshard`` (FSDP) reduce-scatters it over the data
+axes, in one collective as its forward gathers.  Their forward results
+are those of the plain collectives, bit for bit.
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ from repro_torch.sharding.activations import current_mesh
 from repro_torch.sharding.rules import dp_axes, param_pspecs
 
 # launches of the collectives, and the host stagings and their bytes
-COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0, "staged": 0,
-          "staged_bytes": 0}
+COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0,
+          "gather_for_split": 0, "staged": 0, "staged_bytes": 0}
 _PINNED: dict = {}
 # [shared uint8 arena, bytes a rank's slot, page-locked here yet]
 _ARENA: list = []
@@ -241,21 +244,50 @@ class _CopyToModel(torch.autograd.Function):
 
 
 class _ModelColumns(torch.autograd.Function):
-    """Forward: this rank's ``n`` entries of a replicated leaf (a qkv
-    bias cut to the rank's columns).  Backward: the ranks' slices of the
-    gradient gathered over "model", so the leaf's gradient is whole and
-    the same on every model rank, as a replicated leaf's is."""
+    """Forward: this rank's entries of a replicated leaf viewed as
+    (groups, |model|, n / groups): block ``[:, rank]`` (a qkv bias cut to
+    the rank's columns with one group; a gate-major bias cut to the
+    rank's heads of each gate with one group a gate).  Backward: the
+    ranks' slices of the gradient gathered over "model" and put back in
+    place, so the leaf's gradient is whole and the same on every model
+    rank, as a replicated leaf's is."""
 
     @staticmethod
-    def forward(ctx, b, n, mesh):
-        ctx.mesh = mesh
-        return b.narrow(0, mesh.index("model") * n, n).clone()
+    def forward(ctx, b, n, groups, mesh):
+        ctx.mesh, ctx.groups = mesh, groups
+        md = mesh.size("model")
+        return b.view(groups, md, n // groups)[:, mesh.index("model")] \
+            .reshape(n).clone()
 
     @staticmethod
     def backward(ctx, g):
         COUNTS["all_gather"] += 1
-        return torch.cat(_gather_parts(g.contiguous(), "model", ctx.mesh),
-                         0), None, None
+        parts = _gather_parts(g.contiguous(), "model", ctx.mesh)
+        whole = torch.stack([p.view(ctx.groups, -1) for p in parts], 1)
+        return whole.reshape(-1), None, None, None
+
+
+class _GatherForSplit(torch.autograd.Function):
+    """Forward: the parts concatenated, as ``all_gather``'s.  Backward:
+    the gradient summed over the group and this rank's block kept (a
+    reduce-scatter): each rank's consumer reads another slice of the
+    gathered tensor, so each rank's gradient is a partial one."""
+
+    @staticmethod
+    def forward(ctx, t, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        return torch.cat(_gather_parts(t, axes, mesh), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["reduce_scatter"] += 1
+        n = ctx.mesh.size(ctx.axes)
+        send = torch.stack(g.chunk(n, ctx.dim))
+        recv = _exchange(send, ctx.axes, ctx.mesh)
+        out = recv[0].clone()
+        for r in recv[1:]:
+            out += r
+        return out, None, None, None
 
 
 def all_gather(t: torch.Tensor, axes, dim: int = 0, mesh=None):
@@ -309,13 +341,30 @@ def copy_to_model(x: torch.Tensor, mesh=None):
     return _CopyToModel.apply(x, mesh)
 
 
-def model_columns(b: torch.Tensor, n: int, mesh=None):
+def model_columns(b: torch.Tensor, n: int, mesh=None, groups: int = 1):
     """This rank's ``n`` entries of the replicated vector ``b`` along
-    "model" (its column block); the backward gathers the gradient whole."""
+    "model": its column block, or with ``groups`` > 1 its block of each
+    of ``groups`` equal runs of ``b`` (a gate-major bias, [i heads | f
+    heads], cut to the rank's heads of each gate); the backward gathers
+    the gradient whole."""
     mesh = _mesh(mesh)
     if b.shape[0] == n:
         return b
-    return _ModelColumns.apply(b, n, mesh)
+    return _ModelColumns.apply(b, n, groups, mesh)
+
+
+def gather_for_split(t: torch.Tensor, dim: int = -1, mesh=None):
+    """A column-parallel output gathered whole over "model" on ``dim``
+    for consumers that each take another slice of it (a rank's heads of
+    a projection whose stored columns are not laid out by heads, or B and
+    C that every head reads): the forward is ``all_gather``'s, the
+    backward a reduce-scatter over "model" (``all_gather``'s slice of
+    the gradient would drop the other ranks' parts)."""
+    mesh = _mesh(mesh)
+    if mesh.size("model") == 1:
+        return t
+    COUNTS["gather_for_split"] += 1
+    return _GatherForSplit.apply(t.contiguous(), "model", dim % t.ndim, mesh)
 
 
 def _dp_dims(spec, dp) -> list:

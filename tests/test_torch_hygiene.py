@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that hold without the reference: it (and its
 example twins) imports neither ``jax`` nor the JAX package, its entry
 points never drop to the CPU quietly, a serving or training mesh refuses
-the families and layouts it does not take yet (naming the ROADMAP item),
+the layouts it does not divide (naming ROADMAP queue 3),
 and the QoS, library and autotune options serve."""
 import ast
 import dataclasses
@@ -77,25 +77,28 @@ SCHEDULER = {"kv_page_size": 4, "kv_pages": 8, "prefill_chunk": 4,
              "route_scope": "tick"}
 
 
-# (arch, mesh, what the refusal names): the xLSTM and hybrid families
-# have no mesh yet (item 15); the MoE family serves and trains expert-
-# parallel, and a model axis that does not divide its experts (the smoke
-# config's 4 over 3: the reference's compiler-placed tensor parallelism
-# inside each expert) is a layout departure (queue 3)
-UNPORTED_MESHES = {
-    "xlstm-1.3b": ("xlstm-1.3b", (2, 2), "ROADMAP queue 1, item 15"),
-    "zamba2-2.7b": ("zamba2-2.7b", (2, 2), "ROADMAP queue 1, item 15"),
+# (arch, mesh, what the refusal names): every family serves and trains on
+# a mesh, and a model axis that does not divide a width its tensor- or
+# expert-parallel branch splits is a layout departure (queue 3): the smoke
+# xLSTM's 4 heads, the smoke hybrid's 8 Mamba2 heads and the smoke MoE's
+# 4 experts over 3 (the reference places these with the compiler, or
+# splits each expert)
+FAMILY_REFUSALS = {
+    "xlstm-heads-over-model": (
+        "xlstm-1.3b", (1, 3), "heads=4, d_up=128.*ROADMAP queue 3"),
+    "zamba2-mamba-heads-over-model": (
+        "zamba2-2.7b", (1, 3), "Mamba2 heads=8.*ROADMAP queue 3"),
     "moe-experts-over-model": (
         "moonshot-v1-16b-a3b", (1, 3),
         "4 experts of .* do not divide over its model axis.*ROADMAP queue 3"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED_MESHES))
-def test_mesh_refuses_unported_families(case):
-    """The xLSTM and hybrid families do not serve on a mesh yet, nor an
-    MoE whose experts the model axis does not divide."""
-    arch, shape, match = UNPORTED_MESHES[case]
+@pytest.mark.parametrize("case", sorted(FAMILY_REFUSALS))
+def test_mesh_refuses_a_family_width_it_cannot_divide(case):
+    """A model axis that does not divide the xLSTM's heads, the hybrid's
+    Mamba2 heads or an MoE's experts is refused."""
+    arch, shape, match = FAMILY_REFUSALS[case]
     cfg = smoke_config(get_config(arch))
     params = M.init_model(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
@@ -116,13 +119,13 @@ def test_mesh_refuses_a_layout_it_cannot_divide(shape):
             batch=4, use_mcma_dispatch=True, mesh=FakeMesh(shape)))
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED_MESHES))
-def test_train_mesh_refuses_unported_families(case):
-    """The xLSTM and hybrid families do not train on a mesh yet, nor an
-    MoE whose experts the model axis does not divide: neither
-    ``Trainer(mesh=)`` nor the launcher's ``--mesh`` (which refuses
-    before it starts a rank)."""
-    arch, shape, match = UNPORTED_MESHES[case]
+@pytest.mark.parametrize("case", sorted(FAMILY_REFUSALS))
+def test_train_mesh_refuses_a_family_width_it_cannot_divide(case):
+    """A model axis that does not divide the xLSTM's heads, the hybrid's
+    Mamba2 heads or an MoE's experts trains on neither ``Trainer(mesh=)``
+    nor the launcher's ``--mesh`` (which refuses before it starts a
+    rank)."""
+    arch, shape, match = FAMILY_REFUSALS[case]
     cfg = smoke_config(get_config(arch))
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=4)
     with pytest.raises(NotImplementedError, match=match):
@@ -165,6 +168,13 @@ def test_no_refusal_names_the_training_mesh_item():
     it."""
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         assert "item 14" not in path.read_text(), path
+
+
+def test_no_refusal_names_the_hybrid_and_xlstm_mesh_item():
+    """Item 15 (the mesh for the hybrid and xLSTM families) is done: no
+    message of the port names it."""
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        assert "item 15" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("field", sorted(QOS_LIBRARY_AUTOTUNE))
