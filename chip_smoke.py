@@ -58,6 +58,23 @@ Phases (any failure raises and the script exits non-zero):
      switch kernels against their PyTorch versions, timed in bf16, on
      plans of the top rung and of a ladder_from_counts rung and on stacks
      gathered from the library;
+  6a. [analysis full width]: the contract gate (repro_torch.analysis) on
+     phase 6's uncut library model: TA001, the autotune servers of phase
+     6 hold one decode step object per rung visited, and no nvcc runs
+     after the build; for each backend the decode and prefill-chunk steps
+     at tick scope (the serving configuration's), dense and paged
+     (16-token pages), driven
+     through the audit's grid (2 margin vectors x 2 residency sets x 2 row
+     masks; 2 block tables x 2 masks paged) under the audit's sync
+     recorder and torch.cuda.set_sync_debug_mode("warn"): the waits the
+     card reports equal the syncs the op list records, and both equal
+     what the port's baseline grandfathers (0 for an empty one), 24
+     switch launches a step call on the kernel backends and 0 on "xla",
+     int32 plan, stats and metric leaves on the device (TA002);
+     activation moves of a 3-layer execute at the CPU test's shapes
+     (equal to the CPU's count of the same call) and at d 2048 (fused at
+     most (1, 1) a layer and below unfused); the lint stage over the
+     checkout (0 new findings);
   6b. [serve mesh full width]: the same model at its widths cut to 12
      of its 24 layers (``MESH_LAYERS``) and the same stream served by a
      DecodeServer on a (2, 2) ("data", "model") mesh: 4 ranks, one
@@ -259,7 +276,7 @@ Phases (any failure raises and the script exits non-zero):
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
      describing every kernel (the switch kernels'
-     launches_by_run with the runs of phases 6b and 10 to 12 (6b's
+     launches_by_run with the runs of phases 6a, 6b and 10 to 12 (6b's
      launches summed over its ranks, ``per_rank`` beside them) and, for
      switched_mlp, the two paper runs, and phase 20c's runs; their
      ``at_widths`` the d 2560 and d 8192 timings of phase 12;
@@ -426,6 +443,23 @@ TRAIN_SSM_MESH = dict(shape=(2, 2), batch=8, seq=256, grad_accum=1, steps=2,
                       warmup=2,
                       witness=dict(batch=4, seq=64, loss_tol=1e-5,
                                    norm_tol=1e-3, grad_tol=1e-4))
+
+
+# [analysis full width]: the residency sets of the library's 3 resident
+# slots, the route scope whose steps are audited (the serving
+# configuration's; the CPU audit holds layer scope too), the page size,
+# and the 3-layer execute of the activation-move count at the CPU test's
+# shapes (tests/test_torch_analysis.py) and at full width
+ANALYSIS_RESIDENCY = ([4, 1, 0], [2, 5, 3])
+ANALYSIS_SCOPES = ("tick",)
+ANALYSIS_PAGE = 16
+MOVES_CASES = {"test shapes": dict(t=128, n=3, d=32, d_h=16, block_t=32,
+                                   exact_cap=64, invoke_cap=48,
+                                   dtype="float32"),
+               "d 2048": dict(t=512, n=3, d=2048, d_h=256, block_t=128,
+                              exact_cap=256, invoke_cap=192,
+                              dtype="bfloat16")}
+MOVES_LAYERS = 3
 
 
 def card_line() -> str:
@@ -1106,28 +1140,6 @@ def oracle_witness(torch, cfg, params, srv, reqs, gate_bf16=True):
                              f"{gap}")
 
 
-class PlanCounter:
-    """Counts ``make_dispatch_plan`` calls, through every module binding
-    of it the serving path calls."""
-
-    def __enter__(self):
-        from repro_torch.models import approx_ffn
-        from repro_torch.runtime import dispatch
-        self.mods, self.real, self.calls = (approx_ffn, dispatch), \
-            dispatch.make_dispatch_plan, 0
-
-        def counted(*a, **k):
-            self.calls += 1
-            return self.real(*a, **k)
-        for m in self.mods:
-            m.make_dispatch_plan = counted
-        return self
-
-    def __exit__(self, *exc):
-        for m in self.mods:
-            m.make_dispatch_plan = self.real
-
-
 def drive(torch, srv, prompts, max_new, qos=None, count_syncs=False):
     """Submit the stream and tick the server dry, each tick timed on the
     host clock (a tick ends by reading the device) and filed by phase.
@@ -1175,6 +1187,7 @@ def run_stream(torch, cfg, params, prompts, label, qos=None,
     served, every page comes back, each tick launched the run's own
     switch kernel once per layer and no other, and the dispatch plans are
     one a tick (tick scope) or one a layer a tick (layer scope)."""
+    from repro_torch.analysis.audit import PlanCapture
     from repro_torch.kernels import fused_dispatch, switched_mlp
     from repro_torch.runtime.options import ServeOptions
     from repro_torch.runtime.server import DecodeServer
@@ -1186,7 +1199,7 @@ def run_stream(torch, cfg, params, prompts, label, qos=None,
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
-    with PlanCounter() as plans:
+    with PlanCapture() as plans:
         reqs, st, times, wall, syncs = drive(torch, srv, prompts,
                                              SCHED_MAX_NEW, qos, count_syncs)
     launches = {b: k.launches for b, k in kernels.items()}
@@ -1200,9 +1213,10 @@ def run_stream(torch, cfg, params, prompts, label, qos=None,
     want = cfg.n_layers * ticks
     per_tick = 1 if opts["route_scope"] == "tick" else cfg.n_layers
     if launches[opts["backend"]] != want or sum(launches.values()) != want \
-            or plans.calls != per_tick * ticks:
-        raise AssertionError(f"{label}: launches {launches}, {plans.calls} "
-                             f"dispatch plans in {ticks} ticks; want {want} "
+            or len(plans.plans) != per_tick * ticks:
+        raise AssertionError(f"{label}: launches {launches}, "
+                             f"{len(plans.plans)} dispatch plans in {ticks} "
+                             f"ticks; want {want} "
                              f"of {opts['backend']} alone and {per_tick} "
                              "plan(s) a tick")
     n_tok = sum(len(r.out) for r in reqs)
@@ -1225,7 +1239,7 @@ def run_stream(torch, cfg, params, prompts, label, qos=None,
         f"mean TTFT {ttft:.2f} ticks; invocation rate "
         f"{st['invocation_rate']:.4f}, served "
         f"{st['served_invocation_rate']:.4f}; launches {launches}, "
-        f"dispatch plans {plans.calls}; kv_bytes_resident "
+        f"dispatch plans {len(plans.plans)}; kv_bytes_resident "
         f"{st['kv_bytes_resident']}{pages}{sync}")
     return dict(srv=srv, tokens=[r.out for r in reqs], stats=st,
                 launches=launches, tick_log=list(srv.tick_log),
@@ -1303,16 +1317,6 @@ def serve_scheduler(np, torch):
     return runs
 
 
-def visited_rungs(summary) -> set:
-    """The ladder rungs a decode tick ran on, from a CapacityController
-    summary: the start and every switch's target but one made at the last
-    observed tick."""
-    sw = summary["switches"]
-    start = sw[0]["from_index"] if sw else summary["final_index"]
-    return {start} | {x["to_index"] for x in sw
-                      if x["tick"] < summary["ticks"]}
-
-
 def serve_features(np, torch):
     """Full-width internlm2-1.8b in the scheduler's serving configuration
     with per-request QoS tiers, an approximator library and capacity
@@ -1320,7 +1324,10 @@ def serve_features(np, torch):
     both switch kernels on the new inputs (plans of the top rung and of a
     ladder_from_counts rung, residency-gathered stacks).  Returns this
     phase's launches per kernel, run by run: {backend: [{"run", "ticks",
-    "launches"}, ...]} for each run that launched that backend's kernel."""
+    "launches"}, ...]} for each run that launched that backend's kernel,
+    and {cfg, params, autotune} for [analysis full width]: the library
+    model and each backend's autotune server."""
+    from repro_torch.analysis.audit import rungs_visited
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
     from repro_torch.runtime import autotune as at
@@ -1443,7 +1450,7 @@ def serve_features(np, torch):
         raise AssertionError("autotune: the rung trajectories differ")
     for b, r in atr.items():
         srv_ = r["srv"]
-        seen = visited_rungs(r["stats"]["autotune"])
+        seen = rungs_visited(r["stats"]["autotune"])
         if set(srv_._steps) != seen or not set(srv_._chunk_steps) <= seen:
             raise AssertionError(f"autotune {b}: decode steps built for "
                                  f"rungs {sorted(srv_._steps)}, chunk steps "
@@ -1456,7 +1463,7 @@ def serve_features(np, torch):
                      for x in summ["switches"]) or "no switch")
         + f"; final rung {summ['final_index']}; "
         f"{len(atr['pallas']['srv']._steps)} decode step objects for "
-        f"{len(visited_rungs(summ))} rungs visited")
+        f"{len(rungs_visited(summ))} rungs visited")
     log("  autotune gates: tokens and trajectory equal across backends; one "
         "decode step object per rung visited")
 
@@ -1477,12 +1484,15 @@ def serve_features(np, torch):
     res = torch.tensor(lib["pallas"]["stats"]["residency"]["final_residency"],
                        dtype=torch.int32, device="cuda")
     feature_kernels(np, torch, cfg, at, rung, blk, res)
-    del params, params_lib
+    del params
     for b in backends:
         log(f"  {b} launches by run: " + "; ".join(
             f"{x['run']}: {x['launches']} = {cfg.n_layers} x {x['ticks']} "
             "ticks" for x in by_run[b]))
-    return by_run
+    # what [analysis full width] audits: the library model and the
+    # autotune servers
+    return by_run, dict(cfg=cfg_lib, params=params_lib,
+                        autotune={b: atr[b]["srv"] for b in backends})
 
 
 def feature_kernels(np, torch, cfg, at, rung, blk, residency):
@@ -1524,6 +1534,153 @@ def feature_kernels(np, torch, cfg, at, rung, blk, residency):
                                  a.block_t, dtype, f"{kind} {t} rows",
                                  timed=dtype == "bfloat16")
     del flush
+
+
+def moves_per_layer(np, torch, case, backend, device):
+    """(gathers, scatters) a layer of a MOVES_LAYERS-layer execute against
+    one plan, as tests/test_torch_analysis.py counts them."""
+    import torch.nn.functional as F
+
+    from repro_torch.analysis.opcount import activation_moves
+    from repro_torch.runtime import dispatch as D
+    t, n, d, dh = case["t"], case["n"], case["d"], case["d_h"]
+    rng = np.random.default_rng(9)
+    to = dict(device=device, dtype=getattr(torch, case["dtype"]))
+    f = lambda *s_, sc=1.0: torch.from_numpy(
+        (rng.normal(size=s_) * sc).astype(np.float32)).to(**to)
+    x = f(t, d, sc=0.5)
+    logits = (x.float() @ f(d, n + 1, sc=0.5).float())
+    w = [f(n, d, dh, sc=0.2), f(n, dh, sc=0.1), f(n, dh, d, sc=0.2),
+         f(n, d, sc=0.1)]
+    wi, wo = f(d, 2 * d, sc=0.1), f(2 * d, d, sc=0.1)
+    stacked = [[a * (0.8 + 0.1 * i) for a in w] for i in range(MOVES_LAYERS)]
+    plan = D.make_dispatch_plan(logits, exact_cap=case["exact_cap"],
+                                invoke_cap=case["invoke_cap"],
+                                backend=backend, block_t=case["block_t"])
+
+    def tick(h):
+        for ws in stacked:
+            h = D.execute_dispatch(plan, h, lambda xb: F.silu(xb @ wi) @ wo,
+                                   *ws)
+        return h
+    g, s_ = activation_moves(tick, (x,))
+    if g % MOVES_LAYERS or s_ % MOVES_LAYERS:
+        raise AssertionError(f"activation moves {backend}: {g}, {s_} over "
+                             f"{MOVES_LAYERS} layers")
+    return g // MOVES_LAYERS, s_ // MOVES_LAYERS
+
+
+def analysis_moves(np, torch):
+    """Activation moves a layer (``MOVES_CASES``): the card's count at the
+    CPU test's shapes equals the CPU's count of the same call; fused at
+    most (1, 1) and below unfused at both shapes."""
+    for name, case in MOVES_CASES.items():
+        card_moves = {b: moves_per_layer(np, torch, case, b, "cuda")
+                      for b in ("xla", "pallas", "pallas_fused")}
+        line = f"  activation moves a layer {name}: card {card_moves}"
+        if name == "test shapes":
+            cpu = {b: moves_per_layer(np, torch, case, b, "cpu")
+                   for b in card_moves}
+            if cpu != card_moves:
+                raise AssertionError(f"activation moves: card {card_moves}, "
+                                     f"CPU {cpu}")
+            line += f", CPU {cpu}"
+        (gf, sf), (gu, su) = card_moves["pallas_fused"], card_moves["pallas"]
+        if not (gf <= 1 and sf <= 1 and gf < gu and sf < su):
+            raise AssertionError(f"activation moves {name}: {card_moves}")
+        log(line)
+
+
+def analysis_lint(root, baseline):
+    """The lint stage over the checkout: no finding the baseline lacks."""
+    from repro_torch.analysis import run_lint
+    t0 = time.time()
+    lint = run_lint(root=root)
+    new_lint = [f.render() for f in lint if f.key not in baseline]
+    if new_lint:
+        raise AssertionError("lint: new findings\n" + "\n".join(new_lint))
+    log(f"  lint: {len(lint)} findings, 0 new, in {time.time() - t0:.2f} s")
+
+
+def analysis_full_width(np, torch, audited, compiles_at_build):
+    """The contract gate on the uncut library model of the QoS/library/
+    autotune phase (``audited``: its cfg, params and autotune servers),
+    with the gates of the module docstring's phase 6a.  Returns the step
+    calls' switch launches run by run, as serve_features does."""
+    from repro_torch.analysis import audit, findings, jit_cache
+    from repro_torch.kernels import build
+    root = Path(__file__).resolve().parent
+    baseline = findings.load_baseline(root / "analysis_baseline_torch.txt")
+    card = card_line()
+    cfg, params = audited["cfg"], audited["params"]
+
+    # TA001: one decode step object per rung visited, no rebuild
+    for b, srv in audited["autotune"].items():
+        visited = audit.rungs_visited(srv.controller.summary())
+        objs = jit_cache.step_objects(srv)
+        bad = [f.key for f in audit.audit_server(
+            srv, scope=f"DecodeServer[{b},autotune]")]
+        if bad or jit_cache.cache_size(srv) != len(visited):
+            raise AssertionError(f"TA001 {b}: step objects {objs} for rungs "
+                                 f"visited {sorted(visited)}: {bad}")
+        log(f"  TA001 {b} autotune server: {objs['decode']} decode and "
+            f"{objs['chunk']} chunk step objects for {len(visited)} rungs "
+            f"visited {sorted(visited)}")
+
+    by_run = {"pallas": [], "pallas_fused": []}
+    for b in ("xla", "pallas", "pallas_fused"):
+        t0 = time.time()
+        fs, calls = audit.audit_steps(
+            cfg, params, b, batch=SCHED["batch"], max_len=SCHED["max_len"],
+            page_sizes=(ANALYSIS_PAGE,), scopes=ANALYSIS_SCOPES,
+            residency_sets=ANALYSIS_RESIDENCY, device="cuda")
+        torch.cuda.synchronize()
+        new = [f.render() for f in fs if f.key not in baseline]
+        if new:
+            raise AssertionError(f"audit {b}: new findings\n"
+                                 + "\n".join(new))
+        want = cfg.n_layers if b != "xla" else 0
+        groups = {}
+        for c in calls:
+            key = (c["step"], c["scope"], c["layout"])
+            grandfathered = {k.split(":")[-1][len("sync_"):]
+                             for k in baseline
+                             if k.startswith("TA003:audit_steps:")
+                             and f":{c['step']}[{b},{c['scope']}" in k}
+            recorded = sum(c["syncs"].values())
+            if c["waits"] != recorded or not set(c["syncs"]) \
+                    <= grandfathered or c["launches"] != want:
+                raise AssertionError(
+                    f"analysis {b} {key}: the card waited {c['waits']} "
+                    f"times, the op list recorded {c['syncs']} (baseline "
+                    f"{sorted(grandfathered)}), {c['launches']} switch "
+                    f"launches where {want}")
+            groups.setdefault(key, []).append(c)
+        for (step, scope, layout), cs in groups.items():
+            log(f"  {b} {step} {scope} {layout}: {len(cs)} calls, syncs a "
+                f"call (op list / card waits) max "
+                f"{max(sum(c['syncs'].values()) for c in cs)} / "
+                f"{max(c['waits'] for c in cs)}, switch launches a call "
+                f"{cs[0]['launches']}, plans checked "
+                f"{sum(c['plans'] for c in cs)}")
+        log(f"  {b}: {len(calls)} step calls in {time.time() - t0:.1f} s, "
+            f"{len(fs)} findings ({card})")
+        if b != "xla":
+            by_run[b].append(dict(run=f"analysis steps {b}",
+                                  calls=len(calls), launches=sum(
+                                      c["launches"] for c in calls)))
+
+    builds = jit_cache.kernel_builds()
+    if builds["compiles"] != compiles_at_build or \
+            not set(builds["loaded"]) <= set(build.SOURCES):
+        raise AssertionError(f"TA001: {builds} after the build phase's "
+                             f"{compiles_at_build} nvcc runs")
+    log(f"  TA001 kernels: libraries loaded {sorted(builds['loaded'])}, one "
+        f"per source; {builds['compiles']} nvcc runs, none after the build")
+
+    analysis_moves(np, torch)
+    analysis_lint(root, baseline)
+    return by_run
 
 
 def smoke_reference_check(np, torch):
@@ -3162,23 +3319,24 @@ def moe_stream(torch, cfg, params, prompts, label, **over):
     before and read just after.  Fails unless every request is served,
     every page comes back, and no switch kernel and no dispatch plan ran
     (the MoE takes the ApproxFFN's place and routes itself)."""
+    from repro_torch.analysis.audit import PlanCapture
     from repro_torch.runtime.options import ServeOptions
     from repro_torch.runtime.server import DecodeServer
     opts = {**SCHED, "use_mcma_dispatch": True, "backend": "pallas", **over}
     srv = DecodeServer(cfg, params, options=ServeOptions(**opts))
     torch.cuda.synchronize()
     zero_switch()
-    with PlanCounter() as plans:
+    with PlanCapture() as plans:
         reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
     if not all(r.done and not r.aborted for r in reqs) or \
             st["undrained_queued"] or st["undrained_inflight"]:
         raise AssertionError(f"{label}: the stream did not drain")
     if opts["kv_page_size"] and st["pages_in_use"] != 0:
         raise AssertionError(f"{label}: {st['pages_in_use']} pages held")
-    if switch_launches() or plans.calls:
+    if switch_launches() or len(plans.plans):
         raise AssertionError(f"{label}: {switch_launches()} switch launches "
-                             f"and {plans.calls} dispatch plans on an MoE "
-                             "model; want 0")
+                             f"and {len(plans.plans)} dispatch plans on an "
+                             "MoE model; want 0")
     n_tok = sum(len(r.out) for r in reqs)
     ttft = statistics.mean(r.first_token_tick - r.arrival_tick for r in reqs)
     med = {ph: statistics.median(v) if v else 0.0 for ph, v in times.items()}
@@ -3614,6 +3772,7 @@ def moe_mesh_serve(np, torch, mesh, single_tokens):
     as this rank's shards (16 whole experts on a (1, 4) mesh), through a
     mesh DecodeServer on the scheduler's stream; then one decode tick of
     8 slots, each layer's global drop share.  Returns the run's record."""
+    from repro_torch.analysis.audit import PlanCapture
     from repro_torch.models import model as M
     from repro_torch.runtime import steps as S
     from repro_torch.runtime.options import ServeOptions
@@ -3632,7 +3791,7 @@ def moe_mesh_serve(np, torch, mesh, single_tokens):
     torch.cuda.synchronize()
     zero_switch()
     C.reset_counts()
-    with PlanCounter() as plans:
+    with PlanCapture() as plans:
         reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
     counts, launches = dict(C.COUNTS), switch_launches()
     stats = st.asdict()
@@ -3640,7 +3799,7 @@ def moe_mesh_serve(np, torch, mesh, single_tokens):
     tokens = [list(r.out) for r in reqs]
     out = dict(tokens=tokens, stats=stats, tick_log=list(srv.tick_log),
                done=all(r.done and not r.aborted for r in reqs),
-               launches=launches, plans=plans.calls, counts=counts,
+               launches=launches, plans=len(plans.plans), counts=counts,
                times=times, wall=wall, init_s=init_s, n_local=n_local,
                agree=None if single_tokens is None else sum(
                    x == y for a, b in zip(tokens, single_tokens)
@@ -4654,6 +4813,7 @@ def main() -> int:
     log("[build]")
     t0 = time.time()
     logs = build.build_all()
+    compiles_at_build = build.build_all.compiles
     log(f"  built {len(logs)} of {len(build.SOURCES)} kernels in "
         f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
@@ -4690,9 +4850,17 @@ def main() -> int:
 
     log("[serve qos library autotune full width]")
     t0 = time.time()
-    feature_launches = serve_features(np, torch)
+    feature_launches, audited = serve_features(np, torch)
     torch.cuda.empty_cache()
     log(f"  phase {time.time() - t0:.1f} s")
+
+    log("[analysis full width]")
+    t0 = time.time()
+    analysis_launches = analysis_full_width(np, torch, audited,
+                                            compiles_at_build)
+    del audited
+    torch.cuda.empty_cache()
+    log(f"  phase {time.time() - t0:.1f} s ({card_line()})")
 
     log("[serve mesh full width]")
     t0 = time.time()
@@ -4817,7 +4985,8 @@ def main() -> int:
     rows = []
     switch_runs = {b: [dict(run=f"slice 1 {b}", ticks=results[b]["ticks"],
                             launches=results[b]["launches"])]
-                   + feature_launches[b] for b in ("pallas", "pallas_fused")}
+                   + feature_launches[b] + analysis_launches[b]
+                   for b in ("pallas", "pallas_fused")}
     for b in ("pallas", "pallas_fused"):
         switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b] \
             + [mesh_runs[b]]

@@ -58,6 +58,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+        build_all.compiles += 1
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -72,6 +73,9 @@ def build_all(names=SOURCES) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+build_all.compiles = 0          # nvcc processes started in this process
 
 
 def load(name: str, entries: dict[str, tuple[int, int]]) -> ctypes.CDLL:

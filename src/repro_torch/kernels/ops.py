@@ -118,6 +118,7 @@ def class_sort_plan(cls: torch.Tensor, n: int, block_t: int):
     """
     t = cls.shape[0]
     t_pad = worst_case_rows(t, n, block_t)
+    assert t_pad % block_t == 0, (t_pad, block_t)
     i32 = torch.int32
     order = torch.argsort(cls, stable=True).to(i32)
     cls_sorted = cls[order.long()].long()

@@ -77,6 +77,8 @@ def smem_bytes(wdtype: torch.dtype, hd: int, units: int) -> int:
     m = 4 * units
     kp = -(-hd // 16) * 16 if bf16 else -(-hd // 4) * 4
     esz, ldw, ldh = (2, m + 8, kp + 8) if bf16 else (4, m, kp)
+    # warps (bf16) or groups of m threads (f32) of a CTA
+    assert THREADS % 32 == 0 and THREADS % m == 0, (THREADS, m)
     parts = THREADS // 32 if bf16 else THREADS // m
     return (kp * ldw * esz + ROWS * ldh * esz + parts * ROWS * m * 4
             + SLOTS * ROWS * m * 4)
@@ -140,6 +142,7 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 def slstm_scan_plain(xg, wh, h0, c0, n0, m0):
     """PyTorch version of the kernel (same signature and arithmetic): ``h``
     is rounded to ``wh.dtype`` and the recurrent product summed in f32."""
+    assert xg.shape[-1] % 4 == 0, xg.shape
     hd = xg.shape[-1] // 4
     w = wh.float()
     hp, cp, np_, mp = h0, c0, n0, m0

@@ -40,6 +40,7 @@ def tile_math(xs: torch.Tensor, tile_cls: torch.Tensor, w1: torch.Tensor,
     ``xs.dtype`` before the second product (the reference kernel's cast),
     the result cast to ``xs.dtype``."""
     t_pad, d_in_p = xs.shape
+    assert t_pad % block_t == 0, (t_pad, block_t)
     nt = t_pad // block_t
     c = tile_cls.long()
     xt = xs.reshape(nt, block_t, d_in_p).float()

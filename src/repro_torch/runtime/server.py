@@ -292,6 +292,9 @@ class DecodeServer:
             self._tick_metrics += ("tier_counts", "tier_dispatched")
         if self.residency_controller is not None:
             self._tick_metrics += ("lib_counts", "off_set_exact_rows")
+        # every step object built, as (kind, operating point): what
+        # analysis/jit_cache.cache_size counts (one per rung served)
+        self.step_builds: list[tuple[str, object]] = []
         self._steps = {}             # ladder index -> decode step
         self._chunk_steps = {}       # ladder index -> chunk step
         self.decode = self._make_step(None)
@@ -457,9 +460,11 @@ class DecodeServer:
                     route_scope=self.route_scope, backend=self.backend)
 
     def _make_step(self, point):
+        self.step_builds.append(("decode", point))
         return steps_lib.make_decode_step(self.cfg, **self._step_kw(point))
 
     def _make_chunk_step(self, point):
+        self.step_builds.append(("chunk", point))
         return steps_lib.make_prefill_chunk_step(self.cfg,
                                                  **self._step_kw(point))
 

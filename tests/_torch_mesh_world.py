@@ -144,6 +144,7 @@ def run(rank: int, out_dir: str):
     arguments pickles them once per rank, which is slow), one payload."""
     torch.set_num_threads(1)
     inputs = torch.load(f"{out_dir}/inputs.pt", weights_only=False)
+    from repro_torch.analysis.audit import audit_sharded
     from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.runtime import dispatch as D
     from repro_torch.runtime.autotune import OperatingPoint
@@ -174,6 +175,8 @@ def run(rank: int, out_dir: str):
                 block_t=int(d["BLOCK"]), **dispatch_kwargs(case, d))
             payload["dispatch"][be, case] = (
                 y.numpy(), {k: v.numpy() for k, v in st.items()})
+    # the contract gate's audit of mcma_dispatch_sharded on this mesh
+    payload["audit"] = [f.key for f in audit_sharded(mesh, BACKENDS)]
     for name in SERVERS:
         state = inputs["params_lib" if SERVERS[name]["library"]
                        else "params"]

@@ -30,6 +30,7 @@ from repro.runtime.options import LibrarySpec as JSpec  # noqa: E402
 from repro.runtime.options import ServeOptions as JOptions  # noqa: E402
 from repro.runtime.server import DecodeServer as JServer  # noqa: E402
 from repro.runtime.server import Request as JRequest  # noqa: E402
+from repro_torch.analysis.jit_cache import assert_zero_retrace  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -347,7 +348,6 @@ def test_server_library_swaps_match_jax():
     lib = dict(library_size=6, n_resident=2, observe_window=2, cooldown=2)
     srv, reqs, stats = _serve(DecodeServer, Request, ServeOptions,
                               LibrarySpec, tcfg, tp, lib)
-    n_steps = (id(srv.decode), id(srv.chunk))
     jsrv, jreqs, jstats = _serve(JServer, JRequest, JOptions, JSpec, jcfg,
                                  jp, lib)
     assert srv.cfg.approx.n_approx == 2 and srv.cfg.approx.library_size == 6
@@ -367,8 +367,7 @@ def test_server_library_swaps_match_jax():
     assert stats["off_set_exact_rows"] == pytest.approx(
         stats["routed_per_class"][0] - libc[0])
     # swaps ran through the same two step objects
-    assert (id(srv.decode), id(srv.chunk)) == n_steps
-    assert not srv._steps and not srv._chunk_steps
+    assert_zero_retrace(srv, "a live residency swap")
 
 
 def test_server_identity_residency_is_library_less():

@@ -15,8 +15,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 # whole modules the port does not have
 MODULE_EXCEPTIONS = {
-    "repro.analysis": "item 11: the static-analysis contracts, to be "
-                      "ported as torch audits",
+    "repro.analysis.rules.rl001_retrace":
+        "not applicable: jit static_argnames and branches on closed-over "
+        "values; the port compiles nothing, so it has no static arguments "
+        "and an eager call re-reads every captured value",
+    "repro.analysis.rules.rl003_pytree":
+        "not applicable: pytree registration drift; the port has no "
+        "pytrees (its plans and stats are plain dataclasses of tensors)",
     "repro.launch.dryrun": "item 12: XLA and TPU specific; to come as an "
                            "H100 roofline",
     "repro.launch.hlo_cost": "item 12: reads XLA's HLO cost analysis",
@@ -32,6 +37,9 @@ NAME_EXCEPTIONS = {
     ("repro.configs.registry", "full_attention_only"):
         "item 12: used only by dryrun",
     ("repro.configs.registry", "input_specs"): "item 12: used only by dryrun",
+    ("repro.analysis.opcount", "sub_jaxprs"):
+        "not applicable: an eager call has no jaxpr to descend into; "
+        "opcount counts the ops as they run",
     ("repro.models.approx_ffn", "approx_ffn_fwd"):
         "removed in the port: no caller (layout departure)",
     ("repro.models.layers", "init_norm"):

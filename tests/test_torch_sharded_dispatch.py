@@ -227,6 +227,20 @@ def test_every_rank_agrees_bitwise(world):
         assert _same(p["servers"], payloads[0]["servers"]), r
 
 
+def test_sharded_dispatch_audit_is_clean(world):
+    """``repro_torch.analysis.audit.audit_sharded`` on the (4, 2) mesh,
+    every backend: int32 stats and no host sync in the sharded engine,
+    nothing the port's baseline does not grandfather, on every rank."""
+    from pathlib import Path
+
+    from repro_torch.analysis.findings import load_baseline
+    _, payloads, _ = world
+    baseline = load_baseline(Path(__file__).resolve().parents[1]
+                             / "analysis_baseline_torch.txt")
+    for r, p in enumerate(payloads):
+        assert set(p["audit"]) <= baseline, (r, p["audit"])
+
+
 def test_production_mesh_refuses_another_world(world):
     """(16, 16) and (2, 16, 16) need 256 and 512 ranks; a world of 8
     raises (even ranks asked for the one, odd for the other)."""
