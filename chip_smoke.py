@@ -272,13 +272,29 @@ Phases (any failure raises and the script exits non-zero):
      within 1e-3 of one card's in norm, beside one card's own noise under
      a 1e-7 relative move of its parameters). The kernel phase times
      ``slstm_scan`` at a mesh rank's shapes too;
+  20d. [dryrun full width] (``dryrun_full_width``, in a subprocess
+     started with the paper phase 17, which is host-bound on one core; it
+     starts a fake process group of 256 ranks): olmo-1b decode_32k on
+     the (16, 16) production mesh with the ApproxFFN, recorded by
+     ``launch/dryrun.run_cell`` on fake CUDA tensors and on fake CPU
+     tensors, the two records equal (cost, collectives, kernel ops,
+     attention, memory); rank 0's step of that cell run for real on the
+     card in the same fake world (its collectives send nothing), a warm
+     call and 5 timed: ``switched_mlp`` launched as many times a step as
+     the record holds kernel ops, the step's arguments as many bytes as
+     the record's, its host-clock ms and ``max_memory_allocated``
+     printed beside the record's bytes and its three roofline terms;
+     the attention count (``hlo_cost``) equal to ``flash_attention``
+     traced op by op on CUDA tensors at 2048 tokens, forward and
+     backward, in blocks of 512 and of 256;
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
      describing every kernel (the switch kernels'
      launches_by_run with the runs of phases 6a, 6b and 10 to 12 (6b's
      launches summed over its ranks, ``per_rank`` beside them) and, for
-     switched_mlp, the two paper runs, and phase 20c's runs; their
+     switched_mlp, the two paper runs, phase 20c's runs and phase 20d's
+     rank step; their
      ``at_widths`` the d 2560 and d 8192 timings of phase 12;
      slstm_scan's ``at_rank_shapes`` a mesh rank's shapes; the MoE
      phases, on one card and on a mesh, launch none of the four), then
@@ -460,6 +476,14 @@ MOVES_CASES = {"test shapes": dict(t=128, n=3, d=32, d_h=16, block_t=32,
                               exact_cap=256, invoke_cap=192,
                               dtype="bfloat16")}
 MOVES_LAYERS = 3
+# [dryrun full width]: the cell recorded on the fake production mesh (in
+# a subprocess: it starts a fake world of 256 ranks), rank 0's step of it
+# run for real on the card (the median of TIMED calls after a warm one),
+# and the attention count held to the traced loop at ATTN_TOKENS tokens
+# (a rank's heads of olmo-1b: the config's blocks of 512, recorded as
+# they are, and blocks of 256, the count's polynomial)
+DRYRUN = dict(arch="olmo-1b", shape="decode_32k", mesh="single", timed=5)
+DRYRUN_ATTN = dict(tokens=2048, batch=2, heads=16, blocks=(512, 256))
 
 
 def card_line() -> str:
@@ -628,15 +652,17 @@ def switch_bound(torch, dtype, x, cls, w):
     output written once, the class vector, and the weights of the classes
     ``cls`` uses; FLOP: 2 * rows * (d_in * d_h + d_h * d_out).  Given the
     logical dispatch this is the bound; given a kernel's padded operands
-    (per-row classes) it is what that layout moves.  Returns (ms,
-    "bytes" or "operations", bytes, FLOP)."""
+    (per-row classes) it is what that layout moves.  The count is the
+    package's (``kernels/work.switch_work``), the one the dry run's
+    kernel ops read.  Returns (ms, "bytes" or "operations", bytes,
+    FLOP)."""
+    from repro_torch.kernels.work import switch_work
     t, d_in = x.shape
     d_h, d_out = w[2].shape[1:]
-    w_bytes = sum(wt[c].numel() * wt.element_size()
-                  for c in torch.unique(cls).tolist() for wt in w)
-    n_bytes = t * (d_in + d_out) * x.element_size() \
-        + cls.numel() * cls.element_size() + w_bytes
-    flops = 2 * t * (d_in * d_h + d_h * d_out)
+    n_bytes, flops = switch_work(
+        t, d_in, d_h, d_out, n_classes=len(torch.unique(cls)),
+        itemsize=x.element_size(), w_itemsize=w[0].element_size(),
+        index_bytes=cls.numel() * cls.element_size())
     return (*bound(dtype, n_bytes, flops), n_bytes, flops)
 
 
@@ -709,6 +735,7 @@ def mlp_kernel_phase(np, torch, flush):
     whose launches the kernels line reports."""
     from repro_torch.kernels import mcma_mlp, ops, ref
     from repro_torch.kernels.sweeps import MLP_SHAPES, mlp_inputs
+    from repro_torch.kernels.work import wrapper_work
     rng = np.random.default_rng(11)
     t, d_in, d_h, d_out = MLP_FULL
     full = [rng.normal(size=(t, d_in)), rng.normal(size=(d_in, d_h))
@@ -739,9 +766,7 @@ def mlp_kernel_phase(np, torch, flush):
                     f"{err:.3g}")
                 continue
             ms, plain_ms, four = timed_pair(torch, kern, plain, flush)
-            esz = a[0].element_size()
-            n_bytes = sum(o.numel() for o in operands) * esz + t * d_out * esz
-            flops = 2 * t * (d_in * d_h + d_h * d_out)
+            n_bytes, flops = wrapper_work("mlp_forward", operands, {})
             b_ms, b_by = bound(dtype, n_bytes, flops)
             out[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by)
@@ -779,6 +804,7 @@ def slstm_kernel_phase(np, torch, flush):
     float32 and bfloat16 recurrent weights."""
     from repro_torch.kernels import slstm_scan as K
     from repro_torch.kernels.sweeps import SLSTM_SHAPES, slstm_inputs
+    from repro_torch.kernels.work import slstm_work
     out = {}
     cases = [(s, slstm_inputs(*s), None) for s in SLSTM_SHAPES]
     cases += [(s, slstm_inputs(*s, wh_scale=s[3] ** -0.5), name)
@@ -812,10 +838,8 @@ def slstm_kernel_phase(np, torch, flush):
                 continue
             ms, plain_ms, four = timed_pair(torch, kern, plain, flush,
                                             iters=10)
-            s, b, h, hd = shape
-            n_bytes = (xg.numel() + ys.numel() + 8 * b * h * hd) * 4 \
-                + wh.numel() * wh.element_size()
-            flops = 2 * s * b * h * hd * 4 * hd
+            n_bytes, flops = slstm_work(*shape,
+                                        wh_itemsize=wh.element_size())
             b_ms, b_by = bound(wdtype, n_bytes, flops)
             out[name, wdtype] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
@@ -3244,6 +3268,172 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
+def dryrun_child(path: str):
+    """[dryrun full width]'s subprocess: (a) the cell recorded on fake
+    CUDA tensors, (b) on fake CPU tensors, (c) rank 0's step of it run
+    for real on the card in the same fake world (its collectives send
+    nothing: the values mean nothing, the time and the memory hold), (d)
+    the attention count against the traced loop.  Writes JSON to
+    ``path``."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import switched_mlp
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HostMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, t0 = {}, time.time()
+    cell = (DRYRUN["arch"], DRYRUN["shape"], DRYRUN["mesh"])
+    for dev in ("cuda", "cpu"):
+        out[dev] = dryrun.run_cell(*cell, approx=True, device=dev)
+        out[dev]["roofline"] = dryrun.roofline_terms(out[dev])
+    out["t_record_s"] = time.time() - t0
+    cfg = dryrun.cell_config(DRYRUN["arch"], approx=True)
+    mesh = HostMesh(*dryrun._mesh_layout(DRYRUN["mesh"]))
+    torch.cuda.reset_peak_memory_stats()
+    step, args, arg_bytes = dryrun.cell_step(
+        cfg, SHAPES[DRYRUN["shape"]], mesh, "cuda", fake=False)
+    torch.cuda.synchronize()
+    switched_mlp.switched_mlp.launches = 0
+    step(*args)                                         # warm
+    torch.cuda.synchronize()
+    warm = switched_mlp.switched_mlp.launches
+    times = []
+    for _ in range(DRYRUN["timed"]):
+        t = time.perf_counter()
+        logits, _ = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["step"] = dict(
+        times_ms=times, ms=statistics.median(times), argument_bytes=arg_bytes,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches_per_step=warm,
+        launches=switched_mlp.switched_mlp.launches,
+        logits=list(logits.shape))
+    out["attention"] = dryrun_attention(torch, cfg)
+    out["t_child_s"] = time.time() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_attention(torch, cfg):
+    """The attention count (``hlo_cost._FlashCount``) against
+    ``flash_attention`` traced op by op on CUDA tensors, forward and
+    backward, at DRYRUN_ATTN's tokens and block sizes."""
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import layers
+    real, a = layers.flash_attention, DRYRUN_ATTN
+    res = []
+    for blk in a["blocks"]:
+        c = dataclasses.replace(cfg, q_block=blk, kv_block=blk)
+        got = {}
+        for how in ("counted", "traced"):
+            qkv = [torch.zeros((a["batch"], a["tokens"], a["heads"], c.hd),
+                               dtype=c.adtype, device="cuda",
+                               requires_grad=True) for _ in range(3)]
+            t = time.time()
+            with hlo_cost.record(args=qkv) as rec:
+                if how == "traced":
+                    layers.flash_attention = real
+                o = layers.flash_attention(c, *qkv)
+                fwd = [rec.cost.flops, rec.cost.bytes]
+                torch.autograd.grad(o, qkv, torch.ones_like(o))
+            got[how] = dict(forward=fwd, backward=[
+                rec.cost.flops - fwd[0], rec.cost.bytes - fwd[1]],
+                s=time.time() - t)
+        res.append(dict(block=blk, blocks=a["tokens"] // blk, **got))
+    return res
+
+
+def dryrun_start():
+    """Start [dryrun full width]'s subprocess (``dryrun_child``), which
+    runs beside the paper phase (host-bound on one core); returns what
+    ``dryrun_full_width`` waits on."""
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    path = f"{tmp.name}/dryrun.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.dryrun_child({path!r})"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root / "src"), str(root)])))
+    return proc, tmp, path
+
+
+def dryrun_full_width(np, torch, started):
+    """[dryrun full width]: ``launch/dryrun`` on a production cell, in the
+    subprocess ``dryrun_start`` started, with four gates: (a) the record
+    on fake CUDA tensors equals (b) the record on fake CPU tensors (cost,
+    collectives, kernel ops, attention, memory); (c) rank 0's step run
+    for real launches ``switched_mlp`` as many times a step as the record
+    holds kernel ops, its ms and peak memory printed beside the record's
+    bytes and terms; (d) the attention count equals the traced loop,
+    forward and backward.  Returns the step's launches for the kernels
+    line."""
+    proc, tmp, path = started
+    with tmp:
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"dryrun child failed:\n{err[-3000:]}")
+        with open(path) as f:
+            out = json.load(f)
+    a, b, st = out["cuda"], out["cpu"], out["step"]
+    if not (a["ok"] and b["ok"]):
+        raise AssertionError(f"dryrun: {a.get('error')} {b.get('error')}")
+    for key in ("cost", "collectives", "kernels", "attention", "memory"):
+        if a[key] != b[key]:
+            raise AssertionError(f"dryrun: {key} on fake cuda {a[key]} != "
+                                 f"on fake cpu {b[key]}")
+    cell = f"{DRYRUN['arch']} {DRYRUN['shape']} {DRYRUN['mesh']} approx"
+    r_ = a["roofline"]
+    log(f"  (a) = (b): {cell} recorded on fake cuda and fake cpu tensors "
+        f"in {out['t_record_s']:.1f} s: {a['cost']['flops_per_chip']:.6g} "
+        f"FLOP, {a['cost']['bytes_per_chip']:.6g} B, "
+        f"{a['cost']['n_ops']} ops a rank; collectives "
+        f"{a['collectives']['counts']} sending "
+        f"{a['collectives']['by_kind']} B (ring model "
+        f"{a['collectives']['ring_by_kind']}); kernel ops {a['kernels']}")
+    want = a["kernels"]["switched_mlp"]["calls"]
+    if st["launches_per_step"] != want \
+            or st["launches"] != want * (1 + DRYRUN["timed"]):
+        raise AssertionError(f"dryrun: the step launched switched_mlp "
+                             f"{st['launches_per_step']} times a step "
+                             f"({st['launches']} in all); the record "
+                             f"holds {want} kernel ops")
+    m = a["memory"]
+    log(f"  (c) rank 0's step on the card: {st['ms']:.2f} ms (host clock, "
+        f"median of {DRYRUN['timed']} after a warm call: "
+        f"{', '.join(f'{t:.2f}' for t in st['times_ms'])}), "
+        f"max_memory_allocated {st['max_memory_allocated']} B, argument "
+        f"bytes {st['argument_bytes']}; switched_mlp {want} launches a "
+        f"step = the record's kernel ops.  The record: argument_bytes "
+        f"{m['argument_bytes']}, peak_bytes {m['peak_bytes']}; terms "
+        f"compute {r_['t_compute_s'] * 1e3:.4f} ms, memory "
+        f"{r_['t_memory_s'] * 1e3:.4f} ms, collective "
+        f"{r_['t_collective_s'] * 1e3:.4f} ms ({r_['bottleneck']}-bound; "
+        f"{card_line()})")
+    if st["argument_bytes"] != m["argument_bytes"]:
+        raise AssertionError(f"dryrun: the step's arguments hold "
+                             f"{st['argument_bytes']} B, the record "
+                             f"{m['argument_bytes']}")
+    for att in out["attention"]:
+        c, t = att["counted"], att["traced"]
+        if (c["forward"], c["backward"]) != (t["forward"], t["backward"]):
+            raise AssertionError(f"dryrun: attention at "
+                                 f"{DRYRUN_ATTN['tokens']} tokens, blocks "
+                                 f"of {att['block']}: counted {c} != "
+                                 f"traced {t}")
+        log(f"  (d) attention at {DRYRUN_ATTN['tokens']} tokens, "
+            f"{att['blocks']} blocks of {att['block']}: counted == traced, "
+            f"forward {c['forward'][0]:.6g} FLOP {c['forward'][1]:.6g} B, "
+            f"backward {c['backward'][0]:.6g} FLOP {c['backward'][1]:.6g} "
+            f"B (counted in {c['s']:.2f} s, traced in {t['s']:.2f} s)")
+    log(f"  child {out['t_child_s']:.1f} s")
+    return dict(run=f"dryrun {DRYRUN['arch']} {DRYRUN['shape']} rank step",
+                steps=1 + DRYRUN["timed"], launches=st["launches"])
+
+
 def release(torch):
     """Free what the last phase left: its tensors, then the cache."""
     gc.collect()
@@ -4939,6 +5129,7 @@ def main() -> int:
 
     log("[paper pipeline full width]")
     t0 = time.time()
+    dryrun_started = dryrun_start()
     paper_runs = paper_pipeline_full_width(np, torch)
     torch.cuda.empty_cache()
     log(f"  phase {time.time() - t0:.1f} s")
@@ -4970,6 +5161,11 @@ def main() -> int:
     log(f"  phase {time.time() - t0:.1f} s")
     release(torch)
 
+    log("[dryrun full width]")
+    t0 = time.time()
+    dryrun_run = dryrun_full_width(np, torch, dryrun_started)
+    log(f"  phase {time.time() - t0:.1f} s after the paper phase")
+
     # every process a phase started (ranks, fork servers, launchers,
     # compilers) has ended before the result is printed
     left = child_processes()
@@ -4991,7 +5187,7 @@ def main() -> int:
         switch_runs[b] += [hybrid_runs[b]] + stablelm_runs[b] \
             + [mesh_runs[b]]
     switch_runs["pallas"] += arch_runs + paper_runs
-    switch_runs["pallas"] += ssm_runs["switched_mlp"]
+    switch_runs["pallas"] += ssm_runs["switched_mlp"] + [dryrun_run]
     switch_runs["pallas_fused"] += ssm_runs["switched_mlp_fused"]
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",

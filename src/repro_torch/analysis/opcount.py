@@ -22,7 +22,8 @@ Two knobs matter for the fusion audit:
     ``out[rows] = y`` ARE the kernel's I/O, so the counter suspends
     itself inside the wrappers for the duration of a count (by binding
     each module attribute, through which ``kernels/ops.py`` calls them,
-    to a suspending shim; restored after).  The card's count and the
+    to a suspending shim; restored after: ``bind_kernel_wrappers``,
+    which ``launch/hlo_cost.py`` shares).  The card's count and the
     CPU's at the same shapes are then equal.
 
 The reference's ``sub_jaxprs`` has no counterpart: there is no program
@@ -51,6 +52,12 @@ KERNEL_WRAPPERS = (
     ("repro_torch.kernels.fused_dispatch", "switched_mlp_fused"),
     ("repro_torch.kernels.mcma_mlp", "mlp_forward"),
     ("repro_torch.kernels.slstm_scan", "slstm_scan"),
+)
+# (module, attribute, wrapper) of the other names a wrapper is called
+# through: the xLSTM layer imports ``slstm_scan`` by name
+KERNEL_ALIASES = (
+    ("repro_torch.models.xlstm", "slstm_scan",
+     ("repro_torch.kernels.slstm_scan", "slstm_scan")),
 )
 
 
@@ -89,34 +96,49 @@ def _counter(groups: dict, min_operand_rank: int):
 
 
 @contextlib.contextmanager
-def kernels_opaque(counter):
-    """Within the block, each kernel wrapper suspends ``counter`` while it
-    runs: the module attributes of ``KERNEL_WRAPPERS`` are bound to shims,
-    and put back on exit.  A wrapper counts its launches on its module's
-    name for it (``switched_mlp.launches += 1``), which is the shim
-    meanwhile: the shim starts from the wrapper's count and hands it back
-    on exit."""
-    saved = []
+def bind_kernel_wrappers(make_shim):
+    """Within the block, each kernel wrapper of ``KERNEL_WRAPPERS`` is
+    ``make_shim(name, real)`` under its module attribute, and under each
+    name of ``KERNEL_ALIASES`` that holds it; all are put back on exit.
+    A wrapper counts its launches on its module's name for it
+    (``switched_mlp.launches += 1``), which is the shim meanwhile: the
+    shim starts from the wrapper's count and hands it back on exit."""
+    saved, shims = [], {}
     try:
         for modname, attr in KERNEL_WRAPPERS:
             mod = importlib.import_module(modname)
             real = getattr(mod, attr)
-
-            def opaque(*a, _real=real, **k):
-                counter.suspended += 1
-                try:
-                    return _real(*a, **k)
-                finally:
-                    counter.suspended -= 1
-            opaque.launches = getattr(real, "launches", 0)
-            saved.append((mod, attr, real, opaque))
-            setattr(mod, attr, opaque)
+            shim = make_shim(attr, real)
+            shim.launches = getattr(real, "launches", 0)
+            saved.append((mod, attr, real, shim))
+            shims[modname, attr] = (real, shim)
+            setattr(mod, attr, shim)
+        for modname, attr, target in KERNEL_ALIASES:
+            mod = importlib.import_module(modname)
+            real, shim = shims[target]
+            if getattr(mod, attr) is real:
+                saved.append((mod, attr, real, None))
+                setattr(mod, attr, shim)
         yield
     finally:
-        for mod, attr, real, opaque in saved:
-            if hasattr(real, "launches"):
-                real.launches = opaque.launches
+        for mod, attr, real, shim in reversed(saved):
+            if shim is not None and hasattr(real, "launches"):
+                real.launches = shim.launches
             setattr(mod, attr, real)
+
+
+def kernels_opaque(counter):
+    """Within the block, each kernel wrapper suspends ``counter`` while it
+    runs (``bind_kernel_wrappers``)."""
+    def make_shim(name, real):
+        def opaque(*a, **k):
+            counter.suspended += 1
+            try:
+                return real(*a, **k)
+            finally:
+                counter.suspended -= 1
+        return opaque
+    return bind_kernel_wrappers(make_shim)
 
 
 def count_ops(fn, args, groups: dict, *, kwargs=None,

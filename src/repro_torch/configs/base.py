@@ -124,3 +124,21 @@ class ModelConfig:
     @property
     def adtype(self) -> torch.dtype:
         return DTYPES[self.act_dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per architecture)."""
+
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}

@@ -1,13 +1,15 @@
 """Architecture registry (counterpart of ``repro/configs/registry.py``):
-every architecture of the reference, in its order, and the reduced smoke
-variants.
+every architecture of the reference, in its order, the reduced smoke
+variants, and the dry-run's cells and input specs (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = {
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
@@ -52,3 +54,51 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         attn_every=attn_every, ssm=ssm, moe=moe, approx=approx,
         param_dtype="float32", act_dtype="float32", remat=False,
         q_block=32, kv_block=32)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run cells and input specs (fake tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+def full_attention_only(cfg: ModelConfig) -> bool:
+    """True when the arch has no sub-quadratic path (long_500k is skipped)."""
+    return cfg.family in ("dense", "moe", "audio", "vlm") \
+        and not cfg.sliding_window
+
+
+def cells(arch: str):
+    """The (shape, step-kind) cells assigned to an arch, honoring skips."""
+    cfg = get_config(arch)
+    return [sh for name, sh in SHAPES.items()
+            if not (name == "long_500k" and full_attention_only(cfg))]
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                device=None) -> dict:
+    """Stand-ins for every model input of one cell, made under the
+    caller's ``FakeTensorMode`` (so nothing is allocated) on ``device``
+    (default ``cuda``: a fake tensor needs no card).
+
+    train:   {"inputs", "labels"}
+    prefill: {"inputs"}
+    decode:  {"inputs", "cache"}: one new token against a ``seq_len``
+             cache, ``models.model.init_cache(cfg, b, seq_len)``'s.
+    Token inputs are int32 (B, n); embedding-input archs get (B, n,
+    d_model) in the activation dtype."""
+    dev = torch.device("cuda" if device is None else device)
+    b, s = shape.global_batch, shape.seq_len
+
+    def inp(n):
+        if cfg.input_mode == "embeddings":
+            return torch.empty((b, n, cfg.d_model), dtype=cfg.adtype,
+                               device=dev)
+        return torch.empty((b, n), dtype=torch.int32, device=dev)
+
+    if shape.kind == "train":
+        return {"inputs": inp(s),
+                "labels": torch.empty((b, s), dtype=torch.int32,
+                                      device=dev)}
+    if shape.kind == "prefill":
+        return {"inputs": inp(s)}
+    from repro_torch.models.model import init_cache    # keeps this light
+    return {"inputs": inp(1), "cache": init_cache(cfg, b, s, device=dev)}

@@ -164,12 +164,13 @@ class Model(nn.Module):
 
 def init_model(key, cfg: ModelConfig, *, device=None, mesh=None) -> Model:
     """Random parameters from ``key``, an int seed or a ``torch.Generator``
-    on ``device`` (default: the GPU, which must exist).  On ``mesh`` each
-    parameter is this rank's block of the same draw under
+    on ``device`` (default: the GPU, which must exist); ``key=None`` leaves
+    the storage uninitialized (no draw: the dry run's fake shards).  On
+    ``mesh`` each parameter is this rank's block of the same draw under
     ``sharding/rules.param_pspecs`` (its spec kept as ``_pspec``), cut as
     soon as it is drawn, so the whole model never exists at once."""
     dev = resolve_device(device)
-    gen = key if isinstance(key, torch.Generator) \
+    gen = key if key is None or isinstance(key, torch.Generator) \
         else torch.Generator(device=dev).manual_seed(int(key))
     if mesh is None:
         return Model(cfg, dev, gen)

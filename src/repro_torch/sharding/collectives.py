@@ -35,9 +35,29 @@ projection whose columns are not laid out by heads) reduce-scatters it
 over "model"; and ``unshard`` (FSDP) reduce-scatters it over the data
 axes, in one collective as its forward gathers.  Their forward results
 are those of the plain collectives, bit for bit.
+
+``WIRE`` counts, on every path (gloo, arena, staged, NCCL, the fake
+backend of ``launch/dryrun.py``), each collective's calls and the bytes
+one rank sends by kind, as the port's algorithms send them: a gather of
+n parts of p bytes sends (n-1)·p; ``all_reduce_sum`` is such a gather
+(then a sum in rank order), so it too sends (n-1)·p, where a ring
+all-reduce sends 2(n-1)/n·p; a reduce-scatter (the exchange of an (n,
+...) buffer of S bytes) sends (n-1)/n·S.  Beside them, ``ring_bytes``:
+the ring model's bytes for the same call (all-reduce 2(n-1)/n·p,
+all-gather and reduce-scatter and all-to-all as sent).  Counting
+changes nothing that is sent.  ``observe_wire`` hands each call to an
+observer with its group's ranks, and ``in_transport`` says whether the
+running op belongs to a collective's transport (its host copies and
+arena rounds), which ``launch/hlo_cost.py`` keeps out of the device
+bytes.  On torch's fake backend (the dry run's world of 256 or 512
+ranks in one process) nothing is sent, so nothing is moved: a gather's
+every part is this rank's own tensor, an exchange returns what it was
+given (the fake backend's own calls cost 2 ms a gather on fake tensors,
+hours over a sweep).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -49,6 +69,11 @@ from repro_torch.sharding.rules import dp_axes, param_pspecs
 # launches of the collectives, and the host stagings and their bytes
 COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0,
           "gather_for_split": 0, "staged": 0, "staged_bytes": 0}
+# calls, bytes sent by one rank, and the ring model's bytes, by kind
+WIRE_KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
+WIRE = {k: {"calls": 0, "bytes": 0, "ring_bytes": 0} for k in WIRE_KINDS}
+_OBSERVERS: list = []
+_TRANSPORT = [0]
 _PINNED: dict = {}
 # [shared uint8 arena, bytes a rank's slot, page-locked here yet]
 _ARENA: list = []
@@ -66,6 +91,60 @@ def use_host_arena(arena: torch.Tensor, slot_bytes: int):
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+    for w in WIRE.values():
+        w.update(calls=0, bytes=0, ring_bytes=0)
+
+
+@contextlib.contextmanager
+def observe_wire(fn):
+    """Within the block, ``fn(kind, nbytes, sent, ring, ranks)`` for
+    every collective this rank calls: the bytes of its part (a gather or
+    all-reduce) or of its send buffer (a reduce-scatter or all-to-all),
+    the bytes it sends, the ring model's bytes, and the global ranks of
+    its group."""
+    _OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _OBSERVERS.remove(fn)
+
+
+def in_transport() -> bool:
+    """True while a collective moves its payload (the host copies, the
+    arena rounds and the backend's calls of ``_gather_parts`` and
+    ``_exchange``)."""
+    return _TRANSPORT[0] > 0
+
+
+@contextlib.contextmanager
+def _transport():
+    _TRANSPORT[0] += 1
+    try:
+        yield
+    finally:
+        _TRANSPORT[0] -= 1
+
+
+def _wire(kind: str, nbytes: int, axes, mesh):
+    """Count one collective over ``axes``: a gather or all-reduce of a
+    part of ``nbytes``, or a reduce-scatter or all-to-all of an (n, ...)
+    buffer of ``nbytes``."""
+    n = mesh.size(axes)
+    if kind in ("all_gather", "all_reduce"):
+        sent = (n - 1) * nbytes
+        ring = 2 * (n - 1) * nbytes / n if kind == "all_reduce" else sent
+    else:
+        sent = ring = (n - 1) * (nbytes // n)
+    w = WIRE[kind]
+    w["calls"] += 1
+    w["bytes"] += sent
+    w["ring_bytes"] += ring
+    if _OBSERVERS:
+        named = {axes} if isinstance(axes, str) else set(axes)
+        ranks = mesh.group_ranks(tuple(a for a in mesh.axis_names
+                                       if a in named))
+        for fn in _OBSERVERS:
+            fn(kind, nbytes, sent, ring, ranks)
 
 
 def _mesh(mesh):
@@ -83,13 +162,23 @@ def _pinned(dtype, numel: int, role: str) -> torch.Tensor:
     return _PINNED[key]
 
 
-def _gather_parts(t: torch.Tensor, axes, mesh) -> list:
+def _gather_parts(t: torch.Tensor, axes, mesh,
+                  kind: str = "all_gather") -> list:
     """Every rank's ``t`` along ``axes``, in rank order, on ``t``'s
     device; this rank's own part is ``t`` itself.  Under gloo with an
     arena the parts move through it; else a CUDA tensor under gloo goes
     out through one pinned buffer and the other ranks' parts come back
-    through another (copies the host waits for)."""
+    through another (copies the host waits for).  Counted in ``WIRE``
+    as ``kind``."""
+    _wire(kind, t.numel() * t.element_size(), axes, mesh)
+    with _transport():
+        return _gather_parts_moved(t, axes, mesh)
+
+
+def _gather_parts_moved(t: torch.Tensor, axes, mesh) -> list:
     n, group = mesh.size(axes), mesh.group(axes)
+    if mesh.backend == "fake":
+        return [t] * n
     if mesh.backend == "gloo" and _ARENA:
         return _arena_gather(t, axes, mesh)
     if not (t.is_cuda and mesh.backend == "gloo"):
@@ -147,22 +236,31 @@ def _arena_gather(t: torch.Tensor, axes, mesh) -> list:
 def _sum_parts(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     """The sum of ``t`` over ``axes``, added in rank order."""
     COUNTS["all_reduce"] += 1
-    parts = _gather_parts(t, axes, mesh)
+    parts = _gather_parts(t, axes, mesh, "all_reduce")
     out = parts[0].clone()
     for p in parts[1:]:
         out += p
     return out
 
 
-def _exchange(send: torch.Tensor, axes, mesh) -> torch.Tensor:
+def _exchange(send: torch.Tensor, axes, mesh,
+              kind: str = "all_to_all") -> torch.Tensor:
     """All-to-all over ``axes``: ``send`` is (n, ...) with row i bound for
     the group's i-th rank; returns (n, ...) whose row i came from the
     group's i-th rank.  Through the arena (in rounds of at most a slot)
     each rank writes its ``send`` and reads only its own row of every
     slot; else gloo's all-to-all (a CUDA tensor staged through pinned
-    buffers)."""
-    n, me, group = mesh.size(axes), mesh.index(axes), mesh.group(axes)
+    buffers).  Counted in ``WIRE`` as ``kind``."""
     send = send.contiguous()
+    _wire(kind, send.numel() * send.element_size(), axes, mesh)
+    with _transport():
+        return _exchange_moved(send, axes, mesh)
+
+
+def _exchange_moved(send: torch.Tensor, axes, mesh) -> torch.Tensor:
+    n, me, group = mesh.size(axes), mesh.index(axes), mesh.group(axes)
+    if mesh.backend == "fake":
+        return send
     if mesh.backend == "gloo" and _ARENA:
         arena, slot = _arena()
         ranks = mesh.group_ranks(axes)
@@ -283,7 +381,7 @@ class _GatherForSplit(torch.autograd.Function):
         COUNTS["reduce_scatter"] += 1
         n = ctx.mesh.size(ctx.axes)
         send = torch.stack(g.chunk(n, ctx.dim))
-        recv = _exchange(send, ctx.axes, ctx.mesh)
+        recv = _exchange(send, ctx.axes, ctx.mesh, "reduce_scatter")
         out = recv[0].clone()
         for r in recv[1:]:
             out += r
@@ -404,7 +502,7 @@ class _Unshard(torch.autograd.Function):
              torch.stack(gr.chunk(g, dim)))
             .reshape(g, -1) for gr, s, dim in zip(grads, ctx.shapes,
                                                   ctx.dims)], 1)
-        recv = _exchange(send, dp, mesh)
+        recv = _exchange(send, dp, mesh, "reduce_scatter")
         out = recv[0].clone()
         for r in recv[1:]:
             out += r

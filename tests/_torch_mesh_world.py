@@ -362,3 +362,55 @@ def train_rank(rank: int, out_dir: str):
                  {k: v.numpy() for k, v in new_e.items()})
     out["quadratic"] = _quadratic(pod, inp["targets"])
     torch.save(out, f"{out_dir}/train_rank{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# the dry run's small cells (tests/test_torch_launch.py): the smoke
+# internlm2-1.8b with the ApproxFFN, rank 0 of a (2, 2) mesh, recorded on
+# a fake process group (``fake=True``, its own process) and for real in a
+# 4-rank gloo world (``dryrun_rank``)
+# ---------------------------------------------------------------------------
+
+DRYRUN_MESH = (2, 2)
+# kind: (seq_len, global batch)
+DRYRUN_SHAPES = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 8)}
+
+
+def dryrun_cells(fake: bool) -> dict:
+    """{kind: the cell's record, with ``collectives.WIRE`` as the cell
+    left it under "wire"} of every small cell."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import collectives as C
+    cfg = smoke_config(get_config("internlm2-1.8b"))
+    out = {}
+    for kind, (s, b) in DRYRUN_SHAPES.items():
+        C.reset_counts()
+        out[kind] = dryrun.run_cell(
+            "internlm2-1.8b", f"{kind}_smoke", "single", approx=True,
+            device="cpu", cfg=cfg,
+            shape=ShapeConfig(f"{kind}_smoke", kind, s, b),
+            mesh_shape=DRYRUN_MESH, fake=fake)
+        out[kind]["wire"] = {k: dict(v) for k, v in C.WIRE.items()}
+    return out
+
+
+def dryrun_fake(path: str):
+    """The small cells on a fake process group in this process, to
+    ``path`` (JSON)."""
+    import json
+    torch.set_num_threads(1)
+    with open(path, "w") as f:
+        json.dump(dryrun_cells(fake=True), f)
+
+
+def dryrun_rank(rank: int, out_dir: str):
+    """One rank of the gloo world: the small cells on real tensors; rank
+    0's records to ``dryrun_gloo.json``."""
+    import json
+    torch.set_num_threads(1)
+    out = dryrun_cells(fake=False)
+    if rank == 0:
+        with open(f"{out_dir}/dryrun_gloo.json", "w") as f:
+            json.dump(out, f)

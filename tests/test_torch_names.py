@@ -22,21 +22,15 @@ MODULE_EXCEPTIONS = {
     "repro.analysis.rules.rl003_pytree":
         "not applicable: pytree registration drift; the port has no "
         "pytrees (its plans and stats are plain dataclasses of tensors)",
-    "repro.launch.dryrun": "item 12: XLA and TPU specific; to come as an "
-                           "H100 roofline",
-    "repro.launch.hlo_cost": "item 12: reads XLA's HLO cost analysis",
-    "repro.launch.roofline": "item 12: TPU roofline constants",
     "repro.sharding.compat": "not applicable: it bridges jax versions of "
                              "shard_map, and the port has no shard_map",
 }
 # names of modules the port has
 NAME_EXCEPTIONS = {
-    ("repro.configs.base", "ShapeConfig"):
-        "item 12: used only by launch/dryrun",
-    ("repro.configs.registry", "cells"): "item 12: used only by dryrun",
-    ("repro.configs.registry", "full_attention_only"):
-        "item 12: used only by dryrun",
-    ("repro.configs.registry", "input_specs"): "item 12: used only by dryrun",
+    ("repro.launch.hlo_cost", "Instr"):
+        "no HLO text: the port records the op stream",
+    ("repro.launch.hlo_cost", "parse_module"):
+        "no HLO text: the port records the op stream",
     ("repro.analysis.opcount", "sub_jaxprs"):
         "not applicable: an eager call has no jaxpr to descend into; "
         "opcount counts the ops as they run",
