@@ -185,8 +185,9 @@ Phases (any failure raises and the script exits non-zero):
      examples/train_lm_mcma_torch.py at its smoke preset;
   17. [paper pipeline full width]: the paper's co-training at the
      reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
-     the paper topologies; 1500 epochs, 3 approximators, 5 iterations, lr
-     3e-3), float32 on the card: blackscholes through the methods of
+     the paper topologies; 3 approximators, 5 iterations, lr 3e-3; 1000 of
+     the paper's 1500 epochs, for the script's time), float32 on the
+     card: blackscholes through the methods of
      benchmarks/bench_paper.run_app that fit the phase's 150 s (one-pass,
      MCMA complementary and competitive; iterative and MCCA only in the
      CPU tests) with the Fig. 8 cost normalisation,
@@ -287,14 +288,28 @@ Phases (any failure raises and the script exits non-zero):
      the attention count (``hlo_cost``) equal to ``flash_attention``
      traced op by op on CUDA tensors at 2048 tokens, forward and
      backward, in blocks of 512 and of 256;
+  20e. [narrow mesh full width] (``narrow_mesh_full_width``): tensor
+     parallelism below one kv head or one expert a rank, ONE world of 16
+     ranks sharing the card on a (1, 16) mesh: internlm2-1.8b at its
+     widths cut to 4 layers, drawn as shards, over the head_dim-split KV
+     cache, on the scheduler's prompts and configuration with 4 new
+     tokens through both backends (4 launches a tick on every rank,
+     equal tokens); float32 witnesses at 2 layers against one card
+     (internlm2 a chunk then a decode step within 1e-4, every rank's
+     logits bitwise equal; mixtral's ring past the window within 1e-4);
+     mixtral-8x7b cut to 2 layers, TP-in-expert, on the SSM mesh world's
+     short stream (0 switch launches) and one bf16 Trainer step at 4 x
+     128 (finite, every rank's history and shared leaves bitwise equal);
+     ms a tick and a step, collectives and staged bytes a tick a rank,
+     peak memory a rank;
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
      describing every kernel (the switch kernels'
-     launches_by_run with the runs of phases 6a, 6b and 10 to 12 (6b's
-     launches summed over its ranks, ``per_rank`` beside them) and, for
-     switched_mlp, the two paper runs, phase 20c's runs and phase 20d's
-     rank step; their
+     launches_by_run with the runs of phases 6a, 6b, 10 to 12 and 20e
+     (the mesh runs' launches summed over their ranks, ``per_rank``
+     beside them) and, for switched_mlp, the two paper runs, phase 20c's
+     runs and phase 20d's rank step; their
      ``at_widths`` the d 2560 and d 8192 timings of phase 12;
      slstm_scan's ``at_rank_shapes`` a mesh rank's shapes; the MoE
      phases, on one card and on a mesh, launch none of the four), then
@@ -358,9 +373,11 @@ TRAIN_ERROR_BOUND = 1.4
 TRAIN_RESUME = dict(batch=4, seq=32, save_at=3, steps=6)
 SLSTM_GRAD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # the paper pipeline at the reference's paper settings
-# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32); block_t as in
+# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32) but 1000 of their
+# 1500 epochs: with [narrow mesh full width] the script took 1017.5 s on
+# an H100 host where this phase took 272.3 s; block_t as in
 # examples/approx_bessel.py
-PAPER = dict(epochs=1500, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
+PAPER = dict(epochs=1000, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
              block_t=128, seed=0)
 # card against CPU: 10 epochs keep two implementations' RMSprop
 # trajectories at ulp distance (past about 100 epochs elements with a
@@ -397,8 +414,9 @@ MESH_SHAPE = (2, 2)
 # internlm2 in the two mesh phases ([serve mesh full width], [train mesh
 # full width]) at its widths cut to 12 of its 24 layers: with the SSM mesh
 # world added the script took 1223.0 s on a slow host (PR 24), past the
-# 1200 s it must end within
-MESH_LAYERS = 12
+# 1200 s it must end within; then to 6 beside [narrow mesh full width],
+# 100 to 110 s more
+MESH_LAYERS = 6
 MESH_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
 MESH_LAUNCHER = ("--smoke", "--approx", "--mcma-dispatch", "--data", "2",
                  "--model", "2", "--batch", "4", "--requests", "6",
@@ -460,6 +478,23 @@ TRAIN_SSM_MESH = dict(shape=(2, 2), batch=8, seq=256, grad_accum=1, steps=2,
                       witness=dict(batch=4, seq=64, loss_tol=1e-5,
                                    norm_tol=1e-3, grad_tol=1e-4))
 
+# [narrow mesh full width]: ONE world of 16 ranks sharing the card on a
+# (1, 16) mesh, the smallest model axis where internlm2's and mixtral's 8
+# kv heads and mixtral's 8 experts fall below |model| (each rank holds
+# head_dim / 16 of every kv head, half a kv head of wk / wv, and d_ff /
+# 16 of every expert: the head_dim-split cache and TP-in-expert).
+# internlm2 at its widths cut to 4 of 24 layers on the scheduler's
+# prompts and configuration with 4 new tokens a request (a tick costs
+# about 1.5 s there: 16 processes meet at every collective); mixtral cut
+# to 2 of 32 on the SSM mesh world's short stream (token by token: its
+# ring buffer) and one
+# Trainer step of 4 x 128 (at 8 x 256 the step took 28 s); float32
+# witnesses at 2 layers against one card (internlm2 a chunk then a
+# decode step, mixtral's ring past the window)
+NARROW = dict(shape=(1, 16), exchange_mib=32, dense_layers=4, swa_layers=2,
+              max_new=4)
+NARROW_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
+TRAIN_NARROW = dict(batch=4, seq=128, grad_accum=1, steps=1, warmup=1)
 
 # [analysis full width]: the residency sets of the library's 3 resident
 # slots, the route scope whose steps are audited (the serving
@@ -2787,10 +2822,10 @@ def paper_card_vs_cpu(np, torch):
 
 def paper_pipeline_full_width(np, torch):
     """[paper pipeline full width]: the reference's paper settings on the
-    card (the Fig. 6 sizes, the paper topologies, 1500 epochs, n 3, 5
-    iterations, lr 3e-3), float32.  (1) blackscholes: one-pass and both
-    MCMA schemes of bench_paper.run_app with the Fig. 8 costs, gated, then
-    the dispatched test rows through the switched_mlp kernel under the
+    card (the Fig. 6 sizes, the paper topologies, n 3, 5 iterations, lr
+    3e-3; ``PAPER["epochs"]`` of the paper's 1500), float32.  (1)
+    blackscholes: one-pass and both MCMA schemes of bench_paper.run_app
+    with the Fig. 8 costs, gated, then the dispatched test rows through the switched_mlp kernel under the
     three 6->8->1 approximators (two layers: the kernel computes each
     whole), within
     3e-5 of apply_mlp under each row's approximator and of
@@ -3803,7 +3838,8 @@ def mesh_witness_logits(torch, cfg, params, mesh, toks):
     return logits.float()
 
 
-def mesh_run(torch, np, cfg, params, prompts, backend, mesh):
+def mesh_run(torch, np, cfg, params, prompts, backend, mesh,
+             max_new=SCHED_MAX_NEW):
     """The scheduler's stream through a DecodeServer (on ``mesh`` when
     given), the switch launches and the collectives counted from 0 after
     the server is built: tokens, stats, tick log, launches, tick times."""
@@ -3815,7 +3851,7 @@ def mesh_run(torch, np, cfg, params, prompts, backend, mesh):
     torch.cuda.synchronize()
     zero_switch()
     C.reset_counts()
-    reqs, st, times, wall, _ = drive(torch, srv, prompts, SCHED_MAX_NEW)
+    reqs, st, times, wall, _ = drive(torch, srv, prompts, max_new)
     stats = st.asdict()
     stats.pop("wall_s")
     return dict(tokens=[list(r.out) for r in reqs],
@@ -4972,6 +5008,238 @@ def ssm_mesh_full_width(np, torch):
     return by_run
 
 
+def narrow_dense_witness(np, torch, mesh):
+    """internlm2 at full widths cut to 2 layers, float32, no-clip: a
+    (batch, seq - 1) chunk then one decode step (``mesh_witness_logits``:
+    the chunk gathers each rank's kv head, the decode exchanges partial
+    scores) on the mesh; rank 0 also on one card.  Returns the mesh
+    logits' digest (every rank) and the gap (rank 0)."""
+    import hashlib
+
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    w = NARROW_WITNESS
+    cfg = dataclasses.replace(
+        approx_cfg("internlm2-1.8b", **NO_CLIP), n_layers=w["n_layers"],
+        param_dtype="float32", act_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (w["batch"], w["seq"])).astype(np.int32)).cuda()
+    out = {}
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        single = mesh_witness_logits(torch, cfg, one, None, toks)
+        del one
+        release(torch)
+    C.barrier()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    got = mesh_witness_logits(torch, cfg, params, mesh, toks)
+    out["digest"] = hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()
+    out["finite"] = bool(torch.isfinite(got).all())
+    if mesh.rank == 0:
+        out["max_abs"] = float((got - single).abs().max())
+        out["scale"] = float(single.abs().max())
+    del params
+    release(torch)
+    C.barrier()
+    return out
+
+
+def narrow_mesh_rank(rank, out_dir):
+    """One rank of [narrow mesh full width] on a (1, 16) mesh: internlm2
+    (4 layers, bf16, drawn as this rank's shards) on the scheduler's
+    stream through both switch kernels, its float32 witness; mixtral (2
+    layers) on the short stream, its ring's float32 witness, one bf16
+    Trainer step; the payload to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import model as M
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = HostMesh(NARROW["shape"], ("data", "model"))
+    out = {"coords": mesh.coords, "runs": {}, "s": {}}
+    t0 = time.time()
+    cfg = dataclasses.replace(approx_cfg("internlm2-1.8b"),
+                              n_layers=NARROW["dense_layers"])
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    out["n_local"] = sum(p.numel() for p in params.parameters())
+    prompts = stream_prompts(np, cfg)
+    for b in ("pallas", "pallas_fused"):
+        out["runs"][b] = mesh_run(torch, np, cfg, params, prompts, b, mesh,
+                                  max_new=NARROW["max_new"])
+    del params
+    release(torch)
+    out["s"]["dense"] = time.time() - t0
+    t0 = time.time()
+    out["dense_witness"] = narrow_dense_witness(np, torch, mesh)
+    out["ring"] = swa_mesh_witness(np, torch, mesh, out_dir)
+    out["s"]["witness"] = time.time() - t0
+    t0 = time.time()
+    from repro_torch.configs.registry import get_config
+    swa = dataclasses.replace(
+        get_config(SWA), n_layers=NARROW["swa_layers"],
+        approx=dataclasses.replace(get_config(SWA).approx, enable=True))
+    params = M.init_model(0, swa, device="cuda", mesh=mesh)
+    out["swa_n_local"] = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, swa.vocab, SSM_STREAM["prompt_len"])
+               .astype(np.int32) for _ in range(SSM_STREAM["n_requests"])]
+    out["swa"] = ssm_run(torch, swa, params, prompts, "pallas", mesh)
+    del params
+    release(torch)
+    out["s"]["swa"] = time.time() - t0
+    t0 = time.time()
+    out["train"], _ = train_mesh_bf16(
+        torch, mesh, train_cfg(SWA, n_layers=NARROW["swa_layers"]),
+        TRAIN_NARROW)
+    release(torch)
+    out["s"]["train"] = time.time() - t0
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def narrow_mesh_full_width(np, torch):
+    """[narrow mesh full width]: tensor parallelism below one kv head and
+    one expert a rank, ONE world of 16 ranks sharing the card over gloo
+    and the exchange arena (``narrow_mesh_rank``).  Gates: every rank's
+    tokens, stats, tick logs, launches and train history bitwise equal;
+    internlm2's runs drained, each rank launching its backend's kernel
+    once a layer a tick, both backends' tokens equal; mixtral's stream
+    drained and its train step finite, 0 switch launches; the float32
+    witnesses within 1e-4 of one card (internlm2's logits bitwise equal
+    on every rank).  Returns the kernels line's runs."""
+    from repro_torch.launch.mesh import spawn_world
+    shape = NARROW["shape"]
+    ranks = shape[0] * shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(narrow_mesh_rank, ranks, (tmp,), backend="gloo",
+                    exchange_mib=NARROW["exchange_mib"])
+        log(f"  {ranks} ranks on a {shape} mesh (gloo, one card, "
+            f"{NARROW['exchange_mib']} MiB arena slots) in "
+            f"{time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    p0 = pay[0]
+    log("  rank 0's parts: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in p0["s"].items()))
+    strip = lambda run: {k: v for k, v in run.items()
+                         if k not in ("times", "wall")}
+    for r, p in enumerate(pay[1:], 1):
+        pairs = [(f"{b} {k}", v, p0["runs"][b][k])
+                 for b in p0["runs"] for k, v in strip(p["runs"][b]).items()]
+        pairs += [(f"mixtral {k}", v, p0["swa"][k])
+                  for k, v in strip(p["swa"]).items()]
+        pairs += [(f"train {k}", p["train"][k], p0["train"][k])
+                  for k in ("history", "metrics")]
+        pairs.append(("witness", p["dense_witness"]["digest"],
+                      p0["dense_witness"]["digest"]))
+        differ = [name for name, a, b in pairs if a != b]
+        if differ:
+            raise AssertionError(f"narrow mesh: rank {r} disagrees with "
+                                 f"rank 0 on {differ}")
+        for k, (axes, digest) in p["train"]["digests"].items():
+            if all(p["coords"][a] == p0["coords"][a] for a in axes) \
+                    and digest != p0["train"]["digests"][k][1]:
+                raise AssertionError(f"narrow mesh train: rank {r}'s {k} "
+                                     "differs from rank 0's")
+    layers = NARROW["dense_layers"]
+    by_run = {}
+    for b, run in p0["runs"].items():
+        ticks = run["stats"]["ticks"]
+        launches = [p["runs"][b]["launches"] for p in pay]
+        if not run["done"] or any(n != layers * ticks for n in launches):
+            raise AssertionError(f"narrow mesh {b}: done {run['done']}, "
+                                 f"launches per rank {launches} (want "
+                                 f"{layers * ticks})")
+        med = {ph: statistics.median(v) if v else 0.0
+               for ph, v in run["times"].items()}
+        n_tok = sum(len(t) for t in run["tokens"])
+        col = run["collectives"]
+        log(f"  internlm2-1.8b, {layers} of 24 layers, bf16, {b}: {ticks} "
+            f"ticks ({run['stats']['prefill_ticks']} prefill); rank 0 ms "
+            f"per decode tick median {med['decode']:.2f}, per prefill tick "
+            f"median {med['prefill']:.2f}; {n_tok} tokens in "
+            f"{run['wall']:.3f} s = {n_tok / run['wall']:.1f} tokens/s; "
+            f"per tick per rank {col['all_gather'] / ticks:.1f} all-gathers,"
+            f" {col['all_reduce'] / ticks:.1f} all-reduces, "
+            f"{col['reduce_scatter'] / ticks:.1f} reduce-scatters, "
+            f"{col['all_to_all'] / ticks:.1f} all-to-alls, "
+            f"{col['gather_for_split'] / ticks:.1f} k/v gathers, "
+            f"{col['staged'] / ticks:.1f} host stagings of "
+            f"{col['staged_bytes'] / ticks / 2**20:.2f} MiB; switch "
+            f"launches per rank {launches[0]} ({layers} a tick, every "
+            f"rank); invocation {run['stats']['invocation_rate']:.4f}; "
+            f"kv_bytes_resident {run['stats']['kv_bytes_resident']}")
+        by_run[b] = dict(run=f"narrow mesh {shape} internlm2 {b}, all "
+                         "ranks", ticks=ticks, launches=sum(launches),
+                         per_rank=launches[0])
+    if p0["runs"]["pallas"]["tokens"] != p0["runs"]["pallas_fused"]["tokens"]:
+        raise AssertionError("narrow mesh: the two backends' tokens differ")
+    log(f"  both backends' tokens equal; {p0['n_local']} parameters a rank; "
+        f"rank 0's internlm2 part {p0['s']['dense']:.1f} s")
+    dw = p0["dense_witness"]
+    if not (all(p["dense_witness"]["finite"] for p in pay)
+            and dw["max_abs"] <= NARROW_WITNESS["tol"]):
+        raise AssertionError(f"narrow mesh internlm2 float32 witness: max "
+                             f"|mesh - one card| {dw['max_abs']:.3g}")
+    log(f"  float32 witness, internlm2 at full widths cut to "
+        f"{NARROW_WITNESS['n_layers']} layers, a ({NARROW_WITNESS['batch']},"
+        f" {NARROW_WITNESS['seq'] - 1}) chunk then one decode step: logits "
+        f"within {dw['max_abs']:.3g} of one card's (<= "
+        f"{NARROW_WITNESS['tol']}; logits up to {dw['scale']:.3g}), every "
+        f"rank's bitwise equal")
+    rg, sw = p0["ring"], SWA_MESH_WITNESS
+    if not (all(p["ring"]["finite"] for p in pay)
+            and rg["vs_single"] <= sw["tol"] and rg["vs_forward"] <= 2e-3):
+        raise AssertionError(f"narrow mesh mixtral ring witness: {rg}")
+    log(f"  float32 witness, {SWA} at full widths cut to {sw['n_layers']} "
+        f"layers (a ring of {rg['ring_rows']} rows, {rg['kv_local']} kv "
+        f"heads of head_dim / {shape[1]} a rank): {sw['decode']} decode "
+        f"steps past "
+        f"the window within {rg['vs_single']:.3g} of one card's (<= "
+        f"{sw['tol']}) and {rg['vs_forward']:.3g} of forward({sw['seq']}) "
+        f"(one card's own {rg['single_vs_forward']:.3g}); rank 0's "
+        f"witnesses {p0['s']['witness']:.1f} s")
+    sv = p0["swa"]
+    if not sv["done"] or any(p["swa"]["switch"] for p in pay):
+        raise AssertionError(f"narrow mesh mixtral stream: done "
+                             f"{sv['done']}, launches "
+                             f"{[p['swa']['switch'] for p in pay]}")
+    ticks, c = sv["stats"]["ticks"], sv["collectives"]
+    med = statistics.median(sv["times"]["decode"] or [0.0])
+    log(f"  {SWA}, {NARROW['swa_layers']} of 32 layers, bf16, "
+        f"TP-in-expert ({p0['swa_n_local']} parameters a rank): {ticks} "
+        f"ticks, rank 0 ms per tick median {med:.2f}; per tick per rank "
+        f"{c['all_gather'] / ticks:.1f} all-gathers, "
+        f"{c['all_reduce'] / ticks:.1f} all-reduces, "
+        f"{c['reduce_scatter'] / ticks:.1f} reduce-scatters, "
+        f"{c['all_to_all'] / ticks:.1f} all-to-alls, "
+        f"{c['staged'] / ticks:.1f} host stagings of "
+        f"{c['staged_bytes'] / ticks / 2**20:.2f} MiB; 0 switch launches; "
+        f"rank 0's part {p0['s']['swa']:.1f} s")
+    tr, sh = p0["train"], TRAIN_NARROW
+    if any(p["train"]["launches"] for p in pay) or not all(
+            np.isfinite([h["loss"], h["grad_norm"]]).all()
+            for h in tr["history"]):
+        raise AssertionError(
+            f"narrow mesh train: {tr['history']}, launches "
+            f"{[p['train']['launches'] for p in pay]}")
+    ms = tr["history"][-1]["dt"] * 1e3
+    c = tr["counts"]
+    log(f"  [train] {SWA} cut to {NARROW['swa_layers']} layers, bf16, remat,"
+        f" {sh['batch']} x {sh['seq']}: {ms:.1f} ms a step (slowest rank), "
+        f"loss {tr['history'][-1]['loss']:.4f}; per step per rank "
+        f"{c['all_gather']} all-gathers, {c['all_reduce']} all-reduces, "
+        f"{c['reduce_scatter']} reduce-scatters, {c['staged']} host "
+        f"stagings of {c['staged_bytes'] / 2**30:.2f} GiB; 0 switch "
+        f"launches; every rank's history and shared leaves bitwise equal; "
+        f"init {tr['init_s']:.1f} s, rank 0's part {p0['s']['train']:.1f} s")
+    log("  peak memory per rank (train): " + ", ".join(
+        f"{p['train']['peak'] / 2**30:.2f}" for p in pay) + " GiB")
+    return by_run
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -5161,6 +5429,15 @@ def main() -> int:
     log(f"  phase {time.time() - t0:.1f} s")
     release(torch)
 
+    # tensor parallelism below one kv head and one expert a rank: the
+    # switch kernels on each of 16 ranks
+    log("[narrow mesh full width]")
+    log(f"  {torch.cuda.memory_allocated()} B allocated before")
+    t0 = time.time()
+    narrow_runs = narrow_mesh_full_width(np, torch)
+    log(f"  phase {time.time() - t0:.1f} s ({card_line()})")
+    release(torch)
+
     log("[dryrun full width]")
     t0 = time.time()
     dryrun_run = dryrun_full_width(np, torch, dryrun_started)
@@ -5189,6 +5466,8 @@ def main() -> int:
     switch_runs["pallas"] += arch_runs + paper_runs
     switch_runs["pallas"] += ssm_runs["switched_mlp"] + [dryrun_run]
     switch_runs["pallas_fused"] += ssm_runs["switched_mlp_fused"]
+    for b in ("pallas", "pallas_fused"):
+        switch_runs[b].append(narrow_runs[b])
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",

@@ -31,7 +31,9 @@ rank serves the same requests SPMD (``DecodeServer(mesh=...)``:
 parameters drawn as the rank's shards and the cache sharded by the
 rules, each data shard dispatching its own rows, tensor parallelism over
 "model", an MoE's experts over "model" with ``--model`` dividing them,
-e.g. ``--arch moonshot-v1-16b-a3b --data 1 --model 4``; the hybrid's
+e.g. ``--arch moonshot-v1-16b-a3b --data 1 --model 4``, else each
+expert's d_ff; fewer kv heads than ``--model`` over a head_dim-split
+cache, e.g. ``--arch internlm2-1.8b --model 16``; the hybrid's
 Mamba2 heads and the xLSTM's heads over "model", e.g. ``--arch
 xlstm-1.3b --data 2 --model 2``).  Run outside a process
 group, the launcher spawns its ``data x model`` ranks itself (gloo on the

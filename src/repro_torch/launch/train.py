@@ -16,8 +16,10 @@ GPU (ranks share the card when there is one).  Rank 0 prints.  Every
 family trains there when the mesh divides it
 (``model.check_mesh_trainable``): the MoE expert-parallel with the model
 axis dividing its experts (e.g. ``--arch moonshot-v1-16b-a3b --mesh
-2,2``), the hybrid and the xLSTM with it dividing their heads (e.g.
-``--arch zamba2-2.7b --mesh 2,2``).
+2,2``), else with it dividing each expert's d_ff (TP-in-expert); the kv
+heads dividing it or below it with head_dim dividing it; the hybrid and
+the xLSTM with it dividing their heads (e.g. ``--arch zamba2-2.7b --mesh
+2,2``).
 """
 from __future__ import annotations
 

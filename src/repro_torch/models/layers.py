@@ -31,7 +31,9 @@ vocab-parallel (a masked local lookup and one all-reduce) and the output
 projection vocab-parallel (the logits all-gathered over "model").  The
 weights' data-sharded dims are all-gathered at use (FSDP
 unshard-on-use, ``sharding/collectives.unshard``).  The KV cache holds
-this rank's rows and kv heads; a paged pool is whole on every data shard
+this rank's rows and kv heads (with fewer kv heads than model ranks:
+head_dim / |model| dims of every kv head, ``_attention_split``); a paged
+pool is whole on every data shard
 (the rules replicate pages over data) and needs no traffic between
 shards: each slot's block-table row routes its reads to its own pages,
 so a page that another shard's slot writes is never read here, and each
@@ -318,30 +320,50 @@ def _head_cfg(cfg: ModelConfig, n_heads: int, n_kv_heads: int):
                                head_dim=cfg.hd)
 
 
+def kv_split(cfg: ModelConfig, md: int) -> bool:
+    """True where ranks of a model axis of ``md`` share a kv head: the kv
+    heads do not divide over "model" and |model| is a multiple of them.
+    ``sharding/rules._cache_rule`` then puts head_dim over "model" (which
+    ``model.check_mesh_servable`` requires to divide), and each rank runs
+    ``_attention_split``."""
+    kv = cfg.n_kv_heads
+    return kv % md != 0 and md % kv == 0
+
+
 def _attn_weights(cfg: ModelConfig, p: Attention, mesh):
-    """(cfg with this rank's head counts, its ``_AttnW``).  On a mesh the
-    projections' data-sharded dims are gathered (one collective) and the
-    replicated qkv biases cut to the rank's columns (``model_columns``,
-    whose backward gathers their gradients whole)."""
+    """(cfg with this rank's head counts, its ``_AttnW``, whether it holds
+    only part of a kv head).  On a mesh the projections' data-sharded
+    dims are gathered (one collective) and the replicated qkv biases cut
+    to the rank's columns (``model_columns``, whose backward gathers
+    their gradients whole).  Where ranks share a kv head (``kv_split``)
+    wk's and wv's columns are a slice of one kv head, and the rank's q
+    heads all read that one head: its cfg counts one kv head."""
     bias = [getattr(p, n, None) for n in ("bq", "bk", "bv")]
     if mesh is None:
-        return cfg, _AttnW(p.wq, p.wk, p.wv, p.wo, *bias)
+        return cfg, _AttnW(p.wq, p.wk, p.wv, p.wo, *bias), False
     wq, wk, wv, wo = C.unshard(p.wq, p.wk, p.wv, p.wo)
     bias = [b if b is None else C.model_columns(b, w.shape[1])
             for b, w in zip(bias, (wq, wk, wv))]
-    return (_head_cfg(cfg, wq.shape[1] // cfg.hd, wk.shape[1] // cfg.hd),
-            _AttnW(wq, wk, wv, wo, *bias))
+    split = kv_split(cfg, mesh.size("model"))
+    return (_head_cfg(cfg, wq.shape[1] // cfg.hd,
+                      1 if split else wk.shape[1] // cfg.hd),
+            _AttnW(wq, wk, wv, wo, *bias), split)
 
 
-def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
-    """The projections, the biases (``qkv_bias``) added before the head
-    reshape."""
-    b, s, _ = x.shape
+def _project(cfg: ModelConfig, p, x: torch.Tensor):
+    """The q, k and v projections, the biases (``qkv_bias``) added."""
     q, k, v = (x @ p.wq.to(x.dtype), x @ p.wk.to(x.dtype),
                x @ p.wv.to(x.dtype))
     if cfg.qkv_bias:
         q, k, v = (q + p.bq.to(x.dtype), k + p.bk.to(x.dtype),
                    v + p.bv.to(x.dtype))
+    return q, k, v
+
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor):
+    """The projections, the biases added before the head reshape."""
+    b, s, _ = x.shape
+    q, k, v = _project(cfg, p, x)
     return (q.reshape(b, s, cfg.n_heads, cfg.hd),
             k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
             v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
@@ -460,20 +482,19 @@ def _write_dense(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     c[rows, tgt] = val
 
 
-def _attention_chunk(cfg: ModelConfig, q, k, v, cache: dict):
-    """Chunked-prefill attention against the DECODE cache layout.
-
-    q/k/v: (B, S, ., hd): S prompt tokens per slot, each slot at its own
-    offset ``cache["pos"]`` with ``cache["n_valid"]`` (B,) real tokens
-    this chunk (the tail is padding).  Padded tokens and positions at or
-    past the cache end write nothing (``_write_dense``; on a paged cache
-    they and unallocated entries go to the trash page), IN PLACE.  The
-    causal mask is per query (kpos <= pos + i), so a chunk attends as
-    feeding its tokens one decode tick at a time.  Returns (out (B, S, H,
-    hd), cache with ``pos + n_valid``)."""
-    b, sq = q.shape[0], q.shape[1]
+def _chunk_write(cfg: ModelConfig, k, v, cache: dict):
+    """Chunked prefill's cache write: k/v (B, S, ., hd) of S prompt tokens
+    per slot, each slot at its own offset ``cache["pos"]`` with
+    ``cache["n_valid"]`` (B,) real tokens this chunk (the tail is
+    padding).  Padded tokens and positions at or past the cache end write
+    nothing (``_write_dense``; on a paged cache they and unallocated
+    entries go to the trash page), IN PLACE.  The causal mask is per
+    query (kpos <= pos + i), so a chunk attends as feeding its tokens one
+    decode tick at a time.  Returns (keys, values, mask (B, S, Skv),
+    cache with ``pos + n_valid``)."""
+    sq = k.shape[1]
     pos, nv = cache["pos"], cache["n_valid"]
-    off = torch.arange(sq, device=q.device)
+    off = torch.arange(sq, device=k.device)
     qpos = pos[:, None] + off[None, :]                         # (B, Sq)
     ck, cv = cache["k"], cache["v"]
     if "block_table" in cache:
@@ -493,15 +514,77 @@ def _attention_chunk(cfg: ModelConfig, q, k, v, cache: dict):
         _write_dense(cv, v, pos, nv)
         ak, av = ck, cv
         new_cache = {"k": ck, "v": cv, "pos": pos + nv}
-    valid = torch.arange(skv, device=q.device)[None, None, :] \
+    valid = torch.arange(skv, device=k.device)[None, None, :] \
         <= qpos[:, :, None]                                    # (B, Sq, Skv)
+    return ak, av, valid, new_cache
+
+
+def _attention_chunk(cfg: ModelConfig, q, k, v, cache: dict):
+    """Chunked-prefill attention against the DECODE cache layout: q/k/v
+    (B, S, ., hd), ``_chunk_write`` then the attention.  Returns (out (B,
+    S, H, hd), cache with ``pos + n_valid``)."""
+    ak, av, valid, new_cache = _chunk_write(cfg, k, v, cache)
+    return _attend(cfg, q, ak, av, valid).reshape(q.shape), new_cache
+
+
+def _cache_write(cfg: ModelConfig, k, v, cache: dict):
+    """This step's k/v (B, S, ., hd) written into ``cache`` IN PLACE: a
+    chunk (``n_valid`` in the cache, ``_chunk_write``) or one decode
+    token at each slot's ``pos`` (dense, paged or ring; ``attention_fwd``
+    says where a write lands).  Returns (keys, values, mask (B, S or 1,
+    Skv), new cache)."""
+    if "n_valid" in cache:
+        assert not cfg.sliding_window, \
+            "chunked prefill targets dense decode caches; sliding-window " \
+            "ring buffers feed their prompts token-by-token"
+        return _chunk_write(cfg, k, v, cache)
+    b = k.shape[0]
+    pos = cache["pos"]
+    ck, cv = cache["k"], cache["v"]
+    if "block_table" in cache:
+        assert not cfg.sliding_window, \
+            "paged KV caches need absolute positions (no ring buffers)"
+        bt = cache["block_table"]
+        page_size = ck.shape[1]
+        skv = bt.shape[1] * page_size
+        pg_idx = (pos // page_size).clamp(max=bt.shape[1] - 1)
+        pg = torch.gather(bt, 1, pg_idx.long()[:, None])[:, 0]
+        pg = torch.where(pg >= 0, pg, ck.shape[0] - 1).long()
+        off = (pos % page_size).long()
+        ck[pg, off] = k[:, 0].to(ck.dtype)
+        cv[pg, off] = v[:, 0].to(cv.dtype)
+        ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
+        new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + 1}
+        valid = torch.arange(skv, device=k.device)[None, :] <= pos[:, None]
+    else:
+        rows = torch.arange(b, device=k.device)
+        skv = ck.shape[1]
+        kpos = torch.arange(skv, device=k.device)[None, :]
+        if cfg.sliding_window:                          # ring buffer
+            row = pos % skv
+            valid = (kpos <= row[:, None]) | (pos[:, None] >= skv)
+        else:
+            row = pos.clamp(max=skv - 1)
+            valid = kpos <= pos[:, None]
+        row = row.long()
+        ck[rows, row] = k[:, 0].to(ck.dtype)
+        cv[rows, row] = v[:, 0].to(cv.dtype)
+        ak, av = ck, cv
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+    return ak, av, valid[:, None], new_cache
+
+
+def _attend(cfg: ModelConfig, q, ak, av, valid):
+    """GQA attention of q (B, Sq, H, hd) over keys and values (B, Skv,
+    Kh, hd) where ``valid`` (B, Sq or 1, Skv): (B, Sq, H * hd)."""
+    b, sq = q.shape[0], q.shape[1]
     rep = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, sq, cfg.n_kv_heads, rep, cfg.hd)
     s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
-    s_ = torch.where(valid[:, None, None, :, :], s_, -1e30)
+    s_ = torch.where(valid[:, None, None], s_, -1e30)
     w = torch.softmax(s_, dim=-1).to(av.dtype)
     o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
-    return o.reshape(b, sq, cfg.n_heads, cfg.hd), new_cache
+    return o.reshape(b, sq, cfg.n_heads * cfg.hd)
 
 
 def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -509,7 +592,7 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     """Self-attention.  Without a cache: full-sequence flash attention
     (prefill), returning the post-RoPE K/V as the new cache.  With a
     cache carrying ``n_valid``: the chunked-prefill path
-    (``_attention_chunk``).  Otherwise single-step decode: x (B, 1, d),
+    (``_chunk_write``).  Otherwise single-step decode: x (B, 1, d),
     this step's K/V written at each slot's ``pos`` IN PLACE (the
     reference returns an updated copy of its donated cache), attention
     over positions ``<= pos``.
@@ -540,71 +623,118 @@ def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     against its own cache rows and heads, and the output projection's
     partial sums are all-reduced over "model"; in the backward the
     input's gradient is summed over "model" (every head block's
-    projections read it)."""
+    projections read it).  Where a rank holds only part of a kv head
+    (``kv_split``): ``_attention_split``."""
     mesh = _mesh()
-    cfg, w = _attn_weights(cfg, p, mesh)
+    hcfg, w, split = _attn_weights(cfg, p, mesh)
     if mesh is None:
-        return _attention(cfg, w, x, positions, cache)
-    out, new_cache = _attention(cfg, w, C.copy_to_model(x), positions, cache)
+        return _attention(hcfg, w, x, positions, cache)
+    x = C.copy_to_model(x)
+    out, new_cache = _attention_split(cfg, hcfg, w, x, positions, cache,
+                                      mesh) if split \
+        else _attention(hcfg, w, x, positions, cache)
     return C.all_reduce_sum(out, "model"), new_cache
 
 
 def _attention(cfg: ModelConfig, p, x, positions, cache):
-    b = x.shape[0]
+    b, sq = x.shape[0], x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
     if cache is None:
         o = flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v))
-        o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
+        o = o.reshape(b, sq, cfg.n_heads * cfg.hd)
         return o @ p.wo.to(o.dtype), {"k": k, "v": v}
-    if "n_valid" in cache:
-        assert not cfg.sliding_window, \
-            "chunked prefill targets dense decode caches; sliding-window " \
-            "ring buffers feed their prompts token-by-token"
-        o, new_cache = _attention_chunk(cfg, q, k, v, cache)
-        o = o.reshape(b, o.shape[1], cfg.n_heads * cfg.hd)
-        return o @ p.wo.to(o.dtype), new_cache
-    pos = cache["pos"]
-    ck, cv = cache["k"], cache["v"]
-    if "block_table" in cache:
-        assert not cfg.sliding_window, \
-            "paged KV caches need absolute positions (no ring buffers)"
-        bt = cache["block_table"]
-        page_size = ck.shape[1]
-        skv = bt.shape[1] * page_size
-        pg_idx = (pos // page_size).clamp(max=bt.shape[1] - 1)
-        pg = torch.gather(bt, 1, pg_idx.long()[:, None])[:, 0]
-        pg = torch.where(pg >= 0, pg, ck.shape[0] - 1).long()
-        off = (pos % page_size).long()
-        ck[pg, off] = k[:, 0].to(ck.dtype)
-        cv[pg, off] = v[:, 0].to(cv.dtype)
-        ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
-        new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + 1}
-        valid = torch.arange(skv, device=x.device)[None, :] <= pos[:, None]
-    else:
-        rows = torch.arange(b, device=x.device)
-        skv = ck.shape[1]
-        kpos = torch.arange(skv, device=x.device)[None, :]
-        if cfg.sliding_window:                          # ring buffer
-            row = pos % skv
-            valid = (kpos <= row[:, None]) | (pos[:, None] >= skv)
-        else:
-            row = pos.clamp(max=skv - 1)
-            valid = kpos <= pos[:, None]
-        row = row.long()
-        ck[rows, row] = k[:, 0].to(ck.dtype)
-        cv[rows, row] = v[:, 0].to(cv.dtype)
-        ak, av = ck, cv
-        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-    rep = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, q.shape[1], cfg.n_kv_heads, rep, cfg.hd)
-    s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
-    s_ = torch.where(valid[:, None, None, None, :], s_, -1e30)
-    w = torch.softmax(s_, dim=-1).to(av.dtype)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
-    o = o.reshape(b, q.shape[1], cfg.n_heads * cfg.hd)
+    ak, av, valid, new_cache = _cache_write(cfg, k, v, cache)
+    o = _attend(cfg, q, ak, av, valid)
     return o @ p.wo.to(o.dtype), new_cache
+
+
+def _attention_split(cfg: ModelConfig, hcfg: ModelConfig, p, x, positions,
+                     cache, mesh):
+    """One rank's attention where the kv heads are fewer than the model
+    ranks (``kv_split``): s = |model| / Kh ranks share each kv
+    head.  The rank's wq columns are its H / |model| q heads, all of kv
+    head ``rank // s``; its wk and wv columns are a 1 / s slice of that
+    head; its cache holds head_dim / |model| dims of EVERY kv head
+    (``rules.cache_pspecs``).  ``hcfg``: the rank's q heads over one kv
+    head.
+
+    The new tokens' k and v columns are gathered whole over "model" in
+    one collective (``gather_for_split``: each rank reads another kv head
+    of them, so the backward reduce-scatters), RoPE'd whole, and the
+    rank's head_dim slice of every kv head is what it writes to its cache
+    (or returns as the prefill cache).  Without a cache (prefill,
+    training) the rank attends with its own kv head, as one device.
+    Over a cache, of two exchanges the one that moves fewer bytes
+    (``_scores_cheaper``): gather the rank's kv head from the head_dim
+    slices (``all_to_all``; then as one device), or exchange partial
+    scores (``_attend_scores``)."""
+    b, sq = x.shape[0], x.shape[1]
+    md, kvh, hd = mesh.size("model"), cfg.n_kv_heads, cfg.hd
+    s, r = md // kvh, C.model_index(mesh)
+    q, k, v = _project(cfg, p, x)
+    q = apply_rope(cfg, q.reshape(b, sq, hcfg.n_heads, hd), positions)
+    kv = C.gather_for_split(torch.stack([k, v], 2), -1, mesh)
+    k = apply_rope(cfg, kv[:, :, 0].reshape(b, sq, kvh, hd), positions)
+    v = kv[:, :, 1].reshape(b, sq, kvh, hd)
+    dims = slice(r * hd // md, (r + 1) * hd // md)
+    kc, vc = k[..., dims], v[..., dims]
+    if cache is None:
+        # the rank's kv head, contiguous as ``_attention`` gives its heads
+        kh, vh = (t[:, :, r // s:r // s + 1].contiguous() for t in (k, v))
+        o = flash_attention(hcfg, q, _repeat_kv(hcfg, kh),
+                            _repeat_kv(hcfg, vh))
+        o = o.reshape(b, sq, hcfg.n_heads * hd)
+        return o @ p.wo.to(o.dtype), {"k": kc.contiguous(),
+                                      "v": vc.contiguous()}
+    ak, av, valid, new_cache = _cache_write(cfg, kc, vc, cache)
+    if _scores_cheaper(sq, ak.shape[1], hcfg.n_heads, hd, md,
+                       ak.element_size()):
+        o = _attend_scores(cfg, q, ak, av, valid, mesh)
+    else:
+        ak, av = (C.all_to_all(t.repeat_interleave(s, dim=2), 2, 3,
+                               mesh=mesh) for t in (ak, av))
+        o = _attend(hcfg, q, ak, av, valid)
+    return o @ p.wo.to(o.dtype), new_cache
+
+
+def _scores_cheaper(sq: int, skv: int, hq: int, hd: int, md: int,
+                    a: int) -> bool:
+    """Whether ``_attend_scores`` sends fewer bytes a rank than gathering
+    the rank's kv head (both as ``collectives.WIRE`` counts them, over
+    (|model| - 1) x B): the partial scores' reduce-scatter (f32) and the
+    weights' gather (``a`` bytes an element), sq x hq x skv x (4 + a),
+    plus q's and the output's all-to-all, 2 sq hq hd a / |model|; against
+    k's and v's all-to-all, 2 skv hd a / |model|.  Scaled by |model|."""
+    return sq * hq * (skv * (4 + a) * md + 2 * hd * a) < 2 * skv * hd * a
+
+
+def _attend_scores(cfg: ModelConfig, q, ak, av, valid, mesh):
+    """Attention of the rank's q heads q (B, Sq, hq, hd) over a cache
+    that holds this rank's head_dim slice of every kv head, ak and av
+    (B, Skv, Kh, hd / |model|), by exchanging partial scores: every q
+    head at this rank's dims (``all_to_all``), the partial scores of
+    every head in f32, summed over "model" onto the heads' ranks
+    (``reduce_scatter``, in rank order), the softmax of the rank's heads,
+    the weights gathered (``all_gather``), the partial outputs of every
+    head at this rank's dims, and the rank's heads' outputs at every dim
+    (``all_to_all``).  Returns (B, Sq, hq * hd)."""
+    b, sq, hq, hd = q.shape
+    kvh, h = cfg.n_kv_heads, cfg.n_heads
+    qa = C.all_to_all(q, 3, 2, mesh=mesh)              # (B, Sq, H, hd/md)
+    part = torch.einsum("bqgrd,bkgd->bgrqk",
+                        qa.reshape(b, sq, kvh, h // kvh, -1).float(),
+                        ak.float())
+    s_ = C.reduce_scatter(part.reshape(b, h, sq, -1), 1, mesh=mesh) \
+        * hd ** -0.5                                   # (B, hq, Sq, Skv)
+    s_ = torch.where(valid[:, None], s_, -1e30)
+    w = torch.softmax(s_, dim=-1).to(av.dtype)
+    wa = C.all_gather(w, "model", 1, mesh)             # (B, H, Sq, Skv)
+    o = torch.einsum("bgrqk,bkgd->bqgrd",
+                     wa.reshape(b, kvh, h // kvh, sq, -1), av)
+    o = C.all_to_all(o.reshape(b, sq, h, -1), 2, 3, mesh=mesh)
+    return o.reshape(b, sq, hq * hd)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,

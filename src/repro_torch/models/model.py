@@ -40,8 +40,11 @@ blocks tensor-parallel by heads (``models/mamba2.py``,
 ``models/xlstm.py``: each rank holds its rows' and heads' recurrent
 state).  Inside ``runtime/steps.train_mesh_context``
 ``forward(serve=False)`` and ``lm_loss`` take the rank's rows and give
-the global batch's losses and metrics on every rank.  A mesh that does
-not divide the widths a family splits is refused
+the global batch's losses and metrics on every rank.  Fewer kv heads
+than model ranks run with each rank's head_dim slice of every kv head in
+its cache (``layers.kv_split``), experts that do not divide over
+"model" with each expert's d_ff split (``moe.tp_in_expert``).  A mesh
+that does not divide the widths a family splits is refused
 (``check_mesh_servable``, ``check_mesh_trainable``).
 """
 from __future__ import annotations
@@ -537,8 +540,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def shard_cache(mesh, cache: dict) -> dict:
     """This rank's shard of a cache, as ``sharding/rules.cache_pspecs``
-    places it (rows over data, kv heads over model; ``pos`` and a paged
-    pool's pages whole)."""
+    places it (rows over data, kv heads over model, or head_dim where the
+    kv heads are fewer than the model ranks; ``pos`` and a paged pool's
+    pages whole)."""
     def walk(tree, specs):
         return {k: walk(v, specs[k]) if isinstance(v, dict)
                 else C.shard_tensor(mesh, v, specs[k])
@@ -555,33 +559,28 @@ def _mesh_sizes(mesh):
     return sizes, sizes.get("model", 1), g
 
 
-def _check_experts(cfg: ModelConfig, mesh):
-    """Raise for an MoE whose experts the model axis does not divide
-    (expert parallelism needs E % |model| == 0; the reference falls back
-    to compiler-placed tensor parallelism inside each expert)."""
-    sizes, md, _ = _mesh_sizes(mesh)
-    e = cfg.moe.n_experts
-    if e and ("model" not in sizes or e % md):
-        raise NotImplementedError(
-            f"mesh {dict(sizes)}: the {e} experts of {cfg.name} do not "
-            f"divide over its model axis (expert parallelism, "
-            "E % |model| == 0): the reference falls back to "
-            "compiler-placed tensor parallelism inside each expert there, "
-            "the port refuses (ROADMAP queue 3, layout departures)")
-
-
-def _model_widths(cfg: ModelConfig, train: bool) -> dict:
+def _model_widths(cfg: ModelConfig, train: bool, md: int) -> dict:
     """{what: width} of the widths the tensor-parallel branches split over
-    "model": the attention heads and kv heads, d_ff (an MoE: its experts)
-    and the Mamba2 heads and B/C columns (the hybrid); the xLSTM's heads
-    and its sLSTM's d_up; the vocab too in training."""
+    "model": the attention heads, the kv heads (where ranks share a kv
+    head, ``layers.kv_split``: head_dim), d_ff (an MoE: its experts, else
+    each expert's d_ff, ``moe.tp_in_expert``) and the Mamba2 heads and
+    B/C columns (the hybrid); the xLSTM's heads and its sLSTM's d_up; the
+    vocab too in training."""
     kind = topology(cfg).kind
     if kind == "xlstm":
         widths = {"heads": cfg.n_heads, "d_up": xlstm.slstm_d_up(cfg)}
     else:
-        widths = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
-        if cfg.moe.n_experts:
-            widths["experts"] = cfg.moe.n_experts
+        widths = {"heads": cfg.n_heads}
+        kv = cfg.n_kv_heads
+        if L.kv_split(cfg, md):
+            widths[f"head_dim (kv heads={kv} below model)"] = cfg.hd
+        else:
+            widths["kv heads"] = kv
+        e = cfg.moe.n_experts
+        if moe.tp_in_expert(cfg, md):
+            widths[f"d_ff (experts={e}, TP-in-expert)"] = cfg.d_ff
+        elif e:
+            widths["experts"] = e
         else:
             widths["d_ff"] = cfg.d_ff
         if kind == "hybrid":
@@ -595,9 +594,8 @@ def _model_widths(cfg: ModelConfig, train: bool) -> dict:
 def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
     """Raise unless ``batch`` divides over the data axes and every width
     of ``_model_widths`` over "model" (ROADMAP queue 3)."""
-    _check_experts(cfg, mesh)
     sizes, md, g = _mesh_sizes(mesh)
-    widths = _model_widths(cfg, train)
+    widths = _model_widths(cfg, train, md)
     if "model" in sizes and batch % g == 0 \
             and not any(n % md for n in widths.values()):
         return
@@ -615,8 +613,10 @@ def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
 def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: the
     batch divides over the data axes, and over "model" the attention
-    heads, the kv heads and d_ff (the sharded serve path's predicate,
-    ``approx_ffn._manual_serve_ctx``; an MoE: its experts), the hybrid's
+    heads, the kv heads (or, with fewer kv heads than ranks and |model| a
+    multiple of them, head_dim: ``layers.kv_split``) and d_ff (the sharded
+    serve path's predicate, ``approx_ffn._manual_serve_ctx``; an MoE: its
+    experts, or each expert's d_ff: ``moe.tp_in_expert``), the hybrid's
     Mamba2 heads and B/C columns, the xLSTM's heads and d_up.  Where it
     fails the reference falls back to compiler-placed sharding; the port
     has no such fallback (ROADMAP queue 3)."""

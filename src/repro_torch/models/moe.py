@@ -27,13 +27,21 @@ tokens globally (the router gathered whole) and computes only its own
 experts' pairs (``_moe_local_experts``); the partial outputs are summed
 over "model" in rank order, so every rank holds the same bits.  Capacity
 is per (data shard, expert), the scan_chunk groups do not apply there,
-and the aux loss is the data shards' mean.  In the backward a model
-rank's combine sees only its own experts' pairs, while the router's
-logits and the aux loss are the same on every model rank: the gate
-values and the tokens bound for the expert buffer pass through
-``collectives.copy_to_model`` (their partial gradients summed over
-"model"), the router's gather over "model" takes its slice, and the aux
-term reaches the router and x once.  On one device
+and the aux loss is the data shards' mean.  Where the experts do not
+divide over "model" and each expert's d_ff does, ``moe_fwd`` takes
+TP-in-expert (``_moe_fwd_tp``), which the reference leaves to the
+compiler on its ``_moe_chunked`` path: every model rank holds d_ff /
+|model| of every expert and routes as one device routes the global
+batch (``route_global``: ``scan_chunk`` groups of the global tokens,
+which may span data ranks, each at its own capacity), so its drops are
+one device's; the partial outputs are summed over "model".  In the
+backward a model rank's combine sees only its own experts' pairs (or
+its d_ff slice of them), while the router's logits and the aux loss are
+the same on every model rank: the gate values and the tokens bound for
+the expert buffer pass through ``collectives.copy_to_model`` (their
+partial gradients summed over "model"), the router's gather over
+"model" takes its slice, and the aux term reaches the router and x
+once.  On one device
 ``_moe_local_experts`` over all E experts is ``_moe_group``.
 """
 from __future__ import annotations
@@ -112,24 +120,36 @@ def route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor, *,
     return Routing(probs, gate_vals, gate_idx, order, keep, slot, cap)
 
 
+def tp_in_expert(cfg: ModelConfig, md: int) -> bool:
+    """True where an MoE's experts do not divide over a model axis of
+    ``md``: ``sharding/rules._param_rule`` then splits every expert's
+    d_ff over "model" (which ``model.check_mesh_servable`` requires to
+    divide), TP-in-expert (``_moe_fwd_tp``)."""
+    return bool(cfg.moe.n_experts) and cfg.moe.n_experts % md != 0
+
+
 def moe_fwd(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     """x: (B, S, d) -> (out, aux_loss).  On a mesh whose "model" axis
     divides the experts: expert parallelism (``_moe_fwd_manual``), x the
-    rank's rows; elsewhere on a mesh the reference falls back to
-    compiler-placed tensor parallelism inside each expert, which the port
-    refuses (``model.check_mesh_servable`` / ``check_mesh_trainable``
-    name it first).  Without a mesh: token groups of ``moe.scan_chunk``
-    (``_moe_chunked``)."""
+    rank's rows; where it does not and each expert's d_ff divides:
+    TP-in-expert (``_moe_fwd_tp``), routed as the reference's compiler-
+    placed ``_moe_chunked`` routes, over the global tokens; elsewhere on
+    a mesh the port refuses (``model.check_mesh_servable`` /
+    ``check_mesh_trainable`` name it first).  Without a mesh: token
+    groups of ``moe.scan_chunk`` (``_moe_chunked``)."""
     mesh, dp = manual_dp_context()
     if mesh is not None:
         md = mesh.size("model") if "model" in mesh.axis_names else 0
-        if not md or cfg.moe.n_experts % md:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.moe.n_experts} experts over a model axis "
-                f"of {md}: the reference falls back to compiler-placed "
-                "tensor parallelism inside each expert there, the port "
-                "refuses (ROADMAP queue 3, layout departures)")
-        return _moe_fwd_manual(cfg, p, x, mesh, dp, md)
+        if md and not tp_in_expert(cfg, md):
+            return _moe_fwd_manual(cfg, p, x, mesh, dp, md)
+        if md and cfg.d_ff % md == 0:
+            return _moe_fwd_tp(cfg, p, x, mesh, dp)
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe.n_experts} experts of d_ff {cfg.d_ff} "
+            f"over a model axis of {md}: neither the experts nor each "
+            "expert's d_ff divide; the reference falls back to compiler-"
+            "placed sharding there, the port refuses (ROADMAP queue 3, "
+            "layout departures)")
     return _moe_chunked(cfg, p, x)
 
 
@@ -172,59 +192,183 @@ def _moe_local_experts(cfg: ModelConfig, router: torch.Tensor, w: dict,
     mesh) the gate values and the tokens bound for the buffer pass
     through ``copy_to_model``: their gradients here are partial."""
     b, s, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
-    t = b * s
-    xt = x.reshape(t, d)
+    e = cfg.moe.n_experts
+    xt = x.reshape(b * s, d)
     r = route(cfg, router, xt, n_local=e_loc, offset=e_off)
     gate_vals, xs = r.gate_vals, xt
     if e_loc < e:
         gate_vals, xs = C.copy_to_model(gate_vals), C.copy_to_model(xt)
-    order = r.order.long()
-    tok = order // k                       # the token of each sorted pair
-    xe = D.scatter_rows(xs[tok], r.slot, r.keep, e_loc * r.cap) \
-        .reshape(e_loc, r.cap, d)
-    h = torch.bmm(xe, w["w_in"].to(x.dtype))
-    if cfg.gated_ffn:
-        h = F.silu(torch.bmm(xe, w["w_gate"].to(x.dtype))) * h
-    else:
-        h = F.silu(h)
-    ye = torch.bmm(h, w["w_out"].to(x.dtype))
-    contrib = D.gather_rows(ye.reshape(e_loc * r.cap, d), r.slot, r.keep) \
-        * gate_vals.reshape(t * k)[order][:, None].to(ye.dtype)
-    # each token's k pairs, in ascending expert id (the stable sort's
-    # order), summed from zeros in that fixed order
-    parts = contrib[torch.argsort(tok, stable=True)].reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        out = out + parts[:, j]
+    out = _experts(cfg, w, xs, gate_vals, r.order, r.slot, r.keep,
+                   e_loc * r.cap)
     frac_tokens = F.one_hot(r.gate_idx[:, 0].long(), e).float().mean(0)
     frac_probs = r.probs.mean(0)
     aux = e * (frac_tokens * frac_probs).sum() * cfg.moe.aux_weight
     return out.reshape(b, s, d), aux
 
 
+def _experts(cfg: ModelConfig, w: dict, xs: torch.Tensor,
+             gate_vals: torch.Tensor, order: torch.Tensor,
+             slot: torch.Tensor, keep: torch.Tensor, n_slots: int):
+    """The routed pairs through the experts: the tokens xs (T, d) of the
+    pairs in ``order`` scattered into an (n_slots, d) buffer at ``slot``
+    (``keep``), viewed as one run of rows an expert of ``w``'s stacks,
+    the batched expert FFN, the rows gathered back and weighted by the
+    gate values (T, k).  Each token's k pairs, in ascending expert id
+    (the stable sort's order), are summed from zeros in that fixed
+    order, no atomics.  Returns (T, d)."""
+    t, d = xs.shape
+    k = cfg.moe.top_k
+    order = order.long()
+    tok = order // k                       # the token of each sorted pair
+    xe = D.scatter_rows(xs[tok], slot, keep, n_slots) \
+        .reshape(w["w_in"].shape[0], -1, d)
+    h = torch.bmm(xe, w["w_in"].to(xs.dtype))
+    if cfg.gated_ffn:
+        h = F.silu(torch.bmm(xe, w["w_gate"].to(xs.dtype))) * h
+    else:
+        h = F.silu(h)
+    ye = torch.bmm(h, w["w_out"].to(xs.dtype))
+    contrib = D.gather_rows(ye.reshape(n_slots, d), slot, keep) \
+        * gate_vals.reshape(t * k)[order][:, None].to(ye.dtype)
+    parts = contrib[torch.argsort(tok, stable=True)].reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=xs.dtype, device=xs.device)
+    for j in range(k):
+        out = out + parts[:, j]
+    return out
+
+
+class GlobalRouting(NamedTuple):
+    """One data rank's part of the routing of ``_moe_chunked`` over the
+    GLOBAL tokens (groups of ``moe.scan_chunk`` of the global B * S, each
+    at its own capacity ``cap``): ``route``'s fields for the rank's
+    tokens, the pairs sorted by (the rank's group, expert), ``keep`` by
+    each pair's rank among its group's pairs of its expert (the earlier
+    data ranks' pairs counted), and ``slot`` into an (E, n_groups * cap_l)
+    buffer of the rank's own pairs; ``aux`` the groups' mean of the
+    load-balancing loss, the same on every rank."""
+
+    gate_vals: torch.Tensor
+    gate_idx: torch.Tensor
+    order: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    n_groups: int
+    cap_l: int
+    aux: torch.Tensor
+
+
+def route_global(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor,
+                 mesh, dp) -> GlobalRouting:
+    """Route the data rank's tokens xt (T_local, d) as one device routes
+    the global batch (``_moe_chunked``): the rank's tokens are tokens
+    [i T_local, (i + 1) T_local) of the global B * S (data rank i), split
+    into groups of ``scan_chunk`` where that splits the global tokens
+    evenly, else one group.  A group may span data ranks (decode's one
+    group of B tokens; training's groups of a few rows): each rank's
+    pair counts per (group, expert) are gathered over the data axes (one
+    int32 all-gather, with the top-1 counts of the aux loss), so a pair's
+    rank counts the earlier ranks' pairs, and the drops are one device's.
+    The aux loss's probability means are all-reduced over the data axes
+    (whose backward passes each rank its tokens' part)."""
+    t, d = xt.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    n_dp, i = mesh.size(dp), mesh.index(dp)
+    t_all, ck = t * n_dp, cfg.moe.scan_chunk
+    g_size = ck if ck and t_all > ck and t_all % ck == 0 else t_all
+    cap = min(int(cfg.moe.capacity_factor * g_size * k / e) + 1, g_size)
+    cap_l = min(cap, t)         # a rank's pairs of one (group, expert)
+    gid = (i * t + torch.arange(t, device=xt.device)) // g_size
+    g0 = i * t // g_size
+    n_groups, n_lg = t_all // g_size, (i * t + t - 1) // g_size - g0 + 1
+    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), -1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    lg = (gid - g0).to(torch.int32)
+    cls = (lg[:, None] * e + gate_idx).reshape(t * k)
+    order, cls_sorted, rank, counts = D.class_sort_ranks(cls, n_lg * e)
+    # every rank's pair counts and top-1 counts per (global group,
+    # expert), and its probabilities' sums; a group's tokens here are a
+    # contiguous run, summed in order (no atomics: the same bits on every
+    # model rank)
+    runs = [slice(max(g * g_size - i * t, 0), min((g + 1) * g_size - i * t,
+                                                  t))
+            for g in range(g0, g0 + n_lg)]
+    mine = torch.zeros((2, n_groups, e), dtype=torch.int32,
+                       device=xt.device)
+    mine[0, g0:g0 + n_lg] = counts.view(n_lg, e)
+    top1 = F.one_hot(gate_idx[:, 0].long(), e).to(torch.int32)
+    mine[1, g0:g0 + n_lg] = torch.stack([top1[r].sum(0) for r in runs])
+    psum = torch.zeros((n_groups, e), dtype=torch.float32,
+                       device=xt.device)
+    psum = torch.cat([psum[:g0], torch.stack([probs[r].sum(0) for r in runs]),
+                      psum[g0 + n_lg:]])
+    every = C.all_gather(mine[None], dp, 0, mesh)      # (n_dp, 2, G, E)
+    before = every[:i, 0].sum(0, dtype=torch.int32)[g0:g0 + n_lg]
+    lg_s, e_s = cls_sorted // e, cls_sorted % e
+    keep = rank + before[lg_s.long(), e_s.long()] < cap
+    trash = e * n_lg * cap_l
+    slot = torch.where(keep, (e_s * n_lg + lg_s) * cap_l + rank,
+                       trash).to(torch.int32)
+    frac_probs = C.all_reduce_sum(psum, dp, mesh) / g_size
+    frac_tokens = every[:, 1].sum(0).float() / g_size
+    aux = (e * (frac_tokens * frac_probs).sum(-1)
+           * cfg.moe.aux_weight).mean()
+    return GlobalRouting(gate_vals, gate_idx, order, keep, slot, n_lg,
+                         cap_l, aux)
+
+
+def _moe_fwd_tp(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, dp):
+    """TP-in-expert, one rank's part (the experts do not divide over
+    "model", each expert's d_ff does): the rank holds every expert's d_ff
+    / |model| columns of ``w_in`` / ``w_gate`` and rows of ``w_out``,
+    stored FSDP over data (gathered with the router in ONE ``unshard``),
+    and x (B_local, S, d), its data shard's tokens, replicated over
+    "model".  Routing is the reference's ``_moe_chunked`` over the global
+    tokens (``route_global``), the same on every model rank; the rank's
+    pairs run through its d_ff slice of every expert and the partial
+    outputs are summed over "model" in rank order (``_experts``, the
+    expert-parallel path's combine).  The gate values and the tokens
+    bound for the buffer pass through ``copy_to_model`` (a model rank's
+    product over its d_ff slice gives them partial gradients); the
+    router's logits and the aux loss are whole on every model rank."""
+    b, s, d = x.shape
+    names = ("w_in", "w_out") + (("w_gate",) if cfg.gated_ffn else ())
+    router, *stacks = C.unshard(p.router, *(getattr(p, n) for n in names),
+                                mesh=mesh)
+    xt = x.reshape(b * s, d)
+    r = route_global(cfg, router, xt, mesh, dp)
+    out = _experts(cfg, dict(zip(names, stacks)), C.copy_to_model(xt),
+                   C.copy_to_model(r.gate_vals), r.order, r.slot, r.keep,
+                   cfg.moe.n_experts * r.n_groups * r.cap_l)
+    return C.all_reduce_sum(out.reshape(b, s, d), "model", mesh), r.aux
+
+
 def dropped_choices(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     """(dropped, total) (token, expert) choices of one MoE application on
-    x (B, S, d) as its forward routes them, over the whole batch: on a
-    mesh each data shard routes its own rows at its own capacity (the
-    router gathered whole) and both counts are summed over the data
-    axes, the same on every rank; without a mesh ``moe.scan_chunk``'s
+    x (B, S, d) as its forward routes them, over the whole batch: on an
+    expert-parallel mesh each data shard routes its own rows at its own
+    capacity (the router gathered whole), under TP-in-expert the global
+    groups route (``route_global``), and both counts are summed over the
+    data axes, the same on every rank; without a mesh ``moe.scan_chunk``'s
     groups each route at theirs.  int64 tensors."""
     mesh, dp = manual_dp_context()
     b, s, d = x.shape
     t, ck = b * s, cfg.moe.scan_chunk
     with torch.no_grad():
         if mesh is None:
-            router = p.router
             groups = x.reshape(t // ck, ck, d) \
                 if ck and t > ck and t % ck == 0 else x.reshape(1, t, d)
+            dropped = sum(int((~route(cfg, p.router, g).keep).sum())
+                          for g in groups)
         else:
             router = C.gather_whole(p.router, p.router._pspec, mesh)
-            groups = x.reshape(1, t, d)
-        dropped = sum(int((~route(cfg, router, g).keep).sum())
-                      for g in groups)
-        out = torch.tensor([dropped, groups.shape[0] * groups.shape[1]
-                            * cfg.moe.top_k], dtype=torch.int64,
+            xt = x.reshape(t, d)
+            r = route_global(cfg, router, xt, mesh, dp) \
+                if tp_in_expert(cfg, mesh.size("model")) \
+                else route(cfg, router, xt)
+            dropped = int((~r.keep).sum())
+        out = torch.tensor([dropped, t * cfg.moe.top_k], dtype=torch.int64,
                            device=x.device)
         if mesh is not None:
             out = C.all_reduce_sum(out, dp, mesh)

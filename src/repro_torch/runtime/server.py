@@ -67,8 +67,11 @@ copy freed; parameters drawn as shards, ``model.init_model(mesh=)``,
 are kept) and of the cache, and runs every step under
 ``steps.serve_mesh_context``: each data shard dispatches its own rows at
 per-shard capacities, the exact FFN and attention run tensor-parallel
-over "model" (an MoE's experts expert-parallel, each model rank its
-E / |model|, routing per data shard at per-shard capacities; the Mamba2,
+over "model" (attention below one kv head a rank over a head_dim-split
+cache; an MoE's experts expert-parallel, each model rank its E /
+|model|, routing per data shard at per-shard capacities, or with fewer
+experts than ranks each expert's d_ff split, routed as one device; the
+Mamba2,
 mLSTM and sLSTM blocks by heads, each rank holding its rows' and heads'
 recurrent state), and the logits and invoke stats come back gathered
 and all-reduced, so the sampled tokens and what the controllers read
@@ -1004,9 +1007,11 @@ class DecodeServer:
         k = self.cache.get("k")
         if k is None:
             return 0
-        # a shard holds its kv heads, and on a dense cache its rows
-        split = self.cfg.n_kv_heads // k.shape[3] * (
-            1 if self.page_size else self.batch // k.shape[1])
+        # a shard holds its kv heads (or its head_dim slice of each), and
+        # on a dense cache its rows
+        split = self.cfg.n_kv_heads * self.cfg.hd \
+            // (k.shape[3] * k.shape[4]) * (
+                1 if self.page_size else self.batch // k.shape[1])
         if not self.page_size:
             return 2 * k.numel() * k.element_size() * split
         per_page = 2 * k[:, 0].numel() * k.element_size() * split

@@ -34,7 +34,9 @@ consumers that each take another slice of it: a rank's heads of a
 projection whose columns are not laid out by heads) reduce-scatters it
 over "model"; and ``unshard`` (FSDP) reduce-scatters it over the data
 axes, in one collective as its forward gathers.  Their forward results
-are those of the plain collectives, bit for bit.
+are those of the plain collectives, bit for bit.  ``all_to_all`` and
+``reduce_scatter`` (the serve paths' exchanges over a head_dim-split KV
+cache) have no backward.
 
 ``WIRE`` counts, on every path (gloo, arena, staged, NCCL, the fake
 backend of ``launch/dryrun.py``), each collective's calls and the bytes
@@ -68,7 +70,8 @@ from repro_torch.sharding.rules import dp_axes, param_pspecs
 
 # launches of the collectives, and the host stagings and their bytes
 COUNTS = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0,
-          "gather_for_split": 0, "staged": 0, "staged_bytes": 0}
+          "all_to_all": 0, "gather_for_split": 0, "staged": 0,
+          "staged_bytes": 0}
 # calls, bytes sent by one rank, and the ring model's bytes, by kind
 WIRE_KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 WIRE = {k: {"calls": 0, "bytes": 0, "ring_bytes": 0} for k in WIRE_KINDS}
@@ -463,6 +466,47 @@ def gather_for_split(t: torch.Tensor, dim: int = -1, mesh=None):
         return t
     COUNTS["gather_for_split"] += 1
     return _GatherForSplit.apply(t.contiguous(), "model", dim % t.ndim, mesh)
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, axes="model",
+               mesh=None) -> torch.Tensor:
+    """Block i of ``t`` along ``split_dim`` (|axes| equal blocks) goes to
+    the group's i-th rank; the blocks this rank receives are concatenated
+    along ``cat_dim`` in rank order (``jax.lax.all_to_all(...,
+    tiled=True)``).  One ``_exchange``, counted as ``all_to_all``.  Not
+    differentiable: the serve paths' exchanges (``layers``' kv-split
+    attention over a cache)."""
+    mesh = _mesh(mesh)
+    n = mesh.size(axes)
+    if n == 1:
+        return t
+    assert not (torch.is_grad_enabled() and t.requires_grad), \
+        "all_to_all has no backward"
+    COUNTS["all_to_all"] += 1
+    recv = _exchange(torch.stack(t.chunk(n, split_dim)), axes, mesh)
+    return torch.cat(recv.unbind(0), cat_dim % t.ndim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, axes="model",
+                   mesh=None) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, this rank's block along ``dim``
+    (``jax.lax.psum_scatter(..., tiled=True)``): one ``_exchange``, the
+    received blocks added in rank order, so each block's sum has the
+    same bits whichever rank holds it.  Not differentiable (the serve
+    paths' partial attention scores)."""
+    mesh = _mesh(mesh)
+    n = mesh.size(axes)
+    if n == 1:
+        return t
+    assert not (torch.is_grad_enabled() and t.requires_grad), \
+        "reduce_scatter has no backward"
+    COUNTS["reduce_scatter"] += 1
+    recv = _exchange(torch.stack(t.chunk(n, dim)), axes, mesh,
+                     "reduce_scatter")
+    out = recv[0].clone()
+    for r in recv[1:]:
+        out += r
+    return out
 
 
 def _dp_dims(spec, dp) -> list:

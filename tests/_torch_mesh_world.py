@@ -366,14 +366,17 @@ def train_rank(rank: int, out_dir: str):
 
 # ---------------------------------------------------------------------------
 # the dry run's small cells (tests/test_torch_launch.py): the smoke
-# internlm2-1.8b with the ApproxFFN, rank 0 of a (2, 2) mesh, recorded on
-# a fake process group (``fake=True``, its own process) and for real in a
-# 4-rank gloo world (``dryrun_rank``)
+# internlm2-1.8b with the ApproxFFN, rank 0 of a (2, 2) mesh, and its
+# decode on a (1, 4) mesh (2 kv heads over 4: the head_dim-split cache),
+# recorded on a fake process group (``fake=True``, its own process) and
+# for real in a 4-rank gloo world (``dryrun_rank``)
 # ---------------------------------------------------------------------------
 
-DRYRUN_MESH = (2, 2)
-# kind: (seq_len, global batch)
-DRYRUN_SHAPES = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 8)}
+# case: (kind, seq_len, global batch, mesh)
+DRYRUN_SHAPES = {"train": ("train", 64, 8, (2, 2)),
+                 "prefill": ("prefill", 64, 4, (2, 2)),
+                 "decode": ("decode", 64, 8, (2, 2)),
+                 "decode_kv_split": ("decode", 64, 8, (1, 4))}
 
 
 def dryrun_cells(fake: bool) -> dict:
@@ -385,14 +388,14 @@ def dryrun_cells(fake: bool) -> dict:
     from repro_torch.sharding import collectives as C
     cfg = smoke_config(get_config("internlm2-1.8b"))
     out = {}
-    for kind, (s, b) in DRYRUN_SHAPES.items():
+    for case, (kind, s, b, mesh) in DRYRUN_SHAPES.items():
         C.reset_counts()
-        out[kind] = dryrun.run_cell(
+        out[case] = dryrun.run_cell(
             "internlm2-1.8b", f"{kind}_smoke", "single", approx=True,
             device="cpu", cfg=cfg,
             shape=ShapeConfig(f"{kind}_smoke", kind, s, b),
-            mesh_shape=DRYRUN_MESH, fake=fake)
-        out[kind]["wire"] = {k: dict(v) for k, v in C.WIRE.items()}
+            mesh_shape=mesh, fake=fake)
+        out[case]["wire"] = {k: dict(v) for k, v in C.WIRE.items()}
     return out
 
 

@@ -15,11 +15,12 @@ Held:
     operands, the same on fake and real tensors;
   * the attention count equal to the traced ``flash_attention``, forward
     and backward, at several block counts, causal and sliding window;
-  * the smoke internlm2 cells on a fake (2, 2) world recording the
-    FLOPs, collective counts and wire bytes per kind (the port's and the
-    ring model's) that the same steps record in a real 4-rank gloo world
-    (tests/_torch_mesh_world.py);
-  * the smoke internlm2 on a model axis of 4 (2 kv heads) written as
+  * the smoke internlm2 cells on a fake (2, 2) world, and its decode on
+    a model axis of 4 (2 kv heads: the head_dim-split cache), recording
+    the FLOPs, collective counts and wire bytes per kind (the port's and
+    the ring model's) that the same steps record in a real 4-rank gloo
+    world (tests/_torch_mesh_world.py);
+  * the smoke xLSTM on a model axis of 3 (4 heads) written as
     ``"ok": false`` with ``check_mesh_servable``'s message;
   * ``roofline_terms`` on a fixed cell with the H100 constants;
     ``load_cells`` and ``fmt_table`` on a cell that is ok and one that is
@@ -266,9 +267,10 @@ def test_attention_count_equals_the_traced_loop(window, n, grads):
 # dryrun: the fake world against a gloo world, refusals, the roofline
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", list(W.DRYRUN_SHAPES))
-def test_fake_world_records_what_a_gloo_world_records(worlds, kind):
-    fake, gloo = worlds[0][kind], worlds[1][kind]
+@pytest.mark.parametrize("case", list(W.DRYRUN_SHAPES))
+def test_fake_world_records_what_a_gloo_world_records(worlds, case):
+    fake, gloo = worlds[0][case], worlds[1][case]
+    kind = W.DRYRUN_SHAPES[case][0]
     assert fake["ok"] and gloo["ok"], (fake.get("error"), gloo.get("error"))
     assert fake["cost"]["flops_per_chip"] == gloo["cost"]["flops_per_chip"]
     for key in ("counts", "by_kind", "ring_by_kind", "wire_bytes_per_chip",
@@ -285,6 +287,11 @@ def test_fake_world_records_what_a_gloo_world_records(worlds, kind):
         assert fake["attention"]["backward_calls"] > 0
     if kind == "decode":      # one weight-switch launch a layer
         assert fake["kernels"]["switched_mlp"]["calls"] == 2
+    if case == "decode_kv_split":
+        # a decode over the head_dim-split cache exchanges partial scores
+        # (one reduce-scatter a layer) and q and the output (all-to-all)
+        assert counts["reduce_scatter"] == 2
+        assert counts["all_to_all"] == 4
     # collectives.WIRE counts what the record holds, on the fake backend
     # and through the gloo world's arena alike
     for rec in (fake, gloo):
@@ -295,25 +302,29 @@ def test_fake_world_records_what_a_gloo_world_records(worlds, kind):
         assert {k: v["ring_bytes"] for k, v in wire.items()} == \
             rec["collectives"]["ring_by_kind"]
     # all_reduce_sum gathers every part: (n - 1) x payload, where a ring
-    # sends 2 (n - 1) / n x payload (n = 2 here: the ring's equal)
+    # sends 2 (n - 1) / n x payload (equal at n = 2, twice the ring's at
+    # the kv-split case's n = 4 over "model")
     by, ring = fake["collectives"]["by_kind"], \
         fake["collectives"]["ring_by_kind"]
-    assert by["all_reduce"] == ring["all_reduce"]
+    assert by["all_reduce"] == ring["all_reduce"] * (
+        2 if case == "decode_kv_split" else 1)
     assert by["all_gather"] == ring["all_gather"]
 
 
 def test_a_refused_cell_is_written_with_the_refusal():
-    cfg = _smoke()
+    """The smoke xLSTM's 4 heads over a model axis of 3 (its heads below
+    or not dividing |model| are ROADMAP item 16b)."""
+    cfg = _smoke("xlstm-1.3b")
     shape = B.ShapeConfig("decode_smoke", "decode", 64, 8)
-    cell = dryrun.run_cell("internlm2-1.8b", "decode_smoke", "single",
-                           cfg=cfg, shape=shape, mesh_shape=(1, 4),
+    cell = dryrun.run_cell("xlstm-1.3b", "decode_smoke", "single",
+                           cfg=cfg, shape=shape, mesh_shape=(1, 3),
                            device="cpu")
     with pytest.raises(NotImplementedError) as e:
-        M.check_mesh_servable(cfg, MeshShape((1, 4)), 8)
-    assert cell["ok"] is False and cfg.n_kv_heads == 2
+        M.check_mesh_servable(cfg, MeshShape((1, 3)), 8)
+    assert cell["ok"] is False and cfg.n_heads == 4
     assert cell["error"] == f"NotImplementedError: {e.value}"
-    assert "kv heads=2" in cell["error"]
-    assert cell["chips"] == 4 and cell["n_params"] > 0
+    assert "heads=4" in cell["error"]
+    assert cell["chips"] == 3 and cell["n_params"] > 0
     assert not torch.distributed.is_initialized()
 
 
