@@ -39,10 +39,11 @@ Phases (any failure raises and the script exits non-zero):
      back; each kernel launched 24 times per tick (decode and prefill) on
      its backend alone and one dispatch plan per tick; a dense cache gives
      the same tokens and tick log; a 40-page pool defers admission but
-     serves all; at no-clip capacities in float32 chunked and
-     token-by-token prefill give equal tokens (in bf16 the equal share is
-     printed); then the slice-1 configuration (layer scope, token-by-token
-     prefill, dense cache) on the same stream for comparison;
+     serves all; then, at 12 of the 24 layers, the slice-1 configuration
+     (layer scope, token-by-token prefill, dense cache) on the same
+     stream for comparison, and at no-clip capacities in float32 chunked
+     and token-by-token prefill giving equal tokens (in bf16 the equal
+     share is printed);
   6. the same stream with the serve-time features of the reference's
      DecodeServer ([serve qos library autotune full width]), each on both
      kernel backends with equal tokens, 24 launches and one dispatch plan
@@ -185,7 +186,7 @@ Phases (any failure raises and the script exits non-zero):
      examples/train_lm_mcma_torch.py at its smoke preset;
   17. [paper pipeline full width]: the paper's co-training at the
      reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
-     the paper topologies; 3 approximators, 5 iterations, lr 3e-3; 1000 of
+     the paper topologies; 3 approximators, 5 iterations, lr 3e-3; 800 of
      the paper's 1500 epochs, for the script's time), float32 on the
      card: blackscholes through the methods of
      benchmarks/bench_paper.run_app that fit the phase's 150 s (one-pass,
@@ -254,8 +255,8 @@ Phases (any failure raises and the script exits non-zero):
   20c. the hybrid and xLSTM families on a mesh, ONE more world of 4
      ranks ([ssm mesh world], ``ssm_mesh_full_width``): [serve hybrid
      mesh full width], zamba2-2.7b uncut drawn as shards on a (2, 2)
-     mesh, MCMA at tick scope on its shared block, 8 requests of 4 + 4
-     tokens (token by token: 7 ticks) through a mesh DecodeServer on both
+     mesh, MCMA at tick scope on its shared block, 8 requests of 3 + 3
+     tokens (token by token: 5 ticks) through a mesh DecodeServer on both
      backends: each backend's kernel 9 times a tick on every rank, tokens
      equal across the backends, every rank's runs bitwise equal; [serve
      xlstm mesh full width], xlstm-1.3b uncut on a (1, 4) mesh (one sLSTM
@@ -291,9 +292,9 @@ Phases (any failure raises and the script exits non-zero):
   20e. [narrow mesh full width] (``narrow_mesh_full_width``): tensor
      parallelism below one kv head or one expert a rank, ONE world of 16
      ranks sharing the card on a (1, 16) mesh: internlm2-1.8b at its
-     widths cut to 4 layers, drawn as shards, over the head_dim-split KV
+     widths cut to 2 layers, drawn as shards, over the head_dim-split KV
      cache, on the scheduler's prompts and configuration with 4 new
-     tokens through both backends (4 launches a tick on every rank,
+     tokens through both backends (2 launches a tick on every rank,
      equal tokens); float32 witnesses at 2 layers against one card
      (internlm2 a chunk then a decode step within 1e-4, every rank's
      logits bitwise equal; mixtral's ring past the window within 1e-4);
@@ -302,15 +303,30 @@ Phases (any failure raises and the script exits non-zero):
      128 (finite, every rank's history and shared leaves bitwise equal);
      ms a tick and a step, collectives and staged bytes a tick a rank,
      peak memory a rank;
+  20f. [long context mesh full width] (``long_mesh_full_width``): xLSTM
+     heads below |model| and a batch below the data axes, ONE world of 16
+     ranks sharing the card on a (2, 8) mesh, then one card on the same
+     inputs: xlstm-1.3b uncut, float32, one slot through the mesh
+     DecodeServer (tokens equal to one card's, ``slstm_scan`` on all 4
+     heads of every rank once a group a tick); its float32 witness and a
+     train step's gradients at one group (1e-4); zamba2-2.7b's one tick
+     at long_500k's 524,288 positions over a context-parallel cache of
+     seeded random k/v (bf16 at 3 of 9 groups on both switch kernels,
+     printed; float32 at one group within 1e-4 of one card over the
+     whole cache) and its float32 witness at one group; mixtral-8x7b at
+     2 layers, float32, its ring split over the data ranks, 4 tokens from
+     position 524,293 equal to one card's; every rank's tokens, logits
+     and replicated states bitwise equal;
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
      describing every kernel (the switch kernels'
-     launches_by_run with the runs of phases 6a, 6b, 10 to 12 and 20e
-     (the mesh runs' launches summed over their ranks, ``per_rank``
+     launches_by_run with the runs of phases 6a, 6b, 10 to 12, 20e and
+     20f (the mesh runs' launches summed over their ranks, ``per_rank``
      beside them) and, for switched_mlp, the two paper runs, phase 20c's
      runs and phase 20d's rank step; their
-     ``at_widths`` the d 2560 and d 8192 timings of phase 12;
+     ``at_widths`` the d 2560 and d 8192 timings of phase 12, their
+     ``at_rank_shapes`` one row at d 2560 (a batch below the data axes);
      slstm_scan's ``at_rank_shapes`` a mesh rank's shapes; the MoE
      phases, on one card and on a mesh, launch none of the four), then
      the result line.
@@ -343,6 +359,11 @@ SCHED_PROMPTS = (15, 16, 17, 33, 64, 100, 130, 200)
 SCHED_MAX_NEW = 16
 SCHED_TIGHT_PAGES = 40      # below the stream's worst-case reservation, 48
 SLICE1 = dict(route_scope="layer", prefill_chunk=0, kv_page_size=0)
+# the token-by-token runs of [serve scheduler full width] (the slice-1
+# configuration, gate 5's chunked == token by token) at 12 of internlm2's
+# 24 layers: with [long context mesh full width] the script took 1210.4 s
+# on an H100 host whose paper phase took 163.7 s
+SCHED_TBT_LAYERS = 12
 NO_CLIP = dict(exact_frac=1.0, invoke_frac=1.0)
 MLP_FULL = (2048, 2048, 256, 2048)   # ApproxFFN rows, d_in, d_hidden, d_out
 MLP_BLOCK = 256
@@ -350,10 +371,16 @@ MLP_BLOCK = 256
 SLSTM_FULL = {"prefill": (256, 8, 4, 512), "decode": (1, 8, 4, 512)}
 # a mesh rank's sLSTM: its H / |model| heads of its rows (timed, with the
 # full-width shapes): decode on (1, 4) (one head a rank), decode on a
-# model axis of 2, and the [train ssm mesh] microbatch on (2, 2)
+# model axis of 2, the [train ssm mesh] microbatch on (2, 2), and with
+# the heads below |model| every head of the whole batch
 SLSTM_RANK = {"rank decode h1": (1, 8, 1, 512),
               "rank decode h2": (1, 8, 2, 512),
-              "rank train": (256, 4, 2, 512)}
+              "rank train": (256, 4, 2, 512),
+              # heads below |model| (every rank runs all 4) at batch 1
+              # below the data axes, and the one-group train witness's
+              # microbatch on (2, 8) ([long context mesh full width])
+              "rank decode heads shared": (1, 1, 4, 512),
+              "rank train heads shared": (64, 2, 4, 512)}
 SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
 # and at batches a larger slot table gives it (checked, not timed)
 SLSTM_WIDE_BATCH = [(16, 64, 4, 512), (4, 256, 4, 512)]
@@ -373,11 +400,12 @@ TRAIN_ERROR_BOUND = 1.4
 TRAIN_RESUME = dict(batch=4, seq=32, save_at=3, steps=6)
 SLSTM_GRAD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # the paper pipeline at the reference's paper settings
-# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32) but 1000 of their
+# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32) but 800 of their
 # 1500 epochs: with [narrow mesh full width] the script took 1017.5 s on
-# an H100 host where this phase took 272.3 s; block_t as in
+# an H100 host where this phase took 272.3 s (1000 epochs then), and
+# 1210.4 s with [long context mesh full width] (800 since); block_t as in
 # examples/approx_bessel.py
-PAPER = dict(epochs=1000, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
+PAPER = dict(epochs=800, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
              block_t=128, seed=0)
 # card against CPU: 10 epochs keep two implementations' RMSprop
 # trajectories at ulp distance (past about 100 epochs elements with a
@@ -415,8 +443,8 @@ MESH_SHAPE = (2, 2)
 # full width]) at its widths cut to 12 of its 24 layers: with the SSM mesh
 # world added the script took 1223.0 s on a slow host (PR 24), past the
 # 1200 s it must end within; then to 6 beside [narrow mesh full width],
-# 100 to 110 s more
-MESH_LAYERS = 6
+# 100 to 110 s more; then to 4 beside [long context mesh full width]
+MESH_LAYERS = 4
 MESH_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
 MESH_LAUNCHER = ("--smoke", "--approx", "--mcma-dispatch", "--data", "2",
                  "--model", "2", "--batch", "4", "--requests", "6",
@@ -459,7 +487,7 @@ TRAIN_MOE_MESH = dict(shape=(2, 2), n_layers=2, batch=8, seq=512,
 # xlstm uncut on (1, 4) (one sLSTM head a rank), on a short stream (these
 # families prefill token by token: a tick a prompt token; 8 + 8 tokens,
 # 15 ticks, then 6 + 6, took the script past 750 s and 1200 s on slow
-# hosts); float32
+# hosts; 4 + 4 until [long context mesh full width] came); float32
 # witnesses at one group of each (the uncut float32 zamba2 amplifies
 # rounding to O(1), ROADMAP queue 3 k), ``steps`` tokens decoded one by
 # one from an empty cache against one card; [train ssm mesh] both
@@ -470,8 +498,8 @@ TRAIN_MOE_MESH = dict(shape=(2, 2), n_layers=2, batch=8, seq=512,
 # uncut one-group zamba2 moved them by 1.86e-4, so the gate of 1e-4 first
 # written fell below the rounding noise, which the witness measures)
 SSM_MESH = dict(hybrid=(2, 2), xlstm=(1, 4), exchange_mib=128)
-SSM_STREAM = dict(batch=8, max_len=64, n_requests=8, prompt_len=4,
-                  max_new=4)
+SSM_STREAM = dict(batch=8, max_len=64, n_requests=8, prompt_len=3,
+                  max_new=3)
 SSM_WITNESS = dict(batch=8, steps=9, tol=1e-4)
 TRAIN_SSM_MESH = dict(shape=(2, 2), batch=8, seq=256, grad_accum=1, steps=2,
                       warmup=2,
@@ -483,18 +511,43 @@ TRAIN_SSM_MESH = dict(shape=(2, 2), batch=8, seq=256, grad_accum=1, steps=2,
 # kv heads and mixtral's 8 experts fall below |model| (each rank holds
 # head_dim / 16 of every kv head, half a kv head of wk / wv, and d_ff /
 # 16 of every expert: the head_dim-split cache and TP-in-expert).
-# internlm2 at its widths cut to 4 of 24 layers on the scheduler's
-# prompts and configuration with 4 new tokens a request (a tick costs
-# about 1.5 s there: 16 processes meet at every collective); mixtral cut
+# internlm2 at its widths cut to 2 of 24 layers (4 before [long context
+# mesh full width]) on the
+# scheduler's prompts and configuration with 4 new tokens a request (a
+# tick costs about 1.5 s there at 4: 16 processes meet at every
+# collective); mixtral cut
 # to 2 of 32 on the SSM mesh world's short stream (token by token: its
 # ring buffer) and one
 # Trainer step of 4 x 128 (at 8 x 256 the step took 28 s); float32
 # witnesses at 2 layers against one card (internlm2 a chunk then a
 # decode step, mixtral's ring past the window)
-NARROW = dict(shape=(1, 16), exchange_mib=32, dense_layers=4, swa_layers=2,
+NARROW = dict(shape=(1, 16), exchange_mib=32, dense_layers=2, swa_layers=2,
               max_new=4)
 NARROW_WITNESS = dict(n_layers=2, batch=8, seq=64, tol=1e-4)
 TRAIN_NARROW = dict(batch=4, seq=128, grad_accum=1, steps=1, warmup=1)
+
+# [long context mesh full width]: ONE world of 16 ranks sharing the card
+# on a (2, 8) mesh, whose model axis of 8 is wider than xlstm-1.3b's 4
+# heads (2 ranks a head) and whose data axis of 2 is wider than a batch of
+# 1 (every data rank holds the row; a KV cache is split over them by
+# sequence).  xlstm-1.3b uncut through the mesh DecodeServer, a prompt of
+# `xlstm_prompt` then `xlstm_new` tokens, in float32 (bf16's reassociated
+# sums over 8 model ranks may flip a near-tied greedy token; the gate is
+# tokens equal to one card's); its float32 witness at one group (`steps`
+# tokens decoded at batch 1) and one train step's float32 gradients at
+# one group (TRAIN_SSM_MESH's witness batch).  zamba2-2.7b decoding one
+# tick at long_500k's `ctx` positions against a cache of seeded random
+# k/v (`fill` positions a draw): bf16 on both switch kernels at
+# `zamba2_groups` of its 9 groups (the 16 GB whole cache a card holds
+# after the world; the whole 54 layers' 48 GB would leave 16 ranks about
+# 16 GB of the card), float32 at one group held to one card over the
+# whole cache, and a float32 witness at one group from an empty cache.
+# mixtral-8x7b at `swa_layers` of 32 layers, float32, its ring of 4096
+# rows split over the 2 data ranks, `swa_steps` tokens decoded greedily
+# from position `swa_pos`, past 524,288.
+LONG = dict(shape=(2, 8), exchange_mib=32, xlstm_prompt=3, xlstm_new=2,
+            max_len=64, ctx=524288, fill=8192, zamba2_groups=3,
+            swa_layers=2, swa_pos=524293, swa_steps=4, steps=5, tol=1e-4)
 
 # [analysis full width]: the residency sets of the library's 3 resident
 # slots, the route scope whose steps are audited (the serving
@@ -664,6 +717,19 @@ def main_path_kernel_phase(np, torch, flush):
                 key = (name, dtype) if shape == "decode" \
                     else (name, dtype, shape)
                 out[key] = nums
+    # a batch below the data axes: zamba2's shared block dispatches its
+    # one row as one device ([long context mesh full width])
+    z = get_config(HYBRID)
+    rng = np.random.default_rng(9)
+    for dtype in ("float32", "bfloat16"):
+        x, w = switch_inputs(np, torch, rng, 1, z.approx.n_approx + 1,
+                             z.d_model, z.approx.d_hidden, dtype)
+        cls = torch.zeros(1, dtype=torch.int32, device="cuda") + 1
+        for name, nums in time_switch_case(
+                np, torch, flush, x, cls, w, z.approx.block_t, dtype,
+                f"one row d {z.d_model}").items():
+            out[name, dtype, "one row"] = dict(rows=1, d_model=z.d_model,
+                                               **nums)
     return out
 
 
@@ -1352,9 +1418,14 @@ def serve_scheduler(np, torch):
                              f"{st['page_hwm']}")
     log(f"  gate 4: {SCHED_TIGHT_PAGES}-page pool deferred admission "
         f"{st['alloc_failures']} times and served every request")
+    # the token-by-token runs at SCHED_TBT_LAYERS layers
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, n_layers=SCHED_TBT_LAYERS)
+    params = M.init_model(0, cfg, device="cuda")
     # the slice-1 configuration for comparison
-    run("pallas slice-1 configuration (layer scope, token by token, dense)",
-        **SLICE1)
+    run(f"pallas slice-1 configuration (layer scope, token by token, "
+        f"dense), {SCHED_TBT_LAYERS} layers", cfg, **SLICE1)
     # gate 5: chunked == token by token at no-clip capacities; bf16 shown
     no_clip = dataclasses.replace(cfg, approx=dataclasses.replace(
         cfg.approx, **NO_CLIP))
@@ -5240,6 +5311,497 @@ def narrow_mesh_full_width(np, torch):
     return by_run
 
 
+def long_cfg(arch, dtype, **over):
+    """``arch`` at full width in ``dtype`` (the hybrid with MCMA at tick
+    scope on its shared block), ``over`` replacing config fields."""
+    from repro_torch.configs.registry import get_config
+    cfg = approx_cfg(arch, route_scope="tick") if arch == HYBRID \
+        else get_config(arch)
+    return dataclasses.replace(cfg, param_dtype=dtype, act_dtype=dtype,
+                               **over)
+
+
+def long_cache(torch, cfg, rows: int, pos: int, mesh=None, seed=11):
+    """A batch-1 decode cache of ``rows`` k/v rows at position ``pos``
+    holding seeded random values: on ``mesh`` this rank's shard (as
+    ``rules.cache_pspecs`` places a batch below the data axes: the
+    sequence over them), else whole.  The k/v are drawn LONG["fill"]
+    positions at a time, each draw from its own generator, so a rank
+    draws only its slice's positions and one card draws them all; a
+    hybrid's Mamba2 state is drawn whole and cut."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import cache_pspecs
+    meta = M.init_cache(cfg, 1, rows, device="meta")
+    specs = None if mesh is None else cache_pspecs(mesh, meta)
+    fill, out = LONG["fill"], {}
+    for name in ("k", "v"):
+        g_n, _, s, kv, hd = meta[name].shape
+        spec = (None,) * 5 if specs is None else specs[name]
+        seq, heads, dims = slice(0, s), slice(None), slice(None)
+        if spec[2] is not None:
+            n = s // mesh.size(spec[2])
+            seq = slice(mesh.index(spec[2]) * n, (mesh.index(spec[2]) + 1)
+                        * n)
+        if spec[3] is not None:
+            n = kv // mesh.size("model")
+            heads = slice(mesh.index("model") * n,
+                          (mesh.index("model") + 1) * n)
+        if spec[4] is not None:
+            n = hd // mesh.size("model")
+            dims = slice(mesh.index("model") * n,
+                         (mesh.index("model") + 1) * n)
+        shard = torch.empty((g_n, 1, seq.stop - seq.start,
+                             len(range(kv)[heads]), len(range(hd)[dims])),
+                            dtype=cfg.adtype, device="cuda")
+        for g in range(g_n):
+            for a in range(seq.start - seq.start % fill, seq.stop, fill):
+                gen = torch.Generator(device="cuda").manual_seed(
+                    seed * 1_000_003 + g * 7919 + a // fill * 2
+                    + (name == "v"))
+                blk = torch.randn((fill, kv, hd), generator=gen,
+                                  device="cuda")[:, heads, dims]
+                lo, hi = max(a, seq.start), min(a + fill, seq.stop)
+                shard[g, 0, lo - seq.start:hi - seq.start] = \
+                    blk[lo - a:hi - a].to(cfg.adtype)
+        out[name] = shard
+    if "mamba" in meta:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        h = 0.1 * torch.randn(meta["mamba"]["h"].shape, generator=gen,
+                              device="cuda")
+        out["mamba"] = {"h": h if mesh is None else C.shard_tensor(
+            mesh, h, specs["mamba"]["h"])}
+    out["pos"] = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+    return out
+
+
+def long_decode(torch, cfg, params, cache, tok, steps, backend, mesh):
+    """``steps`` greedy decode steps at batch 1 from ``tok`` (1, 1)
+    through the decode step (on ``mesh`` under its serve context): each
+    step's float32 logits (steps, V), the tokens, the host ms of each
+    step, and the kernels launched."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    mcma = cfg.approx.enable
+    step = S.make_decode_step(cfg, use_mcma_dispatch=mcma,
+                              route_scope="tick" if mcma else None,
+                              backend=backend if mcma else None)
+    zero_switch()
+    K.slstm_scan.launches = 0
+    C.reset_counts()
+    logits, toks, ms = [], [], []
+    with S.serve_mesh_context(mesh), torch.no_grad():
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+            logits.append(lg[0].float())
+            toks.append(int(tok[0, 0]))
+    return dict(logits=torch.stack(logits), tokens=toks, ms=ms,
+                switch=switch_launches(), slstm=K.slstm_scan.launches,
+                collectives=dict(C.COUNTS))
+
+
+def long_xlstm_serve(np, torch, mesh=None):
+    """xlstm-1.3b uncut, float32, one request through a DecodeServer of
+    one slot (on ``mesh``: every rank's params drawn as its shards, the
+    row whole on both data ranks, the heads 2 ranks each): tokens, tick
+    times, sLSTM launches, collectives."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.models import model as M
+    from repro_torch.runtime.options import ServeOptions
+    from repro_torch.runtime.server import DecodeServer
+    from repro_torch.sharding import collectives as C
+    cfg = long_cfg("xlstm-1.3b", "float32")
+    t0 = time.time()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    out = dict(init_s=time.time() - t0,
+               n_local=sum(p.numel() for p in params.parameters()))
+    srv = DecodeServer(cfg, params, options=ServeOptions(
+        batch=1, max_len=LONG["max_len"], mesh=mesh))
+    prompt = np.random.default_rng(12).integers(
+        0, cfg.vocab, LONG["xlstm_prompt"]).astype(np.int32)
+    torch.cuda.synchronize()
+    K.slstm_scan.launches = 0
+    C.reset_counts()
+    reqs, st, times, wall, _ = drive(torch, srv, [prompt],
+                                     LONG["xlstm_new"])
+    out.update(tokens=list(reqs[0].out), done=reqs[0].done,
+               ticks=st["ticks"], times=times["decode"], wall=wall,
+               slstm=K.slstm_scan.launches, collectives=dict(C.COUNTS),
+               state={k: v.cpu() for k, v in srv.cache["slstm"].items()})
+    del srv, params
+    release(torch)
+    return out
+
+
+def long_witness(np, torch, arch, mesh):
+    """The float32 witness of ``arch`` at one group and batch 1 (below the
+    data axes): LONG["steps"] tokens decoded one by one from an empty
+    cache on ``mesh``; rank 0 also on one card.  Returns the logits'
+    digest, finiteness, the steps' launches and, on rank 0, the gap."""
+    import hashlib
+
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    cfg = long_cfg(arch, "float32", n_layers=one_group(arch))
+    if cfg.approx.enable:
+        cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+            cfg.approx, **NO_CLIP))
+    n = LONG["steps"]
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, n)).astype(np.int32)).cuda()
+
+    def run(params, mesh):
+        step = S.make_decode_step(cfg, use_mcma_dispatch=cfg.approx.enable,
+                                  route_scope="tick")
+        lgs = []
+        with S.serve_mesh_context(mesh), torch.no_grad():
+            cache = M.init_cache(cfg, 1, n + n % 2, device="cuda")
+            for j in range(n):
+                lg, cache = step(params, cache, toks[:, j:j + 1])
+                lgs.append(lg.float())
+        return torch.cat(lgs)
+    out = {}
+    if mesh.rank == 0:
+        one = M.init_model(0, cfg, device="cuda")
+        single = run(one, None)
+        del one
+        release(torch)
+    C.barrier()
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    zero_switch()
+    from repro_torch.kernels import slstm_scan as K
+    K.slstm_scan.launches = 0
+    got = run(params, mesh)
+    out.update(digest=hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest(),
+               finite=bool(torch.isfinite(got).all()),
+               switch=switch_launches(), slstm=K.slstm_scan.launches)
+    if mesh.rank == 0:
+        out.update(max_abs=float((got - single).abs().max()),
+                   scale=float(single.abs().max()))
+    del params
+    release(torch)
+    C.barrier()
+    return out
+
+
+def long_zamba2(np, torch, mesh=None):
+    """zamba2-2.7b's tick at long_500k (on ``mesh`` the rank's shards):
+    bf16 at LONG["zamba2_groups"] groups on both switch kernels (the
+    Mamba2 states and the write restored between them), then float32 at
+    one group; each against a cache of LONG["ctx"] rows at position
+    ctx - 1, filled with seeded random k/v.  Returns each run's logits,
+    token, ms and launches, and the fill's seconds."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    out = {}
+    runs = [("bf16", "bfloat16", LONG["zamba2_groups"],
+             ("pallas", "pallas_fused")), ("f32", "float32", 1, ("pallas",))]
+    for key, dtype, groups, backends in runs:
+        cfg = long_cfg(HYBRID, dtype, n_layers=groups * one_group(HYBRID))
+        params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+        t0 = time.time()
+        cache = long_cache(torch, cfg, LONG["ctx"], LONG["ctx"] - 1, mesh)
+        torch.cuda.synchronize()
+        out[f"{key}_fill_s"] = time.time() - t0
+        out[f"{key}_cache_bytes"] = sum(
+            v.numel() * v.element_size() for k, v in cache.items()
+            if k in ("k", "v"))
+        keep = cache["mamba"]["h"].clone()
+        tok = torch.full((1, 1), 7, dtype=torch.int32, device="cuda")
+        for b in backends:
+            cache["mamba"]["h"].copy_(keep)
+            cache["pos"].fill_(LONG["ctx"] - 1)
+            r = long_decode(torch, cfg, params, cache, tok, 1, b, mesh)
+            r["logits"] = r["logits"].cpu()
+            out[key, b] = r
+        del params, cache, keep
+        release(torch)
+        if mesh is not None:
+            C.barrier()
+    return out
+
+
+def long_swa(np, torch, mesh=None):
+    """mixtral-8x7b at LONG["swa_layers"] layers, float32: its ring of
+    4096 rows (on ``mesh`` split over the data axes) holding seeded
+    random k/v at position LONG["swa_pos"], past long_500k's 524,288;
+    LONG["swa_steps"] greedy decode steps."""
+    from repro_torch.models import model as M
+    cfg = long_cfg(SWA, "float32", n_layers=LONG["swa_layers"])
+    params = M.init_model(0, cfg, device="cuda", mesh=mesh)
+    cache = long_cache(torch, cfg, cfg.sliding_window, LONG["swa_pos"],
+                       mesh, seed=17)
+    tok = torch.full((1, 1), 11, dtype=torch.int32, device="cuda")
+    out = long_decode(torch, cfg, params, cache, tok, LONG["swa_steps"],
+                      None, mesh)
+    out["logits"] = out["logits"].cpu()
+    out["ring_local"] = tuple(cache["k"].shape)
+    del params, cache
+    release(torch)
+    return out
+
+
+def long_mesh_rank(rank, out_dir):
+    """One rank of [long context mesh full width] on a (2, 8) mesh: the
+    uncut xlstm-1.3b served at one slot, its float32 witness and train
+    step's gradients at one group; zamba2-2.7b's long_500k tick and its
+    float32 witness; mixtral's ring decoding past 524,288.  The payload
+    to ``out_dir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.sharding import collectives as C
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = HostMesh(LONG["shape"], ("data", "model"))
+    out = {"coords": mesh.coords, "s": {}}
+    t0 = time.time()
+    out["xlstm"] = long_xlstm_serve(np, torch, mesh)
+    C.barrier()
+    out["s"]["xlstm serve"] = time.time() - t0
+    t0 = time.time()
+    out["xlstm_witness"] = long_witness(np, torch, "xlstm-1.3b", mesh)
+    K.slstm_scan.launches = 0
+    out["xlstm_train"] = train_ssm_mesh_witness(np, torch, "xlstm-1.3b",
+                                                mesh)
+    out["xlstm_train"]["slstm"] = K.slstm_scan.launches
+    out["s"]["xlstm witnesses"] = time.time() - t0
+    t0 = time.time()
+    out["zamba2"] = long_zamba2(np, torch, mesh)
+    out["zamba2_witness"] = long_witness(np, torch, HYBRID, mesh)
+    out["s"]["zamba2"] = time.time() - t0
+    t0 = time.time()
+    out["swa"] = long_swa(np, torch, mesh)
+    out["s"]["mixtral"] = time.time() - t0
+    out["peak"] = torch.cuda.max_memory_allocated()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def long_mesh_full_width(np, torch):
+    """[long context mesh full width]: xLSTM heads below |model| and a
+    batch below the data axes, ONE world of 16 ranks on a (2, 8) mesh
+    sharing the card (``long_mesh_rank``), then one card on the same
+    inputs.  Gates: every rank's tokens, logits and replicated states
+    bitwise equal; the xLSTM's tokens equal to one card's, ``slstm_scan``
+    launched once a group a tick on every rank on all 4 heads; its
+    witness and zamba2's float32 tick over the whole 524,288-row cache
+    within 1e-4 of one card's logits' scale, the train step's gradients
+    within 1e-4 in norm; zamba2's switch kernels launched once a group a
+    tick, both backends' tokens equal; mixtral's tokens equal to one
+    card's and its logits within 1e-4.  Returns the kernels line's runs."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import xlstm
+    shape = LONG["shape"]
+    ranks = shape[0] * shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        spawn_world(long_mesh_rank, ranks, (tmp,), backend="gloo",
+                    exchange_mib=LONG["exchange_mib"])
+        log(f"  {ranks} ranks on a {shape} mesh (gloo, one card, "
+            f"{LONG['exchange_mib']} MiB arena slots) in "
+            f"{time.time() - t0:.1f} s")
+        pay = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+               for r in range(ranks)]
+    p0 = pay[0]
+    log("  rank 0's parts: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in p0["s"].items()))
+    log("  peak memory per rank: " + ", ".join(
+        f"{p['peak'] / 2**30:.2f}" for p in pay) + " GiB")
+    for r, p in enumerate(pay[1:], 1):
+        pairs = [("xlstm tokens", p["xlstm"]["tokens"],
+                  p0["xlstm"]["tokens"]),
+                 ("xlstm witness", p["xlstm_witness"]["digest"],
+                  p0["xlstm_witness"]["digest"]),
+                 ("zamba2 witness", p["zamba2_witness"]["digest"],
+                  p0["zamba2_witness"]["digest"]),
+                 ("mixtral tokens", p["swa"]["tokens"], p0["swa"]["tokens"]),
+                 ("mixtral logits", p["swa"]["logits"].numpy().tobytes(),
+                  p0["swa"]["logits"].numpy().tobytes()),
+                 ("xlstm train loss", p["xlstm_train"]["loss_mesh"],
+                  p0["xlstm_train"]["loss_mesh"])]
+        pairs += [(f"zamba2 {k}", p["zamba2"][k]["logits"].numpy().tobytes(),
+                   p0["zamba2"][k]["logits"].numpy().tobytes())
+                  for k in p0["zamba2"] if isinstance(k, tuple)]
+        pairs += [(f"xlstm {k} state", p["xlstm"]["state"][k].numpy()
+                   .tobytes(), p0["xlstm"]["state"][k].numpy().tobytes())
+                  for k in p0["xlstm"]["state"]]
+        differ = [name for name, a, b in pairs if a != b]
+        if differ:
+            raise AssertionError(f"long context mesh: rank {r} disagrees "
+                                 f"with rank 0 on {differ}")
+    runs = {"switched_mlp": [], "switched_mlp_fused": [], "slstm_scan": []}
+    # the uncut xLSTM through the server: one card serves the same
+    xs = p0["xlstm"]
+    cfg = long_cfg("xlstm-1.3b", "float32")
+    groups = cfg.n_layers // cfg.ssm.slstm_every
+    launches = [p["xlstm"]["slstm"] for p in pay]
+    if not xs["done"] or any(n != groups * xs["ticks"] for n in launches):
+        raise AssertionError(f"long context xlstm: done {xs['done']}, "
+                             f"sLSTM launches per rank {launches} (want "
+                             f"{groups * xs['ticks']})")
+    release(torch)
+    one = long_xlstm_serve(np, torch)
+    if one["tokens"] != xs["tokens"]:
+        raise AssertionError(f"long context xlstm: mesh tokens "
+                             f"{xs['tokens']} != one card's {one['tokens']}")
+    # the uncut stack's float32 state, printed (at a random init 48
+    # layers amplify the reassociated sums' rounding, caveat k); the
+    # witnesses below hold one group at 1e-4
+    gaps = {k: float((v - one["state"][k]).abs().max())
+            for k, v in xs["state"].items()}
+    c = xs["collectives"]
+    log(f"  xlstm-1.3b uncut ({cfg.n_layers} layers, {cfg.n_heads} heads "
+        f"over model {shape[1]}: {shape[1] // cfg.n_heads} ranks a head), "
+        f"float32, one slot (below data {shape[0]}), a prompt of "
+        f"{LONG['xlstm_prompt']} + {LONG['xlstm_new']} new: {xs['ticks']} "
+        f"ticks, rank 0 ms per tick median "
+        f"{statistics.median(xs['times']):.2f} (one card "
+        f"{statistics.median(one['times']):.2f}); tokens {xs['tokens']} "
+        f"equal to one card's; the last sLSTM states' max |mesh - one "
+        f"card| " + ", ".join(f"{k} {g:.3g}" for k, g in gaps.items())
+        + f" (every rank's bitwise equal); per tick per rank "
+        f"{c['all_gather'] / xs['ticks']:.1f} all-gathers, "
+        f"{c['gather_for_split'] / xs['ticks']:.1f} gathers for split, "
+        f"{c['all_reduce'] / xs['ticks']:.1f} all-reduces, "
+        f"{c['staged'] / xs['ticks']:.1f} host stagings of "
+        f"{c['staged_bytes'] / xs['ticks'] / 2**20:.2f} MiB; slstm_scan "
+        f"{launches[0]} a rank on all {cfg.n_heads} heads (every group "
+        f"a tick); {xs['n_local']} parameters a rank, init "
+        f"{xs['init_s']:.1f} s")
+    runs["slstm_scan"].append(dict(
+        run=f"long context mesh {shape} xlstm-1.3b serve, all ranks",
+        ticks=xs["ticks"], launches=sum(launches), per_rank=launches[0]))
+    del one
+    release(torch)
+    # the float32 witnesses at one group, batch 1
+    for arch, key in (("xlstm-1.3b", "xlstm_witness"),
+                      (HYBRID, "zamba2_witness")):
+        w = p0[key]
+        if not (all(p[key]["finite"] for p in pay)
+                and w["max_abs"] <= LONG["tol"] * max(1.0, w["scale"])):
+            raise AssertionError(f"long context {arch} float32 witness: "
+                                 f"{w}")
+        log(f"  float32 witness, {arch} at one group ({one_group(arch)} "
+            f"layers), batch 1, {LONG['steps']} tokens from an empty "
+            f"cache: logits within {w['max_abs']:.3g} of one card's "
+            f"(<= {LONG['tol']} x max(1, {w['scale']:.3g})), every rank's "
+            f"bitwise equal")
+        kern = "slstm_scan" if arch != HYBRID else "switched_mlp"
+        n = [p[key]["slstm" if arch != HYBRID else "switch"] for p in pay]
+        runs[kern].append(dict(run=f"long context mesh {shape} {arch} "
+                               "float32 witness, all ranks",
+                               ticks=LONG["steps"], launches=sum(n),
+                               per_rank=n[0]))
+    tr, wt = p0["xlstm_train"], TRAIN_SSM_MESH["witness"]
+    rel = math.sqrt(tr["gap_sq"] / max(tr["ref_sq"], 1e-300))
+    if not (abs(tr["loss_mesh"] - tr["loss_single"]) <= wt["loss_tol"]
+            and rel <= LONG["tol"]):
+        raise AssertionError(f"long context xlstm train witness: loss "
+                             f"{tr['loss_mesh']} vs {tr['loss_single']}, "
+                             f"gradients {rel:.3g} in norm")
+    # rank 0's count holds its one-card runs too
+    n = [p["xlstm_train"]["slstm"] for p in pay]
+    log(f"  [train] xlstm-1.3b at one group, float32, {wt['batch']} x "
+        f"{wt['seq']} on {shape}: loss {tr['loss_mesh']:.6f} vs one card "
+        f"{tr['loss_single']:.6f}; gradients within {rel:.3g} in norm "
+        f"(<= {LONG['tol']}; one card's own noise {tr['floor']:.3g}), the "
+        f"worst leaf {tr['worst_leaf'][1]} at {tr['worst_leaf'][0]:.3g}; "
+        f"slstm_scan {n[1]} a rank (rank 0 {n[0]} with its one card)")
+    runs["slstm_scan"].append(dict(
+        run=f"long context mesh {shape} xlstm-1.3b train witness, all "
+        "ranks and rank 0's one card", launches=sum(n), per_rank=n[1]))
+    # zamba2 at long_500k: one card over the whole cache
+    zm = p0["zamba2"]
+    for key, dtype, groups in (("bf16", "bfloat16", LONG["zamba2_groups"]),
+                               ("f32", "float32", 1)):
+        cfg = long_cfg(HYBRID, dtype, n_layers=groups * one_group(HYBRID))
+        release(torch)
+        from repro_torch.models import model as M
+        params = M.init_model(0, cfg, device="cuda")
+        cache = long_cache(torch, cfg, LONG["ctx"], LONG["ctx"] - 1)
+        whole = sum(cache[k].numel() * cache[k].element_size()
+                    for k in ("k", "v"))
+        one = long_decode(torch, cfg, params, cache, torch.full(
+            (1, 1), 7, dtype=torch.int32, device="cuda"), 1, "pallas",
+            None)
+        del params, cache
+        release(torch)
+        want = one["logits"].cpu()
+        backends = [k[1] for k in zm if isinstance(k, tuple)
+                    and k[0] == key]
+        for b in backends:
+            got = zm[key, b]
+            gap = float((got["logits"] - want).abs().max())
+            scale = float(want.abs().max())
+            n = [p["zamba2"][key, b]["switch"] for p in pay]
+            if not (torch.isfinite(got["logits"]).all()
+                    and all(x == groups for x in n)):
+                raise AssertionError(f"long context zamba2 {key} {b}: "
+                                     f"finite, launches {n}")
+            if key == "f32" and not gap <= LONG["tol"] * max(1.0, scale):
+                raise AssertionError(f"long context zamba2 float32 tick: "
+                                     f"max |mesh - one card| {gap:.3g}")
+            c = got["collectives"]
+            log(f"  zamba2-2.7b, {groups * one_group(HYBRID)} of 54 layers,"
+                f" {dtype}, {b}: one tick at position {LONG['ctx'] - 1} "
+                f"over {LONG['ctx']} rows (whole cache {whole} B on one "
+                f"card, {zm[key + '_cache_bytes']} B a rank, filled in "
+                f"{zm[key + '_fill_s']:.1f} s): rank 0 {got['ms'][0]:.2f} "
+                f"ms, one card {one['ms'][0]:.2f} ms; logits within "
+                f"{gap:.3g} of one card's (scale {scale:.3g}"
+                + (f", gated at {LONG['tol']}" if key == "f32" else
+                   ", bf16: printed") + f"), token {got['tokens']} vs "
+                f"{one['tokens']}; {c['all_gather']} all-gathers, "
+                f"{c['all_reduce']} all-reduces, {c['gather_for_split']} "
+                f"gathers for split a rank; switch launches {n[0]} a rank")
+            kern = "switched_mlp" if b == "pallas" else "switched_mlp_fused"
+            runs[kern].append(dict(
+                run=f"long context mesh {shape} zamba2-2.7b {key} long_500k "
+                f"{b}, all ranks", ticks=1, launches=sum(n), per_rank=n[0]))
+        if key == "bf16":
+            toks = [zm[key, b]["tokens"] for b in backends]
+            if any(t != toks[0] for t in toks):
+                raise AssertionError(f"long context zamba2: the backends' "
+                                     f"tokens differ {toks}")
+    # mixtral's ring past 524,288
+    sw = p0["swa"]
+    release(torch)
+    one = long_swa(np, torch)
+    gap = float((sw["logits"] - one["logits"]).abs().max())
+    scale = float(one["logits"].abs().max())
+    if sw["tokens"] != one["tokens"] or not gap <= LONG["tol"] * max(
+            1.0, scale) or any(p["swa"]["switch"] for p in pay):
+        raise AssertionError(f"long context mixtral: tokens {sw['tokens']}"
+                             f" vs one card {one['tokens']}, logits gap "
+                             f"{gap:.3g}")
+    c = sw["collectives"]
+    log(f"  {SWA}, {LONG['swa_layers']} of 32 layers, float32, ring of "
+        f"{sw['ring_local'][2] * shape[0]} rows ({sw['ring_local']} a rank),"
+        f" {LONG['swa_steps']} steps from "
+        f"position {LONG['swa_pos']}: tokens {sw['tokens']} equal to one "
+        f"card's, logits within {gap:.3g} (scale {scale:.3g}); rank 0 ms "
+        f"per step median {statistics.median(sw['ms']):.2f}, one card "
+        f"{statistics.median(one['ms']):.2f}; "
+        f"{c['all_gather'] / LONG['swa_steps']:.1f} all-gathers, "
+        f"{c['all_reduce'] / LONG['swa_steps']:.1f} all-reduces a step a "
+        "rank; 0 switch launches")
+    del one
+    release(torch)
+    assert xlstm.heads_below_model(long_cfg("xlstm-1.3b", "float32"),
+                                   shape[1])
+    return runs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -5438,6 +6000,16 @@ def main() -> int:
     log(f"  phase {time.time() - t0:.1f} s ({card_line()})")
     release(torch)
 
+    # xLSTM heads below |model| and a batch below the data axes (context-
+    # parallel decode): the sLSTM kernel on every head of each of 16 ranks,
+    # the switch kernels on one row a rank
+    log("[long context mesh full width]")
+    log(f"  {torch.cuda.memory_allocated()} B allocated before")
+    t0 = time.time()
+    long_runs = long_mesh_full_width(np, torch)
+    log(f"  phase {time.time() - t0:.1f} s ({card_line()})")
+    release(torch)
+
     log("[dryrun full width]")
     t0 = time.time()
     dryrun_run = dryrun_full_width(np, torch, dryrun_started)
@@ -5468,6 +6040,8 @@ def main() -> int:
     switch_runs["pallas_fused"] += ssm_runs["switched_mlp_fused"]
     for b in ("pallas", "pallas_fused"):
         switch_runs[b].append(narrow_runs[b])
+    switch_runs["pallas"] += long_runs["switched_mlp"]
+    switch_runs["pallas_fused"] += long_runs["switched_mlp_fused"]
     for name, src, replaces, tm, by_run in (
             ("switched_mlp", "switched_mlp.cu",
              "src/repro/kernels/switched_mlp.py:37",
@@ -5485,7 +6059,8 @@ def main() -> int:
              [dict(run=f"xlstm {k}", launches=v)
               for k, v in slstm_launches.items()]
              + [dict(run="xlstm train", steps=TRAIN_XLSTM["steps"],
-                     launches=train_slstm)] + ssm_runs["slstm_scan"])):
+                     launches=train_slstm)] + ssm_runs["slstm_scan"]
+             + long_runs["slstm_scan"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -5504,6 +6079,9 @@ def main() -> int:
             # one decode step's inputs at d 2560 and d 8192
             rows[-1]["at_widths"] = [dict(d_model=d, **nums[name])
                                      for d, nums in sorted(widths.items())]
+            # a mesh rank's one row (a batch below the data axes)
+            rows[-1]["at_rank_shapes"] = [timing[name, "bfloat16",
+                                                 "one row"]]
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -429,7 +429,9 @@ def audit_sharded(mesh, backends=("xla", "pallas", "pallas_fused")
                   ) -> list[Finding]:
     """``mcma_dispatch_sharded`` on ``mesh`` (run by every rank of an
     initialized world, launch/mesh.spawn_world): the sharded wrapper keeps
-    the int32 stats and adds no host sync, at the ladder's first point."""
+    the int32 stats and adds no host sync, at the ladder's first point;
+    and the served steps at a batch below the data axes
+    (``audit_whole_rows``)."""
     from repro_torch.runtime import dispatch as D
     x, logits, stacks, (wi, wo) = _torch_case(2)
     exact_cap, invoke_cap = CAPACITY_LADDER[0]
@@ -454,7 +456,50 @@ def audit_sharded(mesh, backends=("xla", "pallas", "pallas_fused")
             fs += _sync_findings(ops, waits, scope=scope, path="audit:engine")
         fs += retrace_findings(run, scope=scope, path="audit:engine")
         fs += build_findings(before, scope=scope, path="audit:engine")
+        fs += audit_whole_rows(mesh, backend)
     return sorted({f.key: f for f in fs}.values(), key=lambda f: f.key)
+
+
+def audit_whole_rows(mesh, backend: str, batch: int = 1,
+                     max_len: int = 32) -> list[Finding]:
+    """The served steps at a batch below ``mesh``'s data axes (every data
+    rank holding every row, ``activations.whole_rows``): the smoke serve
+    config's decode and prefill-chunk steps at tick scope over a dense
+    cache split by sequence over the data axes (context-parallel), and
+    the decode step over a paged pool (whole on every data rank), keep
+    the int32 stats and add no host sync (TA002, TA003)."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as steps_lib
+    cfg = smoke_serve_cfg(backend)
+    cfg = dataclasses.replace(cfg, approx=dataclasses.replace(
+        cfg.approx, route_scope="tick"))
+    params = M.init_model(0, cfg, device="cpu", mesh=mesh)
+    toks, ctoks, n_valid, tier, masks, margins, residencies = step_inputs(
+        batch, "cpu")
+    kw = dict(use_mcma_dispatch=True, with_stats=True, backend=backend)
+    decode = steps_lib.make_decode_step(cfg, **kw)
+    chunk = steps_lib.make_prefill_chunk_step(cfg, **kw)
+    scope = f"whole_rows[{backend}]"
+    assert max_len % 8 == 0, max_len
+    fs = []
+    with steps_lib.serve_mesh_context(mesh):
+        for step, head, page in ((decode, (toks,), 0),
+                                 (chunk, (ctoks, n_valid), 0),
+                                 (decode, (toks,), 8)):
+            cache = M.init_cache(cfg, batch, max_len, page_size=page,
+                                 kv_pages=batch * max_len // 8 if page
+                                 else 0, device="cpu")
+            if page:
+                cache["block_table"].copy_(torch.arange(
+                    cache["block_table"].shape[1], dtype=torch.int32)[None])
+            out, ops, waits = sync_counts(
+                step, (params, cache, *head, masks[0], tier, margins[0],
+                       residencies[0]))
+            fs += stats_dtype_findings(out[-1], scope=scope,
+                                       path="audit:steps")
+            fs += _sync_findings(ops, waits, scope=scope,
+                                 path="audit:steps")
+    return fs
 
 
 def _sharded_rank(rank: int, out_dir: str, backends: tuple):

@@ -238,7 +238,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             M.check_mesh_trainable(cfg, planned,
                                    shape.global_batch // cfg.grad_accum)
         else:
-            M.check_mesh_servable(cfg, planned, shape.global_batch)
+            M.check_mesh_servable(
+                cfg, planned, shape.global_batch,
+                max_len=shape.seq_len if shape.kind == "decode" else 0)
     except NotImplementedError as e:      # the port refuses this layout
         result["error"] = f"{type(e).__name__}: {e}"[:2000]
         return result

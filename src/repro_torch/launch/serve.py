@@ -35,7 +35,11 @@ e.g. ``--arch moonshot-v1-16b-a3b --data 1 --model 4``, else each
 expert's d_ff; fewer kv heads than ``--model`` over a head_dim-split
 cache, e.g. ``--arch internlm2-1.8b --model 16``; the hybrid's
 Mamba2 heads and the xLSTM's heads over "model", e.g. ``--arch
-xlstm-1.3b --data 2 --model 2``).  Run outside a process
+xlstm-1.3b --data 2 --model 2``, or with ``--model`` a multiple of the
+xLSTM's heads each head's columns split; a ``--batch`` below ``--data``
+whole on every data rank, a dense or ring KV cache then split over the
+data ranks by sequence, e.g. ``--arch zamba2-2.7b --batch 1 --data 2``).
+Run outside a process
 group, the launcher spawns its ``data x model`` ranks itself (gloo on the
 CPU or when ranks share a card, NCCL when each has its own), having
 built the kernels once first; run inside one (``torchrun``), it serves as
@@ -71,8 +75,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.data:
         return _serve(args)
-    assert args.batch % args.data == 0, \
-        "--batch must divide by --data for the sharded dispatch path"
     import torch.distributed as dist
     if dist.is_initialized():
         return _serve(args)

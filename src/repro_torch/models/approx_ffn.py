@@ -35,7 +35,10 @@ runs Megatron-TP over "model" with one all-reduce a call
 (layers.ffn_fwd: the weights' data-sharded dims gathered at use); and
 the invoke stats are all-reduced over the data axes to global totals,
 once a plan, so every rank reports the same.  ``_manual_serve_ctx`` is
-the predicate under which that path serves.
+the predicate under which that path serves.  A batch that does not divide
+over the data axes is whole on every data rank: each classifies,
+capacities and dispatches every row as one device, at one device's
+capacities, and its stats are not all-reduced (``_stats_axes``).
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from repro_torch.models.layers import FFN, draw, ffn_fwd, param
 from repro_torch.runtime.dispatch import (execute_dispatch, make_dispatch_plan,
                                           mcma_dispatch, plan_invoke_stats)
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.activations import manual_dp_context, row_axes
 from repro_torch.sharding.rules import dp_axes, shard_capacity
 
 
@@ -191,8 +194,11 @@ def _manual_serve_ctx(cfg: ModelConfig, b: int, mesh):
 
 def _stats_axes() -> tuple:
     """The axes a plan's stats are all-reduced over: the data axes inside
-    a serve mesh context, none outside."""
-    return manual_dp_context()[1]
+    a serve mesh context, none outside or where every data rank holds
+    every row (a batch below the data axes, ``activations.whole_rows``:
+    each rank's stats are then one device's, as ``_manual_serve_ctx``
+    says for such a batch)."""
+    return row_axes()
 
 
 def serve_caps(cfg: ModelConfig, t_local: int):

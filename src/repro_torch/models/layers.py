@@ -37,7 +37,15 @@ pool is whole on every data shard
 (the rules replicate pages over data) and needs no traffic between
 shards: each slot's block-table row routes its reads to its own pages,
 so a page that another shard's slot writes is never read here, and each
-data rank writes only its own slots' pages.  Training runs full causal
+data rank writes only its own slots' pages.  A served batch below the
+data axes (``activations.whole_rows``) is whole on every data rank, and
+its dense or ring cache is split over them by sequence
+(context-parallel): a rank writes a token only where its row falls in
+the rank's slice (masked on the device), attends over its slice keeping
+the softmax's max, sum and weighted values in f32, and the parts combine
+over the data axes by log-sum-exp in rank order (``_combine_over_data``),
+so every data rank holds the same bits; a paged pool stays whole and
+each data rank attends as one device.  Training runs full causal
 attention over the rank's rows; the collectives carry their backward
 (``sharding/collectives.py``): an all-reduced output's gradient passes
 as it is, a replicated input of a column-parallel projection gets its
@@ -59,7 +67,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.activations import (context_parallel,
+                                             manual_dp_context)
 
 
 # what ``param`` makes of each tensor it draws, while ``param_hook`` is on
@@ -457,11 +466,14 @@ def _page_targets(bt: torch.Tensor, qpos: torch.Tensor, ok: torch.Tensor,
 
 
 def _write_dense(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-                 n_valid: torch.Tensor):
+                 n_valid: torch.Tensor, start: int = 0,
+                 total: int | None = None):
     """Write ``new`` (B, S, Kh, hd) at rows ``pos + i`` of a dense cache
     ``c`` (B, Skv, Kh, hd), IN PLACE, with the reference's ``mode="drop"``
     semantics: token i of slot b is written only if ``i < n_valid[b]``
-    and ``pos[b] + i < Skv``.
+    and ``pos[b] + i < Skv``.  A context-parallel rank's ``c`` holds rows
+    [start, start + Skv) of a cache of ``total`` rows: it writes the
+    tokens whose rows fall there.
 
     Torch has no dropping scatter, so every token writes somewhere in its
     own slot's rows (its position, clamped to the last row) and each
@@ -472,14 +484,43 @@ def _write_dense(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     position.  No host sync."""
     b, s = new.shape[:2]
     skv = c.shape[1]
-    tgt = (pos[:, None] + torch.arange(s, device=c.device)).clamp(
-        max=skv - 1).long()                                    # (B, S)
-    owner = tgt - pos[:, None].long()                          # token index
+    total = skv if total is None else total
+    tgt = ((pos[:, None] + torch.arange(s, device=c.device)).clamp(
+        max=total - 1) - start).clamp(0, skv - 1).long()       # (B, S)
+    owner = tgt + start - pos[:, None].long()                  # token index
     owned = (owner >= 0) & (owner < n_valid[:, None].long())
     rows = torch.arange(b, device=c.device)[:, None].expand(b, s)
     fresh = new[rows, owner.clamp(0, s - 1)].to(c.dtype)
     val = torch.where(owned[..., None, None], fresh, c[rows, tgt])
     c[rows, tgt] = val
+
+
+class _CP(collections.namedtuple("_CP", "mesh dp start total")):
+    """A context-parallel rank's cache (``activations.context_parallel``):
+    the mesh, the data axes, its first row and the whole cache's rows."""
+
+
+def _context_parallel(cache: dict):
+    """The ``_CP`` of a rank's dense or ring KV cache split by sequence
+    over the data axes, else None."""
+    cp = context_parallel()
+    if cp is None or "block_table" in cache:
+        return None
+    mesh, dp = cp
+    n = cache["k"].shape[1]
+    return _CP(mesh, dp, mesh.index(dp) * n, n * mesh.size(dp))
+
+
+def _seq_slice(t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a whole prompt's k or v (B, S, ., hd) where a
+    cache is split by sequence over the data axes, else ``t``."""
+    cp = context_parallel()
+    if cp is None:
+        return t
+    mesh, dp = cp
+    n = t.shape[1] // mesh.size(dp)
+    assert n * mesh.size(dp) == t.shape[1], (t.shape, mesh.size(dp))
+    return t[:, mesh.index(dp) * n:(mesh.index(dp) + 1) * n].contiguous()
 
 
 def _chunk_write(cfg: ModelConfig, k, v, cache: dict):
@@ -508,13 +549,15 @@ def _chunk_write(cfg: ModelConfig, k, v, cache: dict):
         cv[pg, within] = v.to(cv.dtype)
         ak, av = _gather_pages(ck, bt), _gather_pages(cv, bt)
         new_cache = {"k": ck, "v": cv, "block_table": bt, "pos": pos + nv}
+        start = 0
     else:
-        skv = ck.shape[1]
-        _write_dense(ck, k, pos, nv)
-        _write_dense(cv, v, pos, nv)
+        skv, cp = ck.shape[1], _context_parallel(cache)
+        start, total = (0, None) if cp is None else (cp.start, cp.total)
+        _write_dense(ck, k, pos, nv, start, total)
+        _write_dense(cv, v, pos, nv, start, total)
         ak, av = ck, cv
         new_cache = {"k": ck, "v": cv, "pos": pos + nv}
-    valid = torch.arange(skv, device=k.device)[None, None, :] \
+    valid = start + torch.arange(skv, device=k.device)[None, None, :] \
         <= qpos[:, :, None]                                    # (B, Sq, Skv)
     return ak, av, valid, new_cache
 
@@ -524,7 +567,8 @@ def _attention_chunk(cfg: ModelConfig, q, k, v, cache: dict):
     (B, S, ., hd), ``_chunk_write`` then the attention.  Returns (out (B,
     S, H, hd), cache with ``pos + n_valid``)."""
     ak, av, valid, new_cache = _chunk_write(cfg, k, v, cache)
-    return _attend(cfg, q, ak, av, valid).reshape(q.shape), new_cache
+    return _attend(cfg, q, ak, av, valid,
+                   _context_parallel(cache)).reshape(q.shape), new_cache
 
 
 def _cache_write(cfg: ModelConfig, k, v, cache: dict):
@@ -558,33 +602,82 @@ def _cache_write(cfg: ModelConfig, k, v, cache: dict):
         valid = torch.arange(skv, device=k.device)[None, :] <= pos[:, None]
     else:
         rows = torch.arange(b, device=k.device)
-        skv = ck.shape[1]
+        skv = total = ck.shape[1]
         kpos = torch.arange(skv, device=k.device)[None, :]
+        cp = _context_parallel(cache)
+        if cp is not None:                  # rows [start, start + skv)
+            kpos, total = kpos + cp.start, cp.total
         if cfg.sliding_window:                          # ring buffer
-            row = pos % skv
-            valid = (kpos <= row[:, None]) | (pos[:, None] >= skv)
+            row = pos % total
+            valid = (kpos <= row[:, None]) | (pos[:, None] >= total)
         else:
-            row = pos.clamp(max=skv - 1)
+            row = pos.clamp(max=total - 1)
             valid = kpos <= pos[:, None]
         row = row.long()
-        ck[rows, row] = k[:, 0].to(ck.dtype)
-        cv[rows, row] = v[:, 0].to(cv.dtype)
+        if cp is None:
+            ck[rows, row] = k[:, 0].to(ck.dtype)
+            cv[rows, row] = v[:, 0].to(cv.dtype)
+        else:
+            # written where the row falls in this rank's slice (the
+            # reference's mode="drop" elsewhere), masked on the device
+            mine = ((row >= cp.start) & (row < cp.start + skv))[:, None, None]
+            row = (row - cp.start).clamp(0, skv - 1)
+            for c, t in ((ck, k), (cv, v)):
+                c[rows, row] = torch.where(mine, t[:, 0].to(c.dtype),
+                                           c[rows, row])
         ak, av = ck, cv
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     return ak, av, valid[:, None], new_cache
 
 
-def _attend(cfg: ModelConfig, q, ak, av, valid):
+def _attend(cfg: ModelConfig, q, ak, av, valid, cp=None):
     """GQA attention of q (B, Sq, H, hd) over keys and values (B, Skv,
-    Kh, hd) where ``valid`` (B, Sq or 1, Skv): (B, Sq, H * hd)."""
+    Kh, hd) where ``valid`` (B, Sq or 1, Skv): (B, Sq, H * hd).  Over a
+    rank's slice of the sequence (``cp``) the softmax's parts combine over
+    the data axes (``_combine_over_data``)."""
     b, sq = q.shape[0], q.shape[1]
     rep = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, sq, cfg.n_kv_heads, rep, cfg.hd)
     s_ = torch.einsum("bqgrd,bkgd->bgrqk", qg, ak).float() * cfg.hd ** -0.5
     s_ = torch.where(valid[:, None, None], s_, -1e30)
-    w = torch.softmax(s_, dim=-1).to(av.dtype)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
-    return o.reshape(b, sq, cfg.n_heads * cfg.hd)
+    if cp is None:
+        w = torch.softmax(s_, dim=-1).to(av.dtype)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", w, av)
+        return o.reshape(b, sq, cfg.n_heads * cfg.hd)
+    p, m, l_ = _softmax_parts(s_, valid[:, None, None])
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(av.dtype), av)
+    m, l_ = (t.permute(0, 3, 1, 2).reshape(b, sq, cfg.n_heads)
+             for t in (m, l_))
+    o = _combine_over_data(o.reshape(b, sq, cfg.n_heads, cfg.hd), m, l_, cp)
+    return o.reshape(b, sq, cfg.n_heads * cfg.hd).to(av.dtype)
+
+
+def _softmax_parts(s_, valid):
+    """The softmax's parts over a rank's keys (f32 scores ``s_``, masked
+    to -1e30 where not ``valid``): the unnormalized weights exp(s - m),
+    0 where masked, the max m and their sum l."""
+    m = s_.amax(-1)
+    p = torch.where(valid, torch.exp(s_ - m[..., None]), 0.0)
+    return p, m, p.sum(-1)
+
+
+def _combine_over_data(o, m, l_, cp):
+    """Attention over a sequence split across the data axes: each rank's
+    unnormalized output o (B, Sq, H, hd) with its max and sum (B, Sq, H)
+    gathered over them (one collective, f32) and added by log-sum-exp in
+    rank order, so every data rank holds the same bits.  A rank with no
+    valid key (m = -1e30, l = 0) adds zeros.  Returns f32 (B, Sq, H,
+    hd)."""
+    hd = o.shape[-1]
+    part = torch.cat([o.float(), m[..., None], l_[..., None]], -1)
+    every = C.all_gather(part[None], cp.dp, 0, cp.mesh).unbind(0)
+    mx = torch.stack([e[..., hd] for e in every]).amax(0)
+    acc, tot = torch.zeros_like(every[0][..., :hd]), torch.zeros_like(mx)
+    for e in every:
+        a = torch.exp(e[..., hd] - mx)
+        acc = acc + e[..., :hd] * a[..., None]
+        tot = tot + e[..., hd + 1] * a
+    return acc / tot.clamp(min=1e-30)[..., None]
 
 
 def attention_fwd(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -644,9 +737,10 @@ def _attention(cfg: ModelConfig, p, x, positions, cache):
     if cache is None:
         o = flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v))
         o = o.reshape(b, sq, cfg.n_heads * cfg.hd)
-        return o @ p.wo.to(o.dtype), {"k": k, "v": v}
+        return o @ p.wo.to(o.dtype), {"k": _seq_slice(k),
+                                      "v": _seq_slice(v)}
     ak, av, valid, new_cache = _cache_write(cfg, k, v, cache)
-    o = _attend(cfg, q, ak, av, valid)
+    o = _attend(cfg, q, ak, av, valid, _context_parallel(cache))
     return o @ p.wo.to(o.dtype), new_cache
 
 
@@ -686,16 +780,17 @@ def _attention_split(cfg: ModelConfig, hcfg: ModelConfig, p, x, positions,
         o = flash_attention(hcfg, q, _repeat_kv(hcfg, kh),
                             _repeat_kv(hcfg, vh))
         o = o.reshape(b, sq, hcfg.n_heads * hd)
-        return o @ p.wo.to(o.dtype), {"k": kc.contiguous(),
-                                      "v": vc.contiguous()}
+        return o @ p.wo.to(o.dtype), {"k": _seq_slice(kc).contiguous(),
+                                      "v": _seq_slice(vc).contiguous()}
     ak, av, valid, new_cache = _cache_write(cfg, kc, vc, cache)
+    cp = _context_parallel(cache)
     if _scores_cheaper(sq, ak.shape[1], hcfg.n_heads, hd, md,
                        ak.element_size()):
-        o = _attend_scores(cfg, q, ak, av, valid, mesh)
+        o = _attend_scores(cfg, q, ak, av, valid, mesh, cp)
     else:
         ak, av = (C.all_to_all(t.repeat_interleave(s, dim=2), 2, 3,
                                mesh=mesh) for t in (ak, av))
-        o = _attend(hcfg, q, ak, av, valid)
+        o = _attend(hcfg, q, ak, av, valid, cp)
     return o @ p.wo.to(o.dtype), new_cache
 
 
@@ -710,7 +805,7 @@ def _scores_cheaper(sq: int, skv: int, hq: int, hd: int, md: int,
     return sq * hq * (skv * (4 + a) * md + 2 * hd * a) < 2 * skv * hd * a
 
 
-def _attend_scores(cfg: ModelConfig, q, ak, av, valid, mesh):
+def _attend_scores(cfg: ModelConfig, q, ak, av, valid, mesh, cp=None):
     """Attention of the rank's q heads q (B, Sq, hq, hd) over a cache
     that holds this rank's head_dim slice of every kv head, ak and av
     (B, Skv, Kh, hd / |model|), by exchanging partial scores: every q
@@ -719,7 +814,9 @@ def _attend_scores(cfg: ModelConfig, q, ak, av, valid, mesh):
     (``reduce_scatter``, in rank order), the softmax of the rank's heads,
     the weights gathered (``all_gather``), the partial outputs of every
     head at this rank's dims, and the rank's heads' outputs at every dim
-    (``all_to_all``).  Returns (B, Sq, hq * hd)."""
+    (``all_to_all``).  Over a rank's slice of the sequence (``cp``) the
+    weights are the softmax's unnormalized parts, combined over the data
+    axes at the end (``_combine_over_data``).  Returns (B, Sq, hq * hd)."""
     b, sq, hq, hd = q.shape
     kvh, h = cfg.n_kv_heads, cfg.n_heads
     qa = C.all_to_all(q, 3, 2, mesh=mesh)              # (B, Sq, H, hd/md)
@@ -729,11 +826,18 @@ def _attend_scores(cfg: ModelConfig, q, ak, av, valid, mesh):
     s_ = C.reduce_scatter(part.reshape(b, h, sq, -1), 1, mesh=mesh) \
         * hd ** -0.5                                   # (B, hq, Sq, Skv)
     s_ = torch.where(valid[:, None], s_, -1e30)
-    w = torch.softmax(s_, dim=-1).to(av.dtype)
+    if cp is None:
+        w = torch.softmax(s_, dim=-1).to(av.dtype)
+    else:
+        w, m, l_ = _softmax_parts(s_, valid[:, None])
+        w = w.to(av.dtype)
     wa = C.all_gather(w, "model", 1, mesh)             # (B, H, Sq, Skv)
     o = torch.einsum("bgrqk,bkgd->bqgrd",
                      wa.reshape(b, kvh, h // kvh, sq, -1), av)
     o = C.all_to_all(o.reshape(b, sq, h, -1), 2, 3, mesh=mesh)
+    if cp is not None:
+        o = _combine_over_data(o, m.transpose(1, 2), l_.transpose(1, 2),
+                               cp).to(av.dtype)
     return o.reshape(b, sq, hq * hd)
 
 

@@ -43,12 +43,19 @@ state).  Inside ``runtime/steps.train_mesh_context``
 the global batch's losses and metrics on every rank.  Fewer kv heads
 than model ranks run with each rank's head_dim slice of every kv head in
 its cache (``layers.kv_split``), experts that do not divide over
-"model" with each expert's d_ff split (``moe.tp_in_expert``).  A mesh
-that does not divide the widths a family splits is refused
-(``check_mesh_servable``, ``check_mesh_trainable``).
+"model" with each expert's d_ff split (``moe.tp_in_expert``), fewer
+xLSTM heads than model ranks with each head's columns split
+(``xlstm.heads_below_model``).  A served batch that does not divide over
+the data axes is whole on every data rank (``activations.whole_rows``):
+its logits are not gathered, its stats and MoE routing are one device's,
+and a dense or ring KV cache is split over the data axes by sequence
+(context-parallel decode, ``layers.py``).  A mesh that does not divide
+the widths a family splits is refused (``check_mesh_servable``,
+``check_mesh_trainable``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -65,7 +72,8 @@ from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
                                            make_tick_plan)
 from repro_torch.runtime.dispatch import plan_invoke_stats
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import (manual_dp_context,
+from repro_torch.sharding.activations import (manual_dp_context, row_axes,
+                                             whole_rows,
                                              with_current_context)
 from repro_torch.sharding.rules import cache_pspecs, param_pspecs
 
@@ -542,12 +550,19 @@ def shard_cache(mesh, cache: dict) -> dict:
     """This rank's shard of a cache, as ``sharding/rules.cache_pspecs``
     places it (rows over data, kv heads over model, or head_dim where the
     kv heads are fewer than the model ranks; ``pos`` and a paged pool's
-    pages whole)."""
+    pages whole).  Rows that do not divide over the data axes are whole,
+    and a dense or ring k/v then split over them by sequence; one whose
+    length does not divide either is refused (the rules would replicate
+    it, the port's attention splits it)."""
+    specs = cache_pspecs(mesh, cache)
+    if "k" in cache and "block_table" not in cache:
+        _check_cache_rows(mesh, *cache["k"].shape[1:3])
+
     def walk(tree, specs):
         return {k: walk(v, specs[k]) if isinstance(v, dict)
                 else C.shard_tensor(mesh, v, specs[k])
                 for k, v in tree.items()}
-    return walk(cache, cache_pspecs(mesh, cache))
+    return walk(cache, specs)
 
 
 def _mesh_sizes(mesh):
@@ -564,10 +579,15 @@ def _model_widths(cfg: ModelConfig, train: bool, md: int) -> dict:
     "model": the attention heads, the kv heads (where ranks share a kv
     head, ``layers.kv_split``: head_dim), d_ff (an MoE: its experts, else
     each expert's d_ff, ``moe.tp_in_expert``) and the Mamba2 heads and
-    B/C columns (the hybrid); the xLSTM's heads and its sLSTM's d_up; the
-    vocab too in training."""
+    B/C columns (the hybrid); the xLSTM's heads (where |model| ranks share
+    each head, ``xlstm.heads_below_model``: d_qk, d_in and 4d) and its
+    sLSTM's d_up; the vocab too in training."""
     kind = topology(cfg).kind
-    if kind == "xlstm":
+    if kind == "xlstm" and xlstm.heads_below_model(cfg, md):
+        d, d_in, d_qk = xlstm.mlstm_dims(cfg)[:3]
+        widths = {f"d_qk (heads={cfg.n_heads} below model)": d_qk,
+                  "d_in": d_in, "4d": 4 * d, "d_up": xlstm.slstm_d_up(cfg)}
+    elif kind == "xlstm":
         widths = {"heads": cfg.n_heads, "d_up": xlstm.slstm_d_up(cfg)}
     else:
         widths = {"heads": cfg.n_heads}
@@ -592,42 +612,75 @@ def _model_widths(cfg: ModelConfig, train: bool, md: int) -> dict:
 
 
 def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
-    """Raise unless ``batch`` divides over the data axes and every width
-    of ``_model_widths`` over "model" (ROADMAP queue 3)."""
+    """Raise unless every width of ``_model_widths`` divides over "model"
+    and, in training, ``batch`` over the data axes (ROADMAP queue 3; a
+    microbatch below the data axes is item 16d).  A served batch need not
+    divide: below the data axes its rows are whole on every data rank
+    (``activations.whole_rows``)."""
     sizes, md, g = _mesh_sizes(mesh)
     widths = _model_widths(cfg, train, md)
-    if "model" in sizes and batch % g == 0 \
+    rows_ok = not train or batch % g == 0
+    if "model" in sizes and rows_ok \
             and not any(n % md for n in widths.values()):
         return
     what = ("the sharded train path", "microbatch") if train \
         else ("the sharded serve path", "batch")
+    rows = "" if not train else \
+        "the microbatch over the data axes; " if rows_ok else \
+        "the microbatch over the data axes, below them ROADMAP item 16d; "
     raise NotImplementedError(
         f"mesh {dict(sizes)} does not divide {what[0]} of {cfg.name} at "
-        f"{what[1]} {batch} (the {what[1]} over the data axes; "
+        f"{what[1]} {batch} ({rows}"
         + ", ".join(f"{k}={n}" for k, n in widths.items())
         + " over model): the reference falls back to compiler-placed "
         "sharding there, the port refuses (ROADMAP queue 3, layout "
         "departures)")
 
 
-def check_mesh_servable(cfg: ModelConfig, mesh, batch: int):
-    """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: the
-    batch divides over the data axes, and over "model" the attention
-    heads, the kv heads (or, with fewer kv heads than ranks and |model| a
-    multiple of them, head_dim: ``layers.kv_split``) and d_ff (the sharded
+def _check_cache_rows(mesh, batch: int, rows: int):
+    """Raise where a dense or ring KV cache of ``rows`` rows a slot can
+    be split neither by its ``batch`` slots nor by sequence over the data
+    axes (the rules would replicate it; the port's attention splits it)."""
+    _, _, g = _mesh_sizes(mesh)
+    if g == 1 or batch % g == 0 or rows % g == 0:
+        return
+    raise NotImplementedError(
+        f"a KV cache of {rows} rows for a batch of {batch} over {g} data "
+        "ranks: a batch below the data axes needs the cache length to "
+        "divide over them (context-parallel decode); the reference "
+        "replicates such a cache, the port refuses (ROADMAP queue 3, "
+        "layout departures)")
+
+
+def check_mesh_servable(cfg: ModelConfig, mesh, batch: int, *,
+                        max_len: int = 0, paged: bool = False):
+    """Raise unless ``cfg`` serves on ``mesh`` at ``batch`` slots: over
+    "model" the attention heads, the kv heads (or, with fewer kv heads
+    than ranks and |model| a multiple of them, head_dim:
+    ``layers.kv_split``) and d_ff (the sharded
     serve path's predicate, ``approx_ffn._manual_serve_ctx``; an MoE: its
     experts, or each expert's d_ff: ``moe.tp_in_expert``), the hybrid's
-    Mamba2 heads and B/C columns, the xLSTM's heads and d_up.  Where it
-    fails the reference falls back to compiler-placed sharding; the port
-    has no such fallback (ROADMAP queue 3)."""
+    Mamba2 heads and B/C columns, the xLSTM's heads (or, with |model| a
+    multiple of them, d_qk, d_in and 4d: ``xlstm.heads_below_model``) and
+    d_up.  A batch that does not divide over the data axes is served
+    whole on every data rank, a dense or ring KV cache then split over
+    them by sequence (context-parallel, ``layers.py``): given ``max_len``
+    that cache's rows (a ring's: the window) must divide over the data
+    axes then, unless it is ``paged`` (a pool, whole on every data rank).
+    Where it fails the reference falls back to compiler-placed sharding;
+    the port has no such fallback (ROADMAP queue 3)."""
     _check_widths(cfg, mesh, batch, train=False)
+    if max_len and not paged and topology(cfg).kind != "xlstm":
+        w = cfg.sliding_window
+        _check_cache_rows(mesh, batch, min(max_len, w) if w else max_len)
 
 
 def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int):
     """Raise unless ``cfg`` trains on ``mesh`` with microbatches of
     ``batch`` rows: ``check_mesh_servable``'s widths and the vocab over
     "model", the microbatch over the data axes (every tensor-, expert-
-    and head-parallel branch of the train path engaged).  Where it fails
+    and head-parallel branch of the train path engaged; a microbatch
+    below them, split by sequence, is ROADMAP item 16d).  Where it fails
     the reference falls back to compiler-placed sharding; the port
     refuses (ROADMAP queue 3)."""
     _check_widths(cfg, mesh, batch, train=True)
@@ -638,14 +691,20 @@ def _local(rows, *tensors):
     return tuple(None if t is None else t[rows] for t in tensors)
 
 
+@contextlib.contextmanager
 def _mesh_rows(cfg: ModelConfig, b: int):
     """(mesh, dp, this rank's rows of a ``b``-row batch) inside a serve
-    mesh context, else (None, (), every row)."""
+    mesh context, else (None, (), every row).  A batch that does not
+    divide over the data axes is whole on every data rank: the block runs
+    under ``activations.whole_rows`` (the rows replicated, a dense or ring
+    KV cache split by sequence)."""
     mesh, dp = manual_dp_context()
     if mesh is None:
-        return None, (), slice(None)
+        yield None, (), slice(None)
+        return
     check_mesh_servable(cfg, mesh, b)
-    return mesh, dp, C.local_rows(mesh, dp, b)
+    with whole_rows(b % mesh.size(dp) != 0):
+        yield mesh, dp, C.local_rows(mesh, dp, b)
 
 
 def _batch_dim(head: str, paged: bool = False):
@@ -762,50 +821,50 @@ def decode(cfg: ModelConfig, params: Model, cache, inputs: torch.Tensor, *,
     Mamba2 state steps (a recycled slot is reset on admission).
 
     On a mesh: the rank's rows of the inputs, the mask and the tiers run
-    through the layers, and the logits come back all-gathered (module
-    docstring)."""
+    through the layers, and the logits come back all-gathered; a batch
+    below the data axes runs whole on every rank (module docstring)."""
     pos_all, row_mask_all = cache["pos"], row_mask
-    mesh, dp, rows = _mesh_rows(cfg, inputs.shape[0])
-    inputs, row_mask, tier = _local(rows, inputs, row_mask, tier)
-    x = L.embed_fwd(cfg, params.embed, inputs)
-    pos = pos_all[rows]
-    per_layer, plan = [], None
-    kind = topology(cfg).kind
-    if kind == "xlstm":
-        x = _decode_xlstm(cfg, params, cache, x)
-        cache["pos"] = pos_all + 1
-    else:
-        plan = _tick_plan(cfg, params, x, row_mask, serve, tier,
-                          tier_margins, residency)
-        if plan is not None:
-            tier = tier_margins = None       # the plan embeds the tiers
-        positions = pos[:, None]
-        if kind == "uniform":
-            groups = [((), blk) for blk in params.blocks]
+    with _mesh_rows(cfg, inputs.shape[0]) as (mesh, dp, rows):
+        inputs, row_mask, tier = _local(rows, inputs, row_mask, tier)
+        x = L.embed_fwd(cfg, params.embed, inputs)
+        pos = pos_all[rows]
+        per_layer, plan = [], None
+        kind = topology(cfg).kind
+        if kind == "xlstm":
+            x = _decode_xlstm(cfg, params, cache, x)
+            cache["pos"] = pos_all + 1
         else:
-            groups = [(mblks, params.shared) for mblks in params.mamba]
-            mh = cache["mamba"]["h"]
-        for i, (mblks, blk) in enumerate(groups):
-            for j, mblk in enumerate(mblks):
-                x, new = _mamba_block(cfg, mblk, x, {"h": mh[i, j]})
-                mh[i, j] = new["h"]
-            x, _, _, m = _dense_block(cfg, blk, x, positions,
-                                      _layer_cache(cache, i, pos),
-                                      serve=serve, row_mask=row_mask,
-                                      dispatch_plan=plan, tier=tier,
-                                      tier_margins=tier_margins,
-                                      residency=residency)
-            per_layer.append(m)
-        adv = 1 if row_mask_all is None or kind == "hybrid" \
-            else row_mask_all.to(torch.int32)
-        cache["pos"] = (pos_all + adv).to(torch.int32)
-    x = L.norm_fwd(cfg, params.ln_f, x)
-    logits = L.unembed_fwd(cfg, params.embed, x)[:, 0]
-    if mesh is not None:
-        logits = C.all_gather(logits, dp, 0)
-    if not collect_metrics:
-        return logits, cache
-    return logits, cache, _step_metrics(plan, per_layer)
+            plan = _tick_plan(cfg, params, x, row_mask, serve, tier,
+                              tier_margins, residency)
+            if plan is not None:
+                tier = tier_margins = None       # the plan embeds the tiers
+            positions = pos[:, None]
+            if kind == "uniform":
+                groups = [((), blk) for blk in params.blocks]
+            else:
+                groups = [(mblks, params.shared) for mblks in params.mamba]
+                mh = cache["mamba"]["h"]
+            for i, (mblks, blk) in enumerate(groups):
+                for j, mblk in enumerate(mblks):
+                    x, new = _mamba_block(cfg, mblk, x, {"h": mh[i, j]})
+                    mh[i, j] = new["h"]
+                x, _, _, m = _dense_block(cfg, blk, x, positions,
+                                          _layer_cache(cache, i, pos),
+                                          serve=serve, row_mask=row_mask,
+                                          dispatch_plan=plan, tier=tier,
+                                          tier_margins=tier_margins,
+                                          residency=residency)
+                per_layer.append(m)
+            adv = 1 if row_mask_all is None or kind == "hybrid" \
+                else row_mask_all.to(torch.int32)
+            cache["pos"] = (pos_all + adv).to(torch.int32)
+        x = L.norm_fwd(cfg, params.ln_f, x)
+        logits = L.unembed_fwd(cfg, params.embed, x)[:, 0]
+        if row_axes():
+            logits = C.all_gather(logits, dp, 0)
+        if not collect_metrics:
+            return logits, cache
+        return logits, cache, _step_metrics(plan, per_layer)
 
 
 def decode_chunk(cfg: ModelConfig, params: Model, cache,
@@ -836,29 +895,30 @@ def decode_chunk(cfg: ModelConfig, params: Model, cache,
         f"(got family={cfg.family!r}, sliding_window={cfg.sliding_window})"
     s = tokens.shape[1]
     n_valid_all = n_valid.to(torch.int32)
-    _, _, rows = _mesh_rows(cfg, tokens.shape[0])
-    tokens, row_mask, tier = _local(rows, tokens, row_mask, tier)
-    x = L.embed_fwd(cfg, params.embed, tokens)
-    pos = cache["pos"][rows]
-    off = torch.arange(s, device=x.device)
-    positions = pos[:, None] + off[None, :]                    # (B, S)
-    n_valid = n_valid_all[rows]
-    tok_mask = off[None, :] < n_valid[:, None]
-    if row_mask is not None:
-        tok_mask = tok_mask & row_mask.to(torch.bool)[:, None]
-    plan = _tick_plan(cfg, params, x, tok_mask, serve, tier, tier_margins,
-                      residency)
-    if plan is not None:
-        tier = tier_margins = None           # the plan embeds the tiers
-    per_layer = []
-    for i, blk in enumerate(params.blocks):
-        x, _, _, m = _dense_block(cfg, blk, x, positions,
-                                  _layer_cache(cache, i, pos,
-                                               n_valid=n_valid),
-                                  serve=serve, row_mask=tok_mask,
-                                  dispatch_plan=plan, tier=tier,
-                                  tier_margins=tier_margins,
-                                  residency=residency)
-        per_layer.append(m)
-    cache["pos"] = (cache["pos"] + n_valid_all).to(torch.int32)
-    return cache, (_step_metrics(plan, per_layer) if collect_metrics else {})
+    with _mesh_rows(cfg, tokens.shape[0]) as (_, _, rows):
+        tokens, row_mask, tier = _local(rows, tokens, row_mask, tier)
+        x = L.embed_fwd(cfg, params.embed, tokens)
+        pos = cache["pos"][rows]
+        off = torch.arange(s, device=x.device)
+        positions = pos[:, None] + off[None, :]                    # (B, S)
+        n_valid = n_valid_all[rows]
+        tok_mask = off[None, :] < n_valid[:, None]
+        if row_mask is not None:
+            tok_mask = tok_mask & row_mask.to(torch.bool)[:, None]
+        plan = _tick_plan(cfg, params, x, tok_mask, serve, tier, tier_margins,
+                          residency)
+        if plan is not None:
+            tier = tier_margins = None           # the plan embeds the tiers
+        per_layer = []
+        for i, blk in enumerate(params.blocks):
+            x, _, _, m = _dense_block(cfg, blk, x, positions,
+                                      _layer_cache(cache, i, pos,
+                                                   n_valid=n_valid),
+                                      serve=serve, row_mask=tok_mask,
+                                      dispatch_plan=plan, tier=tier,
+                                      tier_margins=tier_margins,
+                                      residency=residency)
+            per_layer.append(m)
+        cache["pos"] = (cache["pos"] + n_valid_all).to(torch.int32)
+        metrics = _step_metrics(plan, per_layer) if collect_metrics else {}
+        return cache, metrics

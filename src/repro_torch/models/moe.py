@@ -41,7 +41,10 @@ the same on every model rank: the gate values and the tokens bound for
 the expert buffer pass through ``collectives.copy_to_model`` (their
 partial gradients summed over "model"), the router's gather over
 "model" takes its slice, and the aux term reaches the router and x
-once.  On one device
+once.  A served batch below the data axes is whole on every data rank
+(``activations.whole_rows``): both branches then route it as one device
+(``route_global`` over no data axis), count its drops once, and take no
+mean over the data ranks.  On one device
 ``_moe_local_experts`` over all E experts is ``_moe_group``.
 """
 from __future__ import annotations
@@ -57,7 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import param
 from repro_torch.runtime import dispatch as D
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.activations import manual_dp_context, row_axes
 
 
 class MoE(nn.Module):
@@ -137,7 +140,7 @@ def moe_fwd(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     a mesh the port refuses (``model.check_mesh_servable`` /
     ``check_mesh_trainable`` name it first).  Without a mesh: token
     groups of ``moe.scan_chunk`` (``_moe_chunked``)."""
-    mesh, dp = manual_dp_context()
+    mesh, dp = manual_dp_context()[0], row_axes()
     if mesh is not None:
         md = mesh.size("model") if "model" in mesh.axis_names else 0
         if md and not tp_in_expert(cfg, md):
@@ -176,9 +179,34 @@ def _moe_fwd_manual(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, dp,
     e_loc = e // md
     e_off = mesh.index("model") * e_loc
     assert w["w_in"].shape[0] == e_loc, (w["w_in"].shape, e_loc)
-    y_part, aux = _moe_local_experts(cfg, router, w, x, e_loc, e_off)
+    if dp:
+        y_part, aux = _moe_local_experts(cfg, router, w, x, e_loc, e_off)
+    else:
+        y_part, aux = _moe_whole_rows(cfg, router, w, x, e_loc, e_off, mesh)
     y = C.all_reduce_sum(y_part, "model", mesh)
     return y, C.all_reduce_sum(aux, dp, mesh) / mesh.size(dp)
+
+
+def _moe_whole_rows(cfg: ModelConfig, router: torch.Tensor, w: dict,
+                    x: torch.Tensor, e_loc: int, e_off: int, mesh):
+    """Expert parallelism where every data rank holds every row (a served
+    batch below the data axes, ``activations.whole_rows``): the tokens
+    routed as one device routes them (``route_global`` over no data
+    axis: ``scan_chunk`` groups, each at its own capacity), then only the
+    pairs of experts [e_off, e_off + e_loc) kept in this rank's buffer.
+    The reference's expert-parallel ``shard_map`` has no such case
+    (ROADMAP, layout departures).  Returns (partial output, aux)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    r = route_global(cfg, router, xt, mesh, ())
+    lo, n_slots = (e_off * r.n_groups * r.cap_l,
+                   e_loc * r.n_groups * r.cap_l)
+    mine = r.keep & (r.slot >= lo) & (r.slot < lo + n_slots)
+    slot = torch.where(mine, r.slot - lo, n_slots).to(torch.int32)
+    out = _experts(cfg, w, C.copy_to_model(xt),
+                   C.copy_to_model(r.gate_vals), r.order, slot, mine,
+                   n_slots)
+    return out.reshape(b, s, d), r.aux
 
 
 def _moe_local_experts(cfg: ModelConfig, router: torch.Tensor, w: dict,
@@ -350,9 +378,11 @@ def dropped_choices(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     expert-parallel mesh each data shard routes its own rows at its own
     capacity (the router gathered whole), under TP-in-expert the global
     groups route (``route_global``), and both counts are summed over the
-    data axes, the same on every rank; without a mesh ``moe.scan_chunk``'s
-    groups each route at theirs.  int64 tensors."""
-    mesh, dp = manual_dp_context()
+    data axes, the same on every rank; without a mesh, or on one whose
+    data ranks each hold every row (``activations.whole_rows``), counted
+    once as ``moe.scan_chunk``'s groups each route at theirs.  int64
+    tensors."""
+    mesh, dp = manual_dp_context()[0], row_axes()
     b, s, d = x.shape
     t, ck = b * s, cfg.moe.scan_chunk
     with torch.no_grad():
@@ -365,7 +395,7 @@ def dropped_choices(cfg: ModelConfig, p: MoE, x: torch.Tensor):
             router = C.gather_whole(p.router, p.router._pspec, mesh)
             xt = x.reshape(t, d)
             r = route_global(cfg, router, xt, mesh, dp) \
-                if tp_in_expert(cfg, mesh.size("model")) \
+                if tp_in_expert(cfg, mesh.size("model")) or not dp \
                 else route(cfg, router, xt)
             dropped = int((~r.keep).sum())
         out = torch.tensor([dropped, t * cfg.moe.top_k], dtype=torch.int64,

@@ -39,6 +39,18 @@ rank runs the recurrence kernel on its H / |model| heads.  The ranks'
 output each rank cuts to its d_up share, and ``w_down`` is row-parallel
 with the partial sums all-reduced.  Replicated leaves (``b_if``, ``b``,
 ``norm_scale``) are cut to the rank's heads (``model_columns``).
+
+With fewer heads than model ranks (``heads_below_model``: |model| a
+multiple of H, s = |model| / H ranks a head) the rules still split d_qk,
+d_in and 4d over "model", so a rank holds 1 / s of one head's q, k and v
+columns, and the heads do not divide: the states are whole on every rank.
+The mLSTM then runs ``_mlstm_shared`` (its docstring gives the exchanges
+and their bytes): every head's gates, the head's whole q and k gathered,
+the rank's v rows of head r // s, the state gathered whole.  The sLSTM's
+one recurrence a head cannot be split across processes, so every rank
+runs every head (its gates and ``w_h`` gathered whole): the state stays
+exact and equal on every rank, the gathered ``ys`` is y, and each rank's
+partial gradients meet in the gathers' reduce-scatters.
 """
 from __future__ import annotations
 
@@ -95,6 +107,16 @@ class MLSTM(nn.Module):
         self.norm_scale = L.param((d_in,), dt, device, fill=1.0)
 
 
+def heads_below_model(cfg: ModelConfig, md: int) -> bool:
+    """True where ranks of a model axis of ``md`` share each xLSTM head:
+    the heads are fewer than the ranks and |model| a multiple of them.
+    ``sharding/rules`` then split d_qk, d_in and 4d over "model" (which
+    ``model.check_mesh_servable`` requires to divide) and leave ``w_if``
+    and the states whole; each rank runs ``_mlstm_shared`` and every
+    sLSTM head."""
+    return cfg.n_heads < md and md % cfg.n_heads == 0
+
+
 # one mLSTM core's weights as a mesh rank uses them (its heads)
 _MLSTMW = collections.namedtuple(
     "_MLSTMW", "w_q w_k w_v w_z w_if b_if w_out norm_scale")
@@ -103,12 +125,23 @@ _MLSTMW = collections.namedtuple(
 def _mlstm_weights(cfg: ModelConfig, p: MLSTM, mesh):
     """(this rank's head count, the core's weights as the forward uses
     them): every head and the module itself, or on a mesh the rank's
-    heads."""
+    heads.  Where ranks share each head (``heads_below_model``) the
+    count is every head: ``b_if`` and, where the rules leave its 2H
+    columns whole, ``w_if`` through ``copy_to_model`` (each rank's use of
+    its head's gates gives them a partial gradient; split columns are
+    gathered at use instead, ``_mlstm_gates``), and ``norm_scale`` cut to
+    the rank's d_in block."""
     if mesh is None:
         return cfg.n_heads, p
     w_q, w_k, w_v, w_z, w_if, w_out = C.unshard(p.w_q, p.w_k, p.w_v, p.w_z,
                                                 p.w_if, p.w_out)
-    _, _, _, _, hd_v, hd_qk = mlstm_dims(cfg)
+    _, d_in, _, h_all, hd_v, hd_qk = mlstm_dims(cfg)
+    if heads_below_model(cfg, mesh.size("model")):
+        if w_if.shape[1] == 2 * h_all:          # not split over "model"
+            w_if = C.copy_to_model(w_if)
+        return h_all, _MLSTMW(w_q, w_k, w_v, w_z, w_if,
+                              C.copy_to_model(p.b_if), w_out,
+                              C.model_columns(p.norm_scale, w_v.shape[1]))
     h = w_q.shape[1] // hd_qk
     return h, _MLSTMW(w_q, w_k, w_v, w_z, w_if,
                       C.model_columns(p.b_if, 2 * h, groups=2), w_out,
@@ -118,18 +151,23 @@ def _mlstm_weights(cfg: ModelConfig, p: MLSTM, mesh):
 def _mlstm_gates(cfg: ModelConfig, p, x: torch.Tensor, h: int | None = None,
                  mesh=None):
     """Returns q, k, v (headed), log_f, log_i — all f32 except qkv — of
-    ``h`` heads (default all; on a mesh the rank's)."""
+    ``h`` heads (default all; on a mesh the rank's).  Where ranks share
+    each head (``heads_below_model``) q, k and v are the rank's columns,
+    (B, S, 1, hd / s) with s ranks a head, and the gates every head's."""
     _, _, _, h_all, hd_v, hd_qk = mlstm_dims(cfg)
     h = h or h_all
     b, s, _ = x.shape
     # the reference multiplies by the scale rounded to x's dtype
     k_scale = float(torch.tensor(hd_qk ** -0.5, dtype=x.dtype))
-    q = (x @ p.w_q.to(x.dtype)).reshape(b, s, h, hd_qk)
-    k = (x @ p.w_k.to(x.dtype)).reshape(b, s, h, hd_qk) * k_scale
-    v = (x @ p.w_v.to(x.dtype)).reshape(b, s, h, hd_v)
+    nh = max(p.w_q.shape[1] // hd_qk, 1)      # 1 where ranks share a head
+    q = (x @ p.w_q.to(x.dtype)).reshape(b, s, nh, -1)
+    k = (x @ p.w_k.to(x.dtype)).reshape(b, s, nh, -1) * k_scale
+    v = (x @ p.w_v.to(x.dtype)).reshape(b, s, nh, -1)
     gates = x @ p.w_if.to(x.dtype)
-    if mesh is not None:                 # [i | f] of the rank's heads
-        gates = torch.cat(L.model_blocks(gates, 2, mesh), -1)
+    if mesh is not None and not heads_below_model(cfg, mesh.size("model")):
+        gates = torch.cat(L.model_blocks(gates, 2, mesh), -1)  # its heads
+    elif mesh is not None and gates.shape[-1] != 2 * h:
+        gates = C.gather_for_split(gates, -1, mesh)   # every head's gates
     gates = gates.float() + p.b_if.float()
     i_pre, f_pre = gates[..., :h], gates[..., h:]
     log_i = i_pre.clamp(max=I_CLAMP)                     # (B, S, H)
@@ -181,42 +219,122 @@ def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     q, k, v, log_f, log_i = _mlstm_gates(cfg, w, x, h, mesh)
     z = x @ w.w_z.to(x.dtype)
     width = None if mesh is None else d_in
+    if mesh is not None and heads_below_model(cfg, mesh.size("model")):
+        y, st = _mlstm_shared(cfg, q, k, v, log_f, log_i, state, mesh)
+        y = L.gated_rmsnorm(y.to(x.dtype), z, w.norm_scale, width)
+        return _row_out(y @ w.w_out.to(x.dtype), mesh), st
 
     if state is not None and s == 1:
-        c, n = state["c"], state["n"]
-        f = torch.exp(log_f[:, 0])                       # (B, H)
-        i = torch.exp(log_i[:, 0])
-        kf, vf = k[:, 0].float(), v[:, 0].float()
-        vk = torch.einsum("bhv,bhk->bhvk", vf, kf)
-        c = c * f[..., None, None] + vk * i[..., None, None]
-        n = n * f[..., None] + kf * i[..., None]
-        qf = q[:, 0].float()
-        num = torch.einsum("bhvk,bhk->bhv", c, qf)
-        den = torch.einsum("bhk,bhk->bh", n, qf).abs()
-        y = num / den.clamp(min=1.0)[..., None]
+        y, c, n = _mlstm_step(state["c"], state["n"], q, k, v, log_f, log_i)
         y = y.reshape(b, 1, h * hd_v).to(x.dtype)
         y = L.gated_rmsnorm(y, z, w.norm_scale, width)
         return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c, "n": n}
 
     # ----- chunkwise parallel (prefill) --------------------------------------
+    if state is None:
+        state = init_mlstm_state(cfg, b, device=x.device, n_heads=h)
+    y, c_st, n_st = _mlstm_scan(cfg, state["c"], state["n"], q, k, v,
+                                log_f, log_i)
+    y = y.reshape(b, s, h * hd_v).to(x.dtype)
+    y = L.gated_rmsnorm(y, z, w.norm_scale, width)
+    return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c_st, "n": n_st}
+
+
+def _mlstm_step(c, n, q, k, v, log_f, log_i):
+    """One decode step of the heads given: q, k, v (B, 1, H, .), the
+    gates (B, 1, H), the state c (B, H, hd_v, hd_qk) and n (B, H, hd_qk).
+    Returns (y (B, H, hd_v) f32, c', n')."""
+    f = torch.exp(log_f[:, 0])                           # (B, H)
+    i = torch.exp(log_i[:, 0])
+    kf, vf = k[:, 0].float(), v[:, 0].float()
+    vk = torch.einsum("bhv,bhk->bhvk", vf, kf)
+    c = c * f[..., None, None] + vk * i[..., None, None]
+    n = n * f[..., None] + kf * i[..., None]
+    qf = q[:, 0].float()
+    num = torch.einsum("bhvk,bhk->bhv", c, qf)
+    den = torch.einsum("bhk,bhk->bh", n, qf).abs()
+    return num / den.clamp(min=1.0)[..., None], c, n
+
+
+def _mlstm_scan(cfg: ModelConfig, c_st, n_st, q, k, v, log_f, log_i):
+    """The chunkwise run over S steps (a multiple of the chunk) of the
+    heads given, from the state (c, n).  Returns (y (B, S, H, hd_v) f32,
+    c', n')."""
+    b, s = q.shape[:2]
     ck = min(cfg.ssm.chunk, s)
     assert s % ck == 0, (s, ck)
     nc = s // ck
     chunks = [t.reshape(b, nc, ck, *t.shape[2:]).transpose(0, 1)
               for t in (q, k, v, log_f, log_i)]
-    if state is None:
-        state = init_mlstm_state(cfg, b, device=x.device, n_heads=h)
-    c_st, n_st = state["c"], state["n"]
     mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
-                                 device=x.device))
+                                 device=q.device))
     ys = []
     for ci in range(nc):
         y, c_st, n_st = _mlstm_chunk(c_st, n_st,
                                      *(t[ci] for t in chunks), mask)
         ys.append(y)
-    y = torch.stack(ys, 1).reshape(b, s, h * hd_v).to(x.dtype)
-    y = L.gated_rmsnorm(y, z, w.norm_scale, width)
-    return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c_st, "n": n_st}
+    return torch.stack(ys, 1).reshape(b, s, *ys[0].shape[2:]), c_st, n_st
+
+
+def _mlstm_shared(cfg: ModelConfig, q, k, v, log_f, log_i, state, mesh):
+    """One rank's mLSTM where s = |model| / H ranks share each head
+    (``heads_below_model``): its q, k and v columns (B, S, 1, hd / s) are
+    1 / s of head r // s's qk and v dims, its gates every head's, and the
+    state (c, n) whole on every rank (the rules replicate it).  Returns
+    (the rank's block of y (B, S, d_in / |model|) in f32, the whole state).
+
+    The recurrence splits exactly by v rows, but the den |n·q| and the
+    chunk's scores q·k need a head's whole qk dims.  Decode gathers q, k
+    and v whole over "model" in one collective (the replicated state's
+    update needs every head's k and v on every rank) and steps every
+    head as one device.  A chunkwise run gathers q and k (``gather_for_
+    split``, whose backward reduce-scatters) and runs head r // s on the
+    rank's v rows; the final state's rows are gathered over "model" once
+    (no gradient: nothing trains through it).  Every rank's state has
+    the same bits.  Bytes one rank sends a layer (``collectives.WIRE``,
+    PERF.md; ``a`` bytes an element): decode (|model| - 1) B (2 d_qk +
+    d_in) a / |model|, where gathering the state's rows instead would
+    send (|model| - 1) B d_in hd_qk 4 / |model|; chunkwise (|model| - 1)
+    B (2 S d_qk a / |model| + 4 hd_qk (d_in / |model| + 1)), where
+    gathering v too and running every head (as decode) would send
+    (|model| - 1) B S (2 d_qk + d_in) a / |model|."""
+    md, r = mesh.size("model"), C.model_index(mesh)
+    _, d_in, d_qk, h, hd_v, hd_qk = mlstm_dims(cfg)
+    sh = md // h
+    hh = r // sh
+    b, sl = q.shape[:2]
+    if state is not None and sl == 1:
+        qkv = C.gather_for_split(torch.cat([t.reshape(b, 1, -1)
+                                            for t in (q, k, v)], -1),
+                                 -1, mesh).reshape(b, 1, md, -1)
+        wq, wv = d_qk // md, d_in // md
+        q, k, v = (qkv[..., a:a + n].reshape(b, 1, h, -1)
+                   for a, n in ((0, wq), (wq, wq), (2 * wq, wv)))
+        y, c, n = _mlstm_step(state["c"], state["n"], q, k, v, log_f,
+                              log_i)
+        y = y.reshape(b, 1, d_in)[..., r * d_in // md:(r + 1) * d_in // md]
+        return y, {"c": c, "n": n}
+    # chunkwise: head hh's whole q and k, the rank's v rows of it
+    qk = C.gather_for_split(torch.cat([q, k], -1).reshape(b, sl, -1), -1,
+                            mesh).reshape(b, sl, h, sh, 2, -1)[:, :, hh]
+    q, k = (qk[..., j, :].reshape(b, sl, 1, hd_qk) for j in (0, 1))
+    rows = slice((r % sh) * hd_v // sh, (r % sh + 1) * hd_v // sh)
+    if state is None:
+        state = init_mlstm_state(cfg, b, device=q.device)
+    y, c_st, n_st = _mlstm_scan(
+        cfg, state["c"][:, hh:hh + 1, rows], state["n"][:, hh:hh + 1], q, k,
+        v, log_f[..., hh:hh + 1], log_i[..., hh:hh + 1])
+    y = y.reshape(b, sl, -1)
+    # the whole state: every rank's rows of its head's c, and each head's
+    # n from the first of its ranks (its s ranks hold the same n)
+    with torch.no_grad():
+        part = torch.cat([c_st.reshape(b, -1), n_st.reshape(b, -1)], -1)
+        every = C.all_gather(part.detach()[None], "model", 0, mesh)
+        nv = c_st[0].numel()
+        c = every[..., :nv].reshape(h, sh, b, hd_v // sh, hd_qk) \
+            .permute(2, 0, 1, 3, 4).reshape(b, h, hd_v, hd_qk)
+        n = every[::sh, :, nv:].permute(1, 0, 2)
+    return y, {"c": c.contiguous(), "n": n.contiguous()}
 
 
 def _row_out(y: torch.Tensor, mesh) -> torch.Tensor:
@@ -283,6 +401,14 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     if mesh is None:
         w_x, w_h, w_up, w_down = p.w_x, p.w_h, p.w_up, p.w_down
         xg = x @ w_x.to(x.dtype) + p.b.to(x.dtype)          # (B, S, 4d)
+    elif heads_below_model(cfg, mesh.size("model")):
+        # every head on every rank: the gates and w_h gathered whole (the
+        # bias added to the rank's columns first), the state whole
+        w_x, w_h, w_up, w_down = C.unshard(p.w_x, p.w_h, p.w_up, p.w_down)
+        xg = C.gather_for_split(
+            C.copy_to_model(x) @ w_x.to(x.dtype)
+            + C.model_columns(p.b, w_x.shape[1]).to(x.dtype), -1, mesh)
+        w_h = C.gather_for_split(w_h, 2, mesh)
     else:
         w_x, w_h, w_up, w_down = C.unshard(p.w_x, p.w_h, p.w_up, p.w_down)
         h //= mesh.size("model")
@@ -308,7 +434,8 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     if mesh is None:
         u, g = (y @ w_up.to(x.dtype)).chunk(2, dim=-1)
     else:               # y whole, then the rank's share of u and of g
-        y = C.gather_for_split(y, -1, mesh)
+        if h < cfg.n_heads:
+            y = C.gather_for_split(y, -1, mesh)
         u, g = L.model_blocks(y @ w_up.to(x.dtype), 2, mesh)
     y = _row_out((u * F.gelu(g, approximate="tanh")) @ w_down.to(x.dtype),
                  mesh)

@@ -73,10 +73,15 @@ cache; an MoE's experts expert-parallel, each model rank its E /
 experts than ranks each expert's d_ff split, routed as one device; the
 Mamba2,
 mLSTM and sLSTM blocks by heads, each rank holding its rows' and heads'
-recurrent state), and the logits and invoke stats come back gathered
+recurrent state; with fewer xLSTM heads than model ranks every head's
+state whole), and the logits and invoke stats come back gathered
 and all-reduced, so the sampled tokens and what the controllers read
-are bitwise equal on every rank.  A mesh that does not divide the model
-raises (``model.check_mesh_servable``).
+are bitwise equal on every rank.  A slot table that does not divide over
+the data axes is whole on every data rank (each dispatches every slot as
+one device, at one device's capacities, stats counted once; a dense or
+ring KV cache split over the data ranks by sequence, whose length must
+then divide over them).  A mesh that does not divide the model raises
+(``model.check_mesh_servable``).
 """
 from __future__ import annotations
 
@@ -218,7 +223,9 @@ class DecodeServer:
         o = self.options = options if options is not None else ServeOptions()
         self.mesh = o.mesh
         if self.mesh is not None:
-            M.check_mesh_servable(cfg, self.mesh, o.batch)
+            M.check_mesh_servable(cfg, self.mesh, o.batch,
+                                  max_len=o.max_len,
+                                  paged=bool(o.kv_page_size))
         if cfg.input_mode != "tokens":
             raise ValueError(f"{cfg.name} takes embeddings (input_mode="
                              f"{cfg.input_mode!r}); the server feeds token "
@@ -443,9 +450,11 @@ class DecodeServer:
             drop_budget=o.drop_budget, **kw)
 
     def _dp_shards(self) -> int:
-        """The data shards the batch splits over (1 without a mesh)."""
-        return 1 if self.mesh is None else self.mesh.size(
-            R.dp_axes(self.mesh))
+        """The data shards the batch splits over (1 without a mesh, and
+        where the batch does not divide over the data axes: every data
+        rank then holds every slot)."""
+        g = 1 if self.mesh is None else self.mesh.size(R.dp_axes(self.mesh))
+        return g if self.batch % g == 0 else 1
 
     def _mesh_ctx(self):
         return steps_lib.serve_mesh_context(self.mesh)
@@ -1008,10 +1017,11 @@ class DecodeServer:
         if k is None:
             return 0
         # a shard holds its kv heads (or its head_dim slice of each), and
-        # on a dense cache its rows
+        # on a dense cache 1 / |data| of it: its rows, or where the batch
+        # does not divide, its slice of the sequence
+        g = 1 if self.mesh is None else self.mesh.size(R.dp_axes(self.mesh))
         split = self.cfg.n_kv_heads * self.cfg.hd \
-            // (k.shape[3] * k.shape[4]) * (
-                1 if self.page_size else self.batch // k.shape[1])
+            // (k.shape[3] * k.shape[4]) * (1 if self.page_size else g)
         if not self.page_size:
             return 2 * k.numel() * k.element_size() * split
         per_page = 2 * k[:, 0].numel() * k.element_size() * split

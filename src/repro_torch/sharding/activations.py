@@ -15,6 +15,15 @@ residual stream.  Here every rank runs its own program on its own rows
 (one process per rank, torch.distributed), so there is no partitioner to
 steer: ``constrain``, ``constrain_logits`` and ``constrain_tokens`` are
 identities, kept so that code written against the reference's API runs.
+
+A served batch that does not divide over the data axes (the reference's
+``batch_pspec`` replicates such rows) runs inside ``whole_rows``: every
+data rank holds every row and computes what one device computes, the
+weights still FSDP over "data" and tensor-parallel over "model".
+``row_axes`` then names no axis, so nothing that counts rows (a plan's
+stats, the MoE's routing and drops, the logits' gather) adds the data
+ranks' copies together, and ``context_parallel`` gives the data axes a
+dense or ring KV cache is split over by sequence (``layers.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from contextvars import ContextVar
 
 _SPEC: ContextVar = ContextVar("activation_spec", default=None)
 _MESH: ContextVar = ContextVar("activation_mesh", default=None)
+_WHOLE: ContextVar = ContextVar("whole_rows", default=False)
 
 
 @contextlib.contextmanager
@@ -58,10 +68,10 @@ def with_current_context(fn):
     sees wherever it runs later: the backward's recompute of a
     checkpointed block runs on autograd's device thread, which context
     variables do not reach."""
-    spec, mesh = _SPEC.get(), _MESH.get()
+    spec, mesh, whole = _SPEC.get(), _MESH.get(), _WHOLE.get()
 
     def bound(*args):
-        with activation_sharding(spec, mesh):
+        with activation_sharding(spec, mesh), whole_rows(whole):
             return fn(*args)
     return bound
 
@@ -96,3 +106,34 @@ def manual_dp_context():
         return None, ()
     dp = spec[0]
     return mesh, tuple(dp) if isinstance(dp, (tuple, list)) else (dp,)
+
+
+@contextlib.contextmanager
+def whole_rows(on: bool = True):
+    """Within the block (``on``) every data rank holds the whole batch:
+    a served batch below the data axes, replicated over them as the
+    reference's ``batch_pspec`` places it."""
+    tok = _WHOLE.set(bool(on))
+    try:
+        yield
+    finally:
+        _WHOLE.reset(tok)
+
+
+def row_axes() -> tuple:
+    """The axes the rows in flight are split over: the data axes inside a
+    batch-sharded mesh context, none outside one or under
+    ``whole_rows`` (every data rank holds every row)."""
+    mesh, dp = manual_dp_context()
+    return () if mesh is None or _WHOLE.get() else dp
+
+
+def context_parallel():
+    """(mesh, data axes) where the rows are whole on every data rank of a
+    mesh with more than one (``whole_rows``): a dense or ring KV cache is
+    then split over the data axes by sequence (``rules.cache_pspecs``),
+    each rank attending over its slice.  None elsewhere."""
+    mesh, dp = manual_dp_context()
+    if mesh is None or not _WHOLE.get() or mesh.size(dp) == 1:
+        return None
+    return mesh, dp

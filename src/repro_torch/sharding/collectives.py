@@ -648,9 +648,12 @@ def barrier():
 
 
 def local_rows(mesh, dp, n: int) -> slice:
-    """This rank's rows of an ``n``-row batch sharded over ``dp``."""
+    """This rank's rows of an ``n``-row batch sharded over ``dp``; every
+    row where ``n`` does not divide over them (a served batch below the
+    data axes is whole on every data rank, ``activations.whole_rows``)."""
     g = mesh.size(dp)
-    assert n % g == 0, (n, g)
+    if n % g:
+        return slice(0, n)
     w = n // g
     i = mesh.index(dp)
     return slice(i * w, (i + 1) * w)

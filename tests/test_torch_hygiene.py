@@ -80,10 +80,11 @@ SCHEDULER = {"kv_page_size": 4, "kv_pages": 8, "prefill_chunk": 4,
 # (arch, mesh, what the refusal names): every family serves and trains on
 # a mesh, and a model axis that does not divide a width its tensor- or
 # expert-parallel branch splits is a layout departure (queue 3): the smoke
-# xLSTM's 4 heads, the smoke hybrid's 8 Mamba2 heads and the smoke MoE's
-# 4 experts over 3, whose d_ff of 128 does not divide either (experts that
-# do not divide run TP-in-expert when each expert's d_ff does; the
-# reference places the rest with the compiler)
+# xLSTM's 4 heads over 3 (heads below |model| serve where |model| is a
+# multiple of them, ROADMAP item 16b), the smoke hybrid's 8 Mamba2 heads
+# and the smoke MoE's 4 experts over 3, whose d_ff of 128 does not divide
+# either (experts that do not divide run TP-in-expert when each expert's
+# d_ff does; the reference places the rest with the compiler)
 FAMILY_REFUSALS = {
     "xlstm-heads-over-model": (
         "xlstm-1.3b", (1, 3), "heads=4, d_up=128.*ROADMAP queue 3"),
@@ -110,9 +111,10 @@ def test_mesh_refuses_a_family_width_it_cannot_divide(case):
 @pytest.mark.parametrize("shape", [(3, 2), (1, 3)],
                          ids=["batch-over-data", "d_ff-over-model"])
 def test_mesh_refuses_a_layout_it_cannot_divide(shape):
-    """Where the sharded serve path's predicate fails (the batch over the
-    data axes, d_ff and the heads over model) the reference falls back
-    to compiler-placed sharding; the port refuses."""
+    """Where the sharded serve path's layout fails (d_ff and the heads over
+    model; a batch below the data axes whose cache length, the server's
+    max_len of 256, does not divide over them either) the reference
+    falls back to compiler-placed sharding; the port refuses."""
     cfg = _cfg()
     params = M.init_model(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
@@ -143,7 +145,8 @@ def test_train_mesh_refuses_a_family_width_it_cannot_divide(case):
 def test_train_mesh_refuses_a_layout_it_cannot_divide(shape, batch):
     """A mesh the microbatch, the heads, the kv heads, d_ff or the vocab
     do not divide is refused, where the reference falls back to
-    compiler-placed sharding (ROADMAP queue 3)."""
+    compiler-placed sharding (ROADMAP queue 3; a microbatch below the
+    data axes is item 16d)."""
     cfg = _cfg()
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=batch)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):

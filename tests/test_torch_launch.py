@@ -312,8 +312,9 @@ def test_fake_world_records_what_a_gloo_world_records(worlds, case):
 
 
 def test_a_refused_cell_is_written_with_the_refusal():
-    """The smoke xLSTM's 4 heads over a model axis of 3 (its heads below
-    or not dividing |model| are ROADMAP item 16b)."""
+    """The smoke xLSTM's 4 heads over a model axis of 3: neither divides
+    the other (heads below |model| serve where |model| is a multiple of
+    them, ROADMAP item 16b), a width the port still refuses."""
     cfg = _smoke("xlstm-1.3b")
     shape = B.ShapeConfig("decode_smoke", "decode", 64, 8)
     cell = dryrun.run_cell("xlstm-1.3b", "decode_smoke", "single",
@@ -355,8 +356,9 @@ def test_load_cells_and_fmt_table(tmp_path):
                "chips": 256, "ok": False,
                "error": "NotImplementedError: mesh {'data': 16, 'model': "
                         "16} does not divide the sharded train path of "
-                        "xlstm-1.3b at microbatch 128 (heads=4 over "
-                        "model): the reference falls back"}
+                        "xlstm-1.3b at microbatch 8 (the microbatch over "
+                        "the data axes, below them ROADMAP item 16d; "
+                        "d_up=2816 over model): the reference falls back"}
     for c in (CELL, refused):
         with open(tmp_path / f"{c['arch']}__{c['shape']}__single.json",
                   "w") as f:
@@ -373,6 +375,6 @@ def test_load_cells_and_fmt_table(tmp_path):
     assert table[2].endswith("| coll | 0.06 | 3.0 | Y |")
     assert table[3].startswith("| xlstm-1.3b | train_4k | REFUSED: does "
                                "not divide")
-    assert "heads=4 over model" in table[3]
+    assert "ROADMAP item 16d" in table[3]
     assert set(roofline.LEVERS) == {"compute", "memory", "collective"}
     assert len(roofline.load_cells(str(tmp_path), "other")) == 1
