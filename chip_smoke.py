@@ -186,7 +186,7 @@ Phases (any failure raises and the script exits non-zero):
      examples/train_lm_mcma_torch.py at its smoke preset;
   17. [paper pipeline full width]: the paper's co-training at the
      reference's paper settings (the Fig. 6 sizes, 70,000 / 30,000 rows;
-     the paper topologies; 3 approximators, 5 iterations, lr 3e-3; 800 of
+     the paper topologies; 3 approximators, 5 iterations, lr 3e-3; 600 of
      the paper's 1500 epochs, for the script's time), float32 on the
      card: blackscholes through the methods of
      benchmarks/bench_paper.run_app that fit the phase's 150 s (one-pass,
@@ -316,7 +316,17 @@ Phases (any failure raises and the script exits non-zero):
      whole cache) and its float32 witness at one group; mixtral-8x7b at
      2 layers, float32, its ring split over the data ranks, 4 tokens from
      position 524,293 equal to one card's; every rank's tokens, logits
-     and replicated states bitwise equal;
+     and replicated states bitwise equal; then, in the same world,
+     [sequence-split training] (``seq_train_rank``, item 16d: a training
+     microbatch of 1 row below the 2 data ranks, every row on each and
+     half its positions): internvl2-76b at its widths cut to 1 of 80
+     layers, bf16, remat, MCMA on, one train step of 1 x 1024 without
+     the AdamW update (finite; every rank's loss, metrics, norm and
+     shared gradients bitwise equal; ms, collectives and staged bytes,
+     peak memory a rank), its float32 witness at the vocab cut to 32064
+     and 1 x 512 against one card's (loss 1e-5, gradients 1e-4 in
+     norm), and xlstm-1.3b at one group, float32, 1 x 512 (the same
+     tolerances; data rank 1's sLSTM launch from data rank 0's state);
   21. a check that every process the phases started has ended (no
      child of this process is left: ``spawn_world`` stops its fork
      server and resource tracker before it returns), then a JSON line
@@ -327,7 +337,8 @@ Phases (any failure raises and the script exits non-zero):
      runs and phase 20d's rank step; their
      ``at_widths`` the d 2560 and d 8192 timings of phase 12, their
      ``at_rank_shapes`` one row at d 2560 (a batch below the data axes);
-     slstm_scan's ``at_rank_shapes`` a mesh rank's shapes; the MoE
+     slstm_scan's ``at_rank_shapes`` a mesh rank's shapes (a sequence
+     slice of a training row among them); the MoE
      phases, on one card and on a mesh, launch none of the four), then
      the result line.
 """
@@ -380,7 +391,10 @@ SLSTM_RANK = {"rank decode h1": (1, 8, 1, 512),
               # below the data axes, and the one-group train witness's
               # microbatch on (2, 8) ([long context mesh full width])
               "rank decode heads shared": (1, 1, 4, 512),
-              "rank train heads shared": (64, 2, 4, 512)}
+              "rank train heads shared": (64, 2, 4, 512),
+              # a training microbatch of 1 row below the 2 data ranks of
+              # [long context mesh full width]: half of its 512 positions
+              "rank train sequence slice": (256, 1, 4, 512)}
 SLSTM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # full width; sweeps 1e-5
 # and at batches a larger slot table gives it (checked, not timed)
 SLSTM_WIDE_BATCH = [(16, 64, 4, 512), (4, 256, 4, 512)]
@@ -400,12 +414,13 @@ TRAIN_ERROR_BOUND = 1.4
 TRAIN_RESUME = dict(batch=4, seq=32, save_at=3, steps=6)
 SLSTM_GRAD_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # the paper pipeline at the reference's paper settings
-# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32) but 800 of their
+# (benchmarks/bench_paper.py:24, Fig. 6 sizes, float32) but 600 of their
 # 1500 epochs: with [narrow mesh full width] the script took 1017.5 s on
-# an H100 host where this phase took 272.3 s (1000 epochs then), and
-# 1210.4 s with [long context mesh full width] (800 since); block_t as in
-# examples/approx_bessel.py
-PAPER = dict(epochs=800, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
+# an H100 host where this phase took 272.3 s (1000 epochs then), 1210.4
+# s with [long context mesh full width] (800 then), and 976.0 s with
+# [sequence-split training] (600 since: this phase took 124.6 s at 800);
+# block_t as in examples/approx_bessel.py
+PAPER = dict(epochs=600, n_approx=3, iters=5, lr=3e-3, switch_rate=0.5,
              block_t=128, seed=0)
 # card against CPU: 10 epochs keep two implementations' RMSprop
 # trajectories at ulp distance (past about 100 epochs elements with a
@@ -548,6 +563,30 @@ TRAIN_NARROW = dict(batch=4, seq=128, grad_accum=1, steps=1, warmup=1)
 LONG = dict(shape=(2, 8), exchange_mib=32, xlstm_prompt=3, xlstm_new=2,
             max_len=64, ctx=524288, fill=8192, zamba2_groups=3,
             swa_layers=2, swa_pos=524293, swa_steps=4, steps=5, tol=1e-4)
+
+# [sequence-split training], inside the world of [long context mesh full
+# width]: a training microbatch below its 2 data ranks, every row on
+# each and half the positions (``activations.sequence_split``).
+# internvl2-76b at its widths (d 8192, 64 heads, 8 kv heads, d_ff 28672,
+# vocab 128256; seeded stub embeddings in, as its input_mode takes) cut
+# to `layers` of its 80, bf16, remat, MCMA on: one train step's forward,
+# backward, gradient reduction over the data axes and global-norm clip
+# on 1 row of `seq` positions.  Cut for the 16 ranks that share the card
+# (10.7 GB of contexts; my chip runs, PR 29): no AdamW update (the two
+# vocab tables split over "model" only leave each rank 333 M parameters,
+# whose float32 moments, 2.66 GB a rank, ran the card out of memory
+# beside the step), and 1024 positions, not train_4k's 4096.  Then
+# float32 at one layer with the vocab cut to `witness_vocab` (the float32
+# tables and their gradients, 2.1 GB a rank, and the layer's FSDP gathers
+# would not fit 16 ranks), 1 row of `witness_seq` positions: the mesh's
+# loss_and_grads against one card's (computed before the world, its
+# gradients handed to the ranks in host shared memory).  xlstm-1.3b at
+# one group, float32, 1 row of 512 positions: the sLSTM kernel of data
+# rank 1 runs from the state data rank 0 hands over.
+SEQ_TRAIN = dict(arch="internvl2-76b", layers=1, seq=1024, witness_seq=512,
+                 witness_vocab=32064, loss_tol=1e-5, norm_tol=1e-4,
+                 xlstm=dict(batch=1, seq=512, loss_tol=1e-5, norm_tol=1e-4,
+                            grad_tol=1e-4))
 
 # [analysis full width]: the residency sets of the library's 3 resident
 # slots, the route scope whose steps are audited (the serving
@@ -1909,6 +1948,24 @@ def train_run(torch, cfg, shape, dev, tc_kw=None, mesh=None):
                        warmup=shape["warmup"], **(tc_kw or {}))
     tr = Trainer(cfg, tc, ds, mesh=mesh, seed=0, device=dev)
     return tr, MetricsRecorder(tr)
+
+
+def in_turns(torch, mesh, fn):
+    """``fn()`` on every rank of ``mesh``'s world one rank at a time (at
+    once without a mesh): ranks that share the card draw each parameter
+    whole before cutting their shard (``model.init_model(mesh=)``), and
+    16 ranks drawing internvl2-76b's 4.2 GB float32 token table at once
+    would not fit beside what they hold."""
+    from repro_torch.sharding import collectives as C
+    if mesh is None:
+        return fn()
+    out = None
+    for r in range(mesh.devices.size):
+        if r == mesh.rank:
+            out = fn()
+            release(torch)
+        C.barrier()
+    return out
 
 
 def train_dense_full_width(np, torch, dev="cuda", cfg=None,
@@ -4791,10 +4848,13 @@ def ssm_train_cfg(arch, **kw):
     return cfg
 
 
-def train_ssm_mesh_witness(np, torch, arch, mesh):
+def train_ssm_mesh_witness(np, torch, arch, mesh, w=None):
     """The float32 witness of [train ssm mesh], one rank: ``arch`` at its
     widths cut to one group, remat; ``loss_and_grads`` on ``mesh`` on the
-    rank's rows of a small batch.  Rank 0 also runs one card and holds
+    rank's rows of a small batch (``w``, default TRAIN_SSM_MESH's; a
+    batch below the data axes: every row and the rank's slice of the
+    positions, ``activations.sequence_split``).  Rank 0 also runs one
+    card and holds
     each gradient leaf, gathered whole one at a time, to it: the loss of
     each, the squared sums of the gaps and of the gradient, the worst
     leaf's relative gap in norm and the worst elementwise gap against the
@@ -4803,21 +4863,30 @@ def train_ssm_mesh_witness(np, torch, arch, mesh):
     from repro_torch.models import model as M
     from repro_torch.runtime import steps as S
     from repro_torch.sharding import collectives as C
-    w = TRAIN_SSM_MESH["witness"]
+    w = w or TRAIN_SSM_MESH["witness"]
     cfg = ssm_train_cfg(arch, param_dtype="float32", act_dtype="float32")
     batch = SyntheticLM(vocab=cfg.vocab, seq_len=w["seq"],
                         global_batch=w["batch"], seed=1).batch_at(0)
     local = {k: v.cuda() for k, v in local_batch(batch, mesh, 1).items()}
     state = S.init_train_state(0, cfg, device="cuda", mesh=mesh)
     named = dict(state["params"].named_parameters())
-    with S.train_mesh_context(mesh):
+    torch.cuda.synchronize()
+    C.barrier()
+    t0 = time.time()
+    with S.train_mesh_context(mesh, w["batch"]):
         loss_m, _, grads_m = S.loss_and_grads(cfg, state["params"], local)
-    out = dict(loss_mesh=float(loss_m))
+    torch.cuda.synchronize()
+    out = dict(loss_mesh=float(loss_m),
+               ms_mesh=C.world_max(time.time() - t0) * 1e3)
     want = None
     if mesh.rank == 0:
         one = M.init_model(0, cfg, device="cuda").requires_grad_(True)
         full = {k: v.cuda() for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
         loss_s, _, want = S.loss_and_grads(cfg, one, full)
+        torch.cuda.synchronize()
+        out["ms_single"] = (time.time() - t0) * 1e3
         # the gradients' own rounding-level noise: one card again with
         # every parameter moved by a relative 1e-7 (seeded)
         gen = torch.Generator().manual_seed(3)
@@ -5549,12 +5618,216 @@ def long_swa(np, torch, mesh=None):
     return out
 
 
-def long_mesh_rank(rank, out_dir):
+def seq_cfg(dtype, **over):
+    """internvl2-76b as [sequence-split training] trains it: cut to
+    SEQ_TRAIN's layers, remat, the ApproxFFN with the tick router at
+    TRAIN_ERROR_BOUND, in ``dtype``, ``over`` replacing fields."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(SEQ_TRAIN["arch"])
+    return dataclasses.replace(
+        cfg, n_layers=SEQ_TRAIN["layers"], remat=True, param_dtype=dtype,
+        act_dtype=dtype, approx=dataclasses.replace(
+            cfg.approx, enable=True, route_scope="tick",
+            error_bound=TRAIN_ERROR_BOUND), **over)
+
+
+def seq_batch(torch, cfg, seq: int) -> dict:
+    """One row of ``seq`` positions on the CPU: seeded stub embeddings (1,
+    S, d) in float32, as internvl2's ``input_mode="embeddings"`` takes
+    them, and the synthetic stream's labels."""
+    from repro_torch.data.pipeline import SyntheticLM
+    labels = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=1,
+                         seed=1).batch_at(0)["labels"]
+    gen = torch.Generator().manual_seed(1000)
+    return {"inputs": torch.randn((1, seq, cfg.d_model), generator=gen),
+            "labels": labels}
+
+
+def witness_cfg():
+    return seq_cfg("float32", vocab=SEQ_TRAIN["witness_vocab"])
+
+
+def seq_train_reference(np, torch):
+    """One card's float32 ``loss_and_grads`` of [sequence-split training]'s
+    witness: the loss, and every gradient but the unused token table's
+    (exactly 0: the model takes embeddings) in host shared memory, for
+    the world's ranks."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    cfg = witness_cfg()
+    params = M.init_model(0, cfg, device="cuda").requires_grad_(True)
+    batch = seq_batch(torch, cfg, SEQ_TRAIN["witness_seq"])
+    loss, _, grads = S.loss_and_grads(
+        cfg, params, {k: v.cuda() for k, v in batch.items()})
+    tok = grads.pop("embed.tok")
+    assert not tok.any(), "the token table of an embeddings model trains"
+    ref = {"loss": float(loss),
+           "grads": {k: g.cpu().share_memory_() for k, g in grads.items()}}
+    del params, grads, tok
+    release(torch)
+    return ref
+
+
+def _sq_sum(t) -> float:
+    """The sum of squares of ``t`` in float64, 16 M elements at a time."""
+    return sum(float((c.double() ** 2).sum())
+               for c in t.reshape(-1).split(1 << 24))
+
+
+def seq_train_bf16(np, torch, mesh):
+    """[sequence-split training]'s bf16 step on one rank: internvl2-76b at
+    SEQ_TRAIN's layers, its shards drawn in turns, ``loss_and_grads`` on 1
+    row of SEQ_TRAIN["seq"] (the rank's half of the positions) and the
+    global-norm clip over the shards: the loss, the metrics and the norm,
+    the slowest rank's ms, the collectives and switch launches, the peak
+    memory from the step's start, a digest of each gradient replicated
+    over the data axes."""
+    import hashlib
+
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import dp_axes
+    cfg = seq_cfg("bfloat16")
+    t0 = time.time()
+    params = in_turns(torch, mesh, lambda: M.init_model(
+        0, cfg, device="cuda", mesh=mesh).requires_grad_(True))
+    init_s = time.time() - t0
+    named = dict(params.named_parameters())
+    local = {k: v.cuda() for k, v in local_batch(
+        seq_batch(torch, cfg, SEQ_TRAIN["seq"]), mesh, 1).items()}
+    torch.cuda.synchronize()
+    C.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    zero_switch()
+    C.reset_counts()
+    t0 = time.time()
+    with S.train_mesh_context(mesh, 1):
+        loss, metrics, grads = S.loss_and_grads(cfg, params, local)
+    grads, norm = clip_by_global_norm(
+        grads, 1.0, mesh=mesh, specs={k: p._pspec for k, p in named.items()})
+    torch.cuda.synchronize()
+    ms = C.world_max(time.time() - t0) * 1e3
+    dp = dp_axes(mesh)
+    out = dict(loss=float(loss), norm=float(norm), ms=ms, init_s=init_s,
+               metrics={k: float(v) for k, v in metrics.items()},
+               counts=dict(C.COUNTS), launches=switch_launches(),
+               peak=torch.cuda.max_memory_allocated(),
+               n_local=sum(p.numel() for p in named.values()),
+               digests={k: (C.spec_axes(mesh, named[k]._pspec),
+                            hashlib.sha1(g.contiguous().view(-1).view(
+                                torch.uint8).cpu().numpy()).hexdigest())
+                        for k, g in grads.items()
+                        if not C._dp_dims(named[k]._pspec, dp)},
+               finite=all(bool(torch.isfinite(g).all())
+                          for g in grads.values()))
+    del params, named, grads, local
+    release(torch)
+    C.barrier()
+    return out
+
+
+def seq_train_witness(np, torch, mesh, ref):
+    """The float32 witness of [sequence-split training] on one rank: the
+    mesh's ``loss_and_grads`` on 1 row (the rank's half of the positions)
+    from the one card's draw (ranks drawing in turns), each gradient
+    block held to the same block of one card's (``ref``): the sums of
+    the squared gaps and of the squared gradient over every block (each
+    counted by the first rank that holds it, summed over the world), the
+    worst elementwise gap."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import local_batch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    from repro_torch.sharding import collectives as C
+    cfg = witness_cfg()
+    local = {k: v.cuda() for k, v in local_batch(
+        seq_batch(torch, cfg, SEQ_TRAIN["witness_seq"]), mesh, 1).items()}
+    params = in_turns(torch, mesh, lambda: M.init_model(
+        0, cfg, device="cuda", mesh=mesh).requires_grad_(True))
+    named = dict(params.named_parameters())
+    with S.train_mesh_context(mesh, 1):
+        loss, _, grads = S.loss_and_grads(cfg, params, local)
+    sums = torch.zeros(2, dtype=torch.float64)
+    worst, tok = 0.0, 0.0
+    for k in list(grads):
+        g = grads.pop(k)
+        if k == "embed.tok":
+            tok = float(g.abs().max())
+            continue
+        spec = named[k]._pspec
+        want = C.shard_tensor(mesh, ref["grads"][k], spec).cuda()
+        gap = g - want
+        worst = max(worst, float(gap.abs().max()))
+        held = C.spec_axes(mesh, spec)
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in held):
+            sums += torch.tensor([_sq_sum(gap), _sq_sum(want)],
+                                 dtype=torch.float64)
+        del g, want, gap
+    dist.all_reduce(sums)
+    out = dict(loss=float(loss), gap_sq=float(sums[0]),
+               ref_sq=float(sums[1]), worst=worst, tok=tok)
+    del params, named, local
+    release(torch)
+    C.barrier()
+    return out
+
+
+def seq_train_rank(np, torch, mesh, ref):
+    """[sequence-split training] on one rank of the (2, 8) world: the
+    bf16 step of internvl2-76b, its float32 witness against one card
+    (``ref``), and the xlstm-1.3b witness at one group, each sLSTM
+    launch's initial state h0 recorded (data rank 1's first call starts
+    from data rank 0's last state)."""
+    from repro_torch.kernels import slstm_scan as K
+    from repro_torch.models import xlstm
+    from repro_torch.sharding import sequence
+    out, t0 = {}, time.time()
+    out["bf16"] = seq_train_bf16(np, torch, mesh)
+    out["s_bf16"] = time.time() - t0
+    t0 = time.time()
+    out["witness"] = seq_train_witness(np, torch, mesh, ref)
+    out["s_witness"] = time.time() - t0
+    t0 = time.time()
+    real, h0 = xlstm.slstm_scan, []
+    rounds, handoff = sequence._rounds, [0, 0]
+
+    def recording(xg, wh, h, *st):
+        h0.append((tuple(xg.shape), float(h.abs().max())))
+        return real(xg, wh, h, *st)
+
+    def counted(send, *a):              # the handoff's state gathers
+        handoff[0] += 1
+        handoff[1] += send.numel() * send.element_size()
+        return rounds(send, *a)
+    xlstm.slstm_scan, sequence._rounds = recording, counted
+    K.slstm_scan.launches = 0
+    try:
+        out["xlstm"] = train_ssm_mesh_witness(np, torch, "xlstm-1.3b", mesh,
+                                              SEQ_TRAIN["xlstm"])
+    finally:
+        xlstm.slstm_scan, sequence._rounds = real, rounds
+    out["xlstm"].update(slstm=K.slstm_scan.launches, h0=h0,
+                        handoff=handoff)
+    out["s_xlstm"] = time.time() - t0
+    return out
+
+
+def long_mesh_rank(rank, out_dir, seq_ref):
     """One rank of [long context mesh full width] on a (2, 8) mesh: the
     uncut xlstm-1.3b served at one slot, its float32 witness and train
     step's gradients at one group; zamba2-2.7b's long_500k tick and its
-    float32 witness; mixtral's ring decoding past 524,288.  The payload
-    to ``out_dir``."""
+    float32 witness; mixtral's ring decoding past 524,288; then
+    [sequence-split training] (``seq_train_rank``, against one card's
+    ``seq_ref``).  The payload to ``out_dir``."""
+    # a shard cut from a whole draw (``model.init_model(mesh=)``) would
+    # otherwise keep the draw's freed segment reserved around it:
+    # internvl2-76b's 3.9 GiB float32 token table a rank
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import numpy as np
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -5584,6 +5857,10 @@ def long_mesh_rank(rank, out_dir):
     out["swa"] = long_swa(np, torch, mesh)
     out["s"]["mixtral"] = time.time() - t0
     out["peak"] = torch.cuda.max_memory_allocated()
+    C.barrier()
+    t0 = time.time()
+    out["seq_train"] = seq_train_rank(np, torch, mesh, seq_ref)
+    out["s"]["sequence-split training"] = time.time() - t0
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
 
@@ -5603,9 +5880,15 @@ def long_mesh_full_width(np, torch):
     from repro_torch.models import xlstm
     shape = LONG["shape"]
     ranks = shape[0] * shape[1]
+    t0 = time.time()
+    seq_ref = seq_train_reference(np, torch)
+    log(f"  [sequence-split training] one card's float32 witness of "
+        f"{SEQ_TRAIN['arch']} ({SEQ_TRAIN['layers']} layer, vocab "
+        f"{SEQ_TRAIN['witness_vocab']}, 1 x {SEQ_TRAIN['witness_seq']}) in "
+        f"{time.time() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        spawn_world(long_mesh_rank, ranks, (tmp,), backend="gloo",
+        spawn_world(long_mesh_rank, ranks, (tmp, seq_ref), backend="gloo",
                     exchange_mib=LONG["exchange_mib"])
         log(f"  {ranks} ranks on a {shape} mesh (gloo, one card, "
             f"{LONG['exchange_mib']} MiB arena slots) in "
@@ -5799,7 +6082,108 @@ def long_mesh_full_width(np, torch):
     release(torch)
     assert xlstm.heads_below_model(long_cfg("xlstm-1.3b", "float32"),
                                    shape[1])
+    seq_train_gates(pay, seq_ref, runs)
     return runs
+
+
+def seq_train_gates(pay, ref, runs):
+    """[sequence-split training]'s gates and lines from the (2, 8) world's
+    payloads: the bf16 step finite, every rank's loss, metrics, norm and
+    shared gradients bitwise equal, no switch launch; the float32
+    witness's loss within SEQ_TRAIN's 1e-5 and its gradients within 1e-4
+    in norm of one card's; the xLSTM's likewise, with data rank 1's first
+    sLSTM launch starting from a handed-over (nonzero) state and data
+    rank 0's from zeros.  Adds the sLSTM runs to ``runs``."""
+    shape = LONG["shape"]
+    s0 = pay[0]["seq_train"]
+    b0 = s0["bf16"]
+    for r, p in enumerate(pay):
+        b = p["seq_train"]["bf16"]
+        same = [b[k] == b0[k] for k in ("loss", "norm", "metrics")]
+        if not (b["finite"] and math.isfinite(b["loss"]) and all(same)) \
+                or b["launches"]:
+            raise AssertionError(f"sequence-split training: rank {r}'s bf16 "
+                                 f"step: loss {b['loss']}, norm {b['norm']},"
+                                 f" finite {b['finite']}, switch launches "
+                                 f"{b['launches']}")
+        for k, (axes, digest) in b["digests"].items():
+            if all(p["coords"][a] == pay[0]["coords"][a] for a in axes) \
+                    and digest != b0["digests"][k][1]:
+                raise AssertionError(f"sequence-split training: rank {r}'s "
+                                     f"gradient of {k} differs from rank "
+                                     "0's")
+    c = b0["counts"]
+    cfg = seq_cfg("bfloat16")
+    log(f"  [sequence-split training] {cfg.name} cut to {cfg.n_layers} of "
+        f"80 layers (d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"stub embeddings in), bf16, remat, MCMA on, one train step "
+        f"(forward, backward, the gradients reduced over the data axes, "
+        f"the global-norm clip; no AdamW update) of 1 x {SEQ_TRAIN['seq']} "
+        f"on {shape} ({SEQ_TRAIN['seq'] // shape[0]} positions a rank): "
+        f"{b0['ms']:.1f} ms (slowest rank), loss {b0['loss']:.4f}, grad "
+        f"norm {b0['norm']:.4f}, invocation "
+        f"{b0['metrics'].get('invocation', 0):.3f}; per step per rank "
+        f"{c['all_gather']} all-gathers, {c['gather_for_split']} gathers "
+        f"for split, {c['all_reduce']} all-reduces, {c['reduce_scatter']} "
+        f"reduce-scatters, {c['staged']} host stagings of "
+        f"{c['staged_bytes'] / 2**30:.3f} GiB; 0 switch launches; every "
+        f"rank's loss, metrics, norm and shared gradients bitwise equal; "
+        f"{b0['n_local']} parameters a rank, drawn in turns in "
+        f"{b0['init_s']:.1f} s")
+    log("  [sequence-split training] peak memory per rank (bf16 step): "
+        + ", ".join(f"{p['seq_train']['bf16']['peak'] / 2**30:.2f}"
+                    for p in pay) + " GiB")
+    w = s0["witness"]
+    rel = math.sqrt(w["gap_sq"] / max(w["ref_sq"], 1e-300))
+    if any(p["seq_train"]["witness"]["loss"] != w["loss"] for p in pay) \
+            or abs(w["loss"] - ref["loss"]) > SEQ_TRAIN["loss_tol"] \
+            or rel > SEQ_TRAIN["norm_tol"] \
+            or any(p["seq_train"]["witness"]["tok"] for p in pay):
+        raise AssertionError(f"sequence-split training float32 witness: "
+                             f"loss {w['loss']} vs one card {ref['loss']}, "
+                             f"gradients {rel:.3g} in norm")
+    log(f"  [sequence-split training] float32 witness at "
+        f"{SEQ_TRAIN['layers']} layer, vocab {SEQ_TRAIN['witness_vocab']}, "
+        f"1 x {SEQ_TRAIN['witness_seq']}: loss "
+        f"{w['loss']:.6f} vs one card {ref['loss']:.6f}; gradients within "
+        f"{rel:.3g} in norm (<= {SEQ_TRAIN['norm_tol']}), worst "
+        f"elementwise gap {w['worst']:.3g}; every rank's loss bitwise "
+        f"equal")
+    x0 = s0["xlstm"]
+    xw = SEQ_TRAIN["xlstm"]
+    xrel = math.sqrt(x0["gap_sq"] / max(x0["ref_sq"], 1e-300))
+    first = {p["coords"]["data"]: p["seq_train"]["xlstm"]["h0"][0]
+             for p in pay}
+    n = [p["seq_train"]["xlstm"]["slstm"] for p in pay]
+    if abs(x0["loss_mesh"] - x0["loss_single"]) > xw["loss_tol"] \
+            or xrel > xw["norm_tol"] or first[0][1] != 0.0 \
+            or not first[1][1] > 0.0 or min(n) < 1 \
+            or any(p["seq_train"]["xlstm"]["loss_mesh"] != x0["loss_mesh"]
+                   for p in pay):
+        raise AssertionError(f"sequence-split training xlstm witness: loss "
+                             f"{x0['loss_mesh']} vs {x0['loss_single']}, "
+                             f"gradients {xrel:.3g} in norm, first sLSTM "
+                             f"h0 by data rank {first}, launches {n}")
+    log(f"  [sequence-split training] xlstm-1.3b at one group, float32, 1 "
+        f"x {xw['seq']} on {shape}: loss {x0['loss_mesh']:.6f} vs one card "
+        f"{x0['loss_single']:.6f}; gradients within {xrel:.3g} in norm (<= "
+        f"{xw['norm_tol']}; one card's own noise {x0['floor']:.3g}); "
+        f"slstm_scan at {first[1][0]} on each rank, data rank 1's first "
+        f"launch from data rank 0's state (max |h0| {first[1][1]:.3g}), "
+        f"{n[1]} launches a rank (forward, remat's recompute, the "
+        f"handoff's backward; rank 0 {n[0]} with its one card); "
+        f"loss_and_grads {x0['ms_mesh']:.1f} ms on the mesh (slowest rank)"
+        f", {x0['ms_single']:.1f} ms on one card; the handoff's state "
+        f"gathers {x0['handoff'][0]} a rank of "
+        f"{x0['handoff'][1] / 2**20:.2f} MiB")
+    runs["slstm_scan"].append(dict(
+        run=f"long context mesh {shape} xlstm-1.3b sequence-split train "
+        "witness (1 row below the data axes), all ranks and rank 0's one "
+        "card", launches=sum(n), per_rank=n[1]))
+    log("  [sequence-split training] rank 0's parts: bf16 step "
+        f"{s0['s_bf16']:.1f} s, float32 witness {s0['s_witness']:.1f} s, "
+        f"xlstm witness {s0['s_xlstm']:.1f} s")
 
 
 def _leaves(tree):

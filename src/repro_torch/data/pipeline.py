@@ -16,7 +16,8 @@ so its tokens differ from the reference's; tests that compare the two
 packages feed both the same batch.  The batch is made on the CPU, whatever
 device trains on it, so one seed gives one stream everywhere.  On a mesh
 every rank draws the global batch as one device does and keeps its rows
-of it (``local_batch``), so the mesh trains on one card's tokens.
+of it, or below the data axes its slice of every row's positions
+(``local_batch``), so the mesh trains on one card's tokens.
 """
 from __future__ import annotations
 
@@ -84,14 +85,24 @@ def batch_at(ds: SyntheticLM, step: int) -> dict:
 
 
 def local_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
-    """This data rank's rows of a global batch (``batch_at`` of a dataset
+    """This data rank's part of a global batch (``batch_at`` of a dataset
     with one host): its ``collectives.local_rows`` of each of the
     ``grad_accum`` microbatches, in microbatch order, so that slice i of
-    what it returns is its part of the single device's microbatch i."""
+    what it returns is its part of the single device's microbatch i.  A
+    microbatch whose rows do not divide over the data axes is split by
+    sequence over them (``activations.sequence_split``): every row, and
+    the rank's slice of the positions (dim 1 of every leaf: the tokens,
+    the labels, an embeddings input), data rank i positions [i S / g,
+    (i + 1) S / g)."""
     dp = dp_axes(mesh)
+    g, i = mesh.size(dp), mesh.index(dp)
 
-    def rows(t):
+    def part(t):
         mbs = t.reshape(grad_accum, t.shape[0] // grad_accum, *t.shape[1:])
-        return mbs[:, C.local_rows(mesh, dp, mbs.shape[1])].reshape(
-            -1, *t.shape[1:]).contiguous()
-    return {k: rows(v) for k, v in batch.items()}
+        if mbs.shape[1] % g:
+            n = t.shape[1] // g
+            mbs = mbs[:, :, i * n:(i + 1) * n]
+        else:
+            mbs = mbs[:, C.local_rows(mesh, dp, mbs.shape[1])]
+        return mbs.reshape(-1, *mbs.shape[2:]).contiguous()
+    return {k: part(v) for k, v in batch.items()}

@@ -163,8 +163,11 @@ def cell_step(cfg, shape, mesh, device, *, fake: bool = True):
         args = (params, cache, zeros["inputs"])
         step = S.make_decode_step(cfg, use_mcma_dispatch=cfg.approx.enable)
 
+    micro = shape.global_batch // cfg.grad_accum \
+        if shape.kind == "train" else 0
+
     def run(*a):
-        with S.serve_mesh_context(mesh):
+        with S.train_mesh_context(mesh, micro):
             return step(*a)
     return run, args, _nbytes(args)
 
@@ -236,7 +239,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     try:
         if shape.kind == "train":
             M.check_mesh_trainable(cfg, planned,
-                                   shape.global_batch // cfg.grad_accum)
+                                   shape.global_batch // cfg.grad_accum,
+                                   shape.seq_len)
         else:
             M.check_mesh_servable(
                 cfg, planned, shape.global_batch,

@@ -19,7 +19,9 @@ axis dividing its experts (e.g. ``--arch moonshot-v1-16b-a3b --mesh
 2,2``), else with it dividing each expert's d_ff (TP-in-expert); the kv
 heads dividing it or below it with head_dim dividing it; the hybrid and
 the xLSTM with it dividing their heads (e.g. ``--arch zamba2-2.7b --mesh
-2,2``).
+2,2``).  A microbatch (``--batch`` / ``--grad-accum``) that does not
+divide over D trains with every row on every data rank and its
+``--seq-len`` positions split over them (e.g. ``--batch 2 --mesh 4,2``).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def _spawn_mesh(args, cfg):
         raise ValueError(f"--mesh takes D,M; got {args.mesh!r}")
     resolve_device(args.device)           # no GPU and no --device: raise
     check_mesh_trainable(cfg, MeshShape(shape),
-                         args.batch // max(args.grad_accum, 1))
+                         args.batch // max(args.grad_accum, 1), args.seq_len)
     with tempfile.TemporaryDirectory() as tmp:
         spawn_world(mesh_rank, math.prod(shape), (args, cfg, shape, tmp))
         with open(f"{tmp}/result.json") as f:

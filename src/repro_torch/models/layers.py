@@ -46,7 +46,11 @@ the softmax's max, sum and weighted values in f32, and the parts combine
 over the data axes by log-sum-exp in rank order (``_combine_over_data``),
 so every data rank holds the same bits; a paged pool stays whole and
 each data rank attends as one device.  Training runs full causal
-attention over the rank's rows; the collectives carry their backward
+attention over the rank's rows; a microbatch below the data axes
+(``activations.sequence_split``) holds every row and a slice of the
+positions on each data rank, which attends with its queries over the
+keys and values gathered along the sequence (``_self_attention``).  The
+collectives carry their backward
 (``sharding/collectives.py``): an all-reduced output's gradient passes
 as it is, a replicated input of a column-parallel projection gets its
 gradient summed over "model" (``copy_to_model``), the gathered logits
@@ -67,8 +71,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import (context_parallel,
-                                             manual_dp_context)
+from repro_torch.sharding.activations import (SeqShard, context_parallel,
+                                             manual_dp_context,
+                                             sequence_shard)
+from repro_torch.sharding.sequence import gather_sequence
 
 
 # what ``param`` makes of each tensor it draws, while ``param_hook`` is on
@@ -495,20 +501,17 @@ def _write_dense(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     c[rows, tgt] = val
 
 
-class _CP(collections.namedtuple("_CP", "mesh dp start total")):
-    """A context-parallel rank's cache (``activations.context_parallel``):
-    the mesh, the data axes, its first row and the whole cache's rows."""
-
-
 def _context_parallel(cache: dict):
-    """The ``_CP`` of a rank's dense or ring KV cache split by sequence
-    over the data axes, else None."""
+    """A context-parallel rank's cache (``activations.context_parallel``)
+    as an ``activations.SeqShard`` (its first row and the whole cache's
+    rows) where a dense or ring KV cache is split by sequence over the
+    data axes, else None."""
     cp = context_parallel()
     if cp is None or "block_table" in cache:
         return None
     mesh, dp = cp
     n = cache["k"].shape[1]
-    return _CP(mesh, dp, mesh.index(dp) * n, n * mesh.size(dp))
+    return SeqShard(mesh, dp, mesh.index(dp) * n, n * mesh.size(dp))
 
 
 def _seq_slice(t: torch.Tensor) -> torch.Tensor:
@@ -735,13 +738,32 @@ def _attention(cfg: ModelConfig, p, x, positions, cache):
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
     if cache is None:
-        o = flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v))
+        o = _self_attention(cfg, q, k, v)
         o = o.reshape(b, sq, cfg.n_heads * cfg.hd)
         return o @ p.wo.to(o.dtype), {"k": _seq_slice(k),
                                       "v": _seq_slice(v)}
     ak, av, valid, new_cache = _cache_write(cfg, k, v, cache)
     o = _attend(cfg, q, ak, av, valid, _context_parallel(cache))
     return o @ p.wo.to(o.dtype), new_cache
+
+
+def _self_attention(cfg: ModelConfig, q, k, v):
+    """Causal self-attention of q (B, Sq, H, hd) over k and v (B, Sq, Kh,
+    hd) of the same positions (``flash_attention``).  Under a sequence
+    split over the data axes (``activations.sequence_shard``) they are
+    the rank's slice of the positions: k and v are gathered whole along
+    S (``sharding/sequence.gather_sequence``, whose backward
+    reduce-scatters), cut at the first key block past the rank's last
+    query, and the queries sit at their global positions (``q_offset``),
+    so the causal and window masks hold as on one device."""
+    shard = sequence_shard(q.shape[1])
+    if shard is None:
+        return flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v))
+    kb = min(cfg.kv_block, shard.total)
+    upto = -(-(shard.start + q.shape[1]) // kb) * kb
+    k, v = (gather_sequence(t, shard, upto) for t in (k, v))
+    return flash_attention(cfg, q, _repeat_kv(cfg, k), _repeat_kv(cfg, v),
+                           q_offset=shard.start)
 
 
 def _attention_split(cfg: ModelConfig, hcfg: ModelConfig, p, x, positions,
@@ -777,8 +799,7 @@ def _attention_split(cfg: ModelConfig, hcfg: ModelConfig, p, x, positions,
     if cache is None:
         # the rank's kv head, contiguous as ``_attention`` gives its heads
         kh, vh = (t[:, :, r // s:r // s + 1].contiguous() for t in (k, v))
-        o = flash_attention(hcfg, q, _repeat_kv(hcfg, kh),
-                            _repeat_kv(hcfg, vh))
+        o = _self_attention(hcfg, q, kh, vh)
         o = o.reshape(b, sq, hcfg.n_heads * hd)
         return o @ p.wo.to(o.dtype), {"k": _seq_slice(kc).contiguous(),
                                       "v": _seq_slice(vc).contiguous()}

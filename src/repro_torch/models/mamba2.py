@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.sequence import in_order
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -135,6 +136,23 @@ def _chunk_step(h, xc, bc_, cc, dtc, dac, mask):
     return h, y_state + y_intra
 
 
+def _ssd(ck: int, xh, b, c, dt, da, h):
+    """The chunked SSD over S steps (chunks of ``ck``, which must divide
+    S) from the state h.  Returns (y (B, S, H, P) f32 without the skip
+    term, (h',))."""
+    s = xh.shape[1]
+    assert s % ck == 0, (s, ck)
+    mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
+                                 device=xh.device))
+    ys = []
+    for i in range(0, s, ck):
+        sl = slice(i, i + ck)
+        h, yc = _chunk_step(h, xh[:, sl], b[:, sl], c[:, sl], dt[:, sl],
+                            da[:, sl], mask)
+        ys.append(yc)
+    return torch.cat(ys, 1), (h,)
+
+
 def mamba_fwd(cfg: ModelConfig, p: Mamba, u: torch.Tensor,
               state: dict | None = None):
     """Mamba2 SSD.  u: (B, S, d) -> (y (B, S, d), {"h": (B, H, P, N)}).
@@ -142,7 +160,10 @@ def mamba_fwd(cfg: ModelConfig, p: Mamba, u: torch.Tensor,
     With a ``state`` and S == 1: the O(1) decode update.  Otherwise the
     chunked SSD over chunks of ``min(ssm.chunk, S)`` (S must divide),
     from ``state["h"]`` or zeros.  On a mesh ``u`` is the rank's rows,
-    the state its rows and heads, and y the rank's rows, whole."""
+    the state its rows and heads, and y the rank's rows, whole; under a
+    sequence split (``sharding/sequence.in_order``) ``u`` is the rank's
+    slice of the positions, the chunks those of the slice, and the state
+    handed from slice to slice (the returned one the whole sequence's)."""
     mesh = manual_dp_context()[0]
     n_heads, w = _rank_weights(cfg, p, mesh)
     if mesh is not None:
@@ -160,19 +181,12 @@ def mamba_fwd(cfg: ModelConfig, p: Mamba, u: torch.Tensor,
         y = torch.einsum("bhpn,bn->bhp", h, c[:, 0].float())
         y = y + x0 * d_skip[None, :, None]
     else:
-        ck = min(cfg.ssm.chunk, s)
-        assert s % ck == 0, (s, ck)
-        mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
-                                     device=u.device))
         h = state["h"] if state is not None else torch.zeros(
             (bsz, n_heads, p_hd, n), dtype=torch.float32, device=u.device)
-        ys = []
-        for i in range(0, s, ck):
-            sl = slice(i, i + ck)
-            h, yc = _chunk_step(h, xh[:, sl], b[:, sl], c[:, sl], dt[:, sl],
-                                da[:, sl], mask)
-            ys.append(yc)
-        y = torch.cat(ys, 1) + xh.float() * d_skip[None, None, :, None]
+        ck = min(cfg.ssm.chunk, s)
+        y, (h,) = in_order(lambda *a: _ssd(ck, *a), (xh, b, c, dt, da),
+                           (h,), s)
+        y = y + xh.float() * d_skip[None, None, :, None]
     y = y.reshape(bsz, s, n_heads * p_hd).to(u.dtype)
     y = L.gated_rmsnorm(y, z, w.norm_scale,
                         None if mesh is None else d_in)

@@ -40,7 +40,12 @@ blocks tensor-parallel by heads (``models/mamba2.py``,
 ``models/xlstm.py``: each rank holds its rows' and heads' recurrent
 state).  Inside ``runtime/steps.train_mesh_context``
 ``forward(serve=False)`` and ``lm_loss`` take the rank's rows and give
-the global batch's losses and metrics on every rank.  Fewer kv heads
+the global batch's losses and metrics on every rank; a microbatch below
+the data axes trains with every row on every data rank and its
+positions split over them (``activations.sequence_split``: RoPE at the
+global positions, attention over the keys gathered along the sequence,
+the MoE routed over the global token groups, a recurrence's state handed
+from slice to slice, ``sharding/sequence.py``).  Fewer kv heads
 than model ranks run with each rank's head_dim slice of every kv head in
 its cache (``layers.kv_split``), experts that do not divide over
 "model" with each expert's d_ff split (``moe.tp_in_expert``), fewer
@@ -73,7 +78,7 @@ from repro_torch.models.approx_ffn import (ApproxFFN, approx_ffn_serve,
 from repro_torch.runtime.dispatch import plan_invoke_stats
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import (manual_dp_context, row_axes,
-                                             whole_rows,
+                                             sequence_shard, whole_rows,
                                              with_current_context)
 from repro_torch.sharding.rules import cache_pspecs, param_pspecs
 
@@ -405,7 +410,9 @@ def forward(cfg: ModelConfig, params: Model, inputs: torch.Tensor, *,
     topo = topology(cfg)
     pos_s = torch.full((b,), s, dtype=torch.int32, device=x.device)
     if topo.kind in ("uniform", "hybrid"):
-        positions = torch.arange(s, device=x.device)[None, :]
+        shard = sequence_shard(s)        # a rank's slice of the positions
+        positions = torch.arange(s, device=x.device)[None, :] \
+            + (0 if shard is None else shard.start)
         x0, votes = x, None
         per_layer, auxs, ks, vs, mstates = [], [], [], [], []
 
@@ -611,15 +618,18 @@ def _model_widths(cfg: ModelConfig, train: bool, md: int) -> dict:
     return widths
 
 
-def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
+def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool,
+                  seq: int = 0):
     """Raise unless every width of ``_model_widths`` divides over "model"
-    and, in training, ``batch`` over the data axes (ROADMAP queue 3; a
-    microbatch below the data axes is item 16d).  A served batch need not
-    divide: below the data axes its rows are whole on every data rank
+    and, in training, a microbatch of ``batch`` rows of ``seq`` positions
+    trains over the data axes: its rows divide over them, or its
+    positions do and each family's blocking is well defined on a rank's
+    slice of them (``_seq_split_fits``).  A served batch need not divide:
+    below the data axes its rows are whole on every data rank
     (``activations.whole_rows``)."""
     sizes, md, g = _mesh_sizes(mesh)
     widths = _model_widths(cfg, train, md)
-    rows_ok = not train or batch % g == 0
+    rows_ok = not train or batch % g == 0 or _seq_split_fits(cfg, g, seq)
     if "model" in sizes and rows_ok \
             and not any(n % md for n in widths.values()):
         return
@@ -627,7 +637,9 @@ def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
         else ("the sharded serve path", "batch")
     rows = "" if not train else \
         "the microbatch over the data axes; " if rows_ok else \
-        "the microbatch over the data axes, below them ROADMAP item 16d; "
+        (f"the microbatch over the data axes, or below them its "
+         f"{seq or 'unstated'} positions over them with "
+         f"{_seq_blocking(cfg)} within a rank's slice; ")
     raise NotImplementedError(
         f"mesh {dict(sizes)} does not divide {what[0]} of {cfg.name} at "
         f"{what[1]} {batch} ({rows}"
@@ -635,6 +647,33 @@ def _check_widths(cfg: ModelConfig, mesh, batch: int, train: bool):
         + " over model): the reference falls back to compiler-placed "
         "sharding there, the port refuses (ROADMAP queue 3, layout "
         "departures)")
+
+
+def _seq_blocks(cfg: ModelConfig) -> dict:
+    """{name: block} of the blocks a rank's slice of the positions runs
+    in: attention's query blocks (the dense, MoE and hybrid families),
+    the SSD's chunks (the hybrid) and the mLSTM's (the xLSTM)."""
+    kind = topology(cfg).kind
+    blocks = {} if kind == "xlstm" else {"q_block": cfg.q_block}
+    if kind != "uniform":
+        blocks["ssm.chunk"] = cfg.ssm.chunk
+    return blocks
+
+
+def _seq_blocking(cfg: ModelConfig) -> str:
+    return " and ".join(f"{k}={n}" for k, n in _seq_blocks(cfg).items()) \
+        or "no blocking"
+
+
+def _seq_split_fits(cfg: ModelConfig, g: int, seq: int) -> bool:
+    """Whether a microbatch below ``g`` data ranks trains split by
+    sequence over them (``activations.sequence_split``): ``seq`` divides
+    over them, and each block of ``_seq_blocks`` divides a rank's slice
+    or clips to it (the keys stay whole: attention gathers them)."""
+    if not seq or seq % g:
+        return False
+    n = seq // g
+    return all(n % min(blk, n) == 0 for blk in _seq_blocks(cfg).values())
 
 
 def _check_cache_rows(mesh, batch: int, rows: int):
@@ -675,15 +714,19 @@ def check_mesh_servable(cfg: ModelConfig, mesh, batch: int, *,
         _check_cache_rows(mesh, batch, min(max_len, w) if w else max_len)
 
 
-def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int):
+def check_mesh_trainable(cfg: ModelConfig, mesh, batch: int,
+                         seq: int = 0):
     """Raise unless ``cfg`` trains on ``mesh`` with microbatches of
-    ``batch`` rows: ``check_mesh_servable``'s widths and the vocab over
-    "model", the microbatch over the data axes (every tensor-, expert-
-    and head-parallel branch of the train path engaged; a microbatch
-    below them, split by sequence, is ROADMAP item 16d).  Where it fails
+    ``batch`` rows of ``seq`` positions: ``check_mesh_servable``'s widths
+    and the vocab over "model", and the microbatch over the data axes
+    (every tensor-, expert- and head-parallel branch of the train path
+    engaged) or, below them, its positions split over them
+    (``activations.sequence_split``: every row on every data rank, the
+    sequence divided, attention's query blocks and the SSD's and mLSTM's
+    chunks dividing a rank's slice or clipped to it).  Where it fails
     the reference falls back to compiler-placed sharding; the port
     refuses (ROADMAP queue 3)."""
-    _check_widths(cfg, mesh, batch, train=True)
+    _check_widths(cfg, mesh, batch, train=True, seq=seq)
 
 
 def _local(rows, *tensors):

@@ -44,7 +44,11 @@ partial gradients summed over "model"), the router's gather over
 once.  A served batch below the data axes is whole on every data rank
 (``activations.whole_rows``): both branches then route it as one device
 (``route_global`` over no data axis), count its drops once, and take no
-mean over the data ranks.  On one device
+mean over the data ranks.  A training microbatch below the data axes
+(``activations.sequence_split``: each data rank a slice of every row's
+positions) routes as one device over the global token groups on both
+branches too (``route_global`` with the slices' layout), its aux loss the
+global groups'.  On one device
 ``_moe_local_experts`` over all E experts is ``_moe_group``.
 """
 from __future__ import annotations
@@ -60,7 +64,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import param
 from repro_torch.runtime import dispatch as D
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.activations import manual_dp_context, row_axes
+from repro_torch.sharding.activations import (manual_dp_context, row_axes,
+                                             sequence_shard)
 
 
 class MoE(nn.Module):
@@ -179,26 +184,31 @@ def _moe_fwd_manual(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, dp,
     e_loc = e // md
     e_off = mesh.index("model") * e_loc
     assert w["w_in"].shape[0] == e_loc, (w["w_in"].shape, e_loc)
-    if dp:
+    shard = sequence_shard(x.shape[1])
+    if dp and shard is None:
         y_part, aux = _moe_local_experts(cfg, router, w, x, e_loc, e_off)
+        aux = C.all_reduce_sum(aux, dp, mesh) / mesh.size(dp)
     else:
-        y_part, aux = _moe_whole_rows(cfg, router, w, x, e_loc, e_off, mesh)
-    y = C.all_reduce_sum(y_part, "model", mesh)
-    return y, C.all_reduce_sum(aux, dp, mesh) / mesh.size(dp)
+        y_part, aux = _moe_routed_globally(cfg, router, w, x, e_loc, e_off,
+                                           mesh, dp, shard)
+    return C.all_reduce_sum(y_part, "model", mesh), aux
 
 
-def _moe_whole_rows(cfg: ModelConfig, router: torch.Tensor, w: dict,
-                    x: torch.Tensor, e_loc: int, e_off: int, mesh):
-    """Expert parallelism where every data rank holds every row (a served
-    batch below the data axes, ``activations.whole_rows``): the tokens
-    routed as one device routes them (``route_global`` over no data
-    axis: ``scan_chunk`` groups, each at its own capacity), then only the
-    pairs of experts [e_off, e_off + e_loc) kept in this rank's buffer.
-    The reference's expert-parallel ``shard_map`` has no such case
-    (ROADMAP, layout departures).  Returns (partial output, aux)."""
+def _moe_routed_globally(cfg: ModelConfig, router: torch.Tensor, w: dict,
+                         x: torch.Tensor, e_loc: int, e_off: int, mesh, dp,
+                         shard):
+    """Expert parallelism where every data rank holds every row: a served
+    batch below the data axes (``activations.whole_rows``, ``dp`` empty)
+    or a training microbatch there, each data rank its slice of the
+    positions (``shard``, ``activations.sequence_split``).  The tokens
+    are routed as one device routes them (``route_global``: the global
+    ``scan_chunk`` groups, each at its own capacity), then only the pairs
+    of experts [e_off, e_off + e_loc) kept in this rank's buffer.  The
+    reference's expert-parallel ``shard_map`` has no such case (ROADMAP,
+    layout departures).  Returns (partial output, aux)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    r = route_global(cfg, router, xt, mesh, ())
+    r = route_global(cfg, router, xt, mesh, dp, shard, b)
     lo, n_slots = (e_off * r.n_groups * r.cap_l,
                    e_loc * r.n_groups * r.cap_l)
     mine = r.keep & (r.slot >= lo) & (r.slot < lo + n_slots)
@@ -286,60 +296,111 @@ class GlobalRouting(NamedTuple):
 
 
 def route_global(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor,
-                 mesh, dp) -> GlobalRouting:
+                 mesh, dp, shard=None, rows: int = 1) -> GlobalRouting:
     """Route the data rank's tokens xt (T_local, d) as one device routes
     the global batch (``_moe_chunked``): the rank's tokens are tokens
-    [i T_local, (i + 1) T_local) of the global B * S (data rank i), split
-    into groups of ``scan_chunk`` where that splits the global tokens
-    evenly, else one group.  A group may span data ranks (decode's one
-    group of B tokens; training's groups of a few rows): each rank's
-    pair counts per (group, expert) are gathered over the data axes (one
-    int32 all-gather, with the top-1 counts of the aux loss), so a pair's
-    rank counts the earlier ranks' pairs, and the drops are one device's.
-    The aux loss's probability means are all-reduced over the data axes
-    (whose backward passes each rank its tokens' part)."""
+    [i T_local, (i + 1) T_local) of the global B * S (data rank i), or
+    under a sequence split (``shard``, an ``activations.SeqShard``) the
+    rank's slice of the positions of each of its ``rows`` rows; the
+    global tokens split into groups of ``scan_chunk`` where that splits
+    them evenly, else one group.  A group may span data ranks (decode's
+    one group of B tokens; training's groups of a few rows; a row's
+    slices): each rank's pair counts per (run of its tokens, group,
+    expert) are gathered over the data axes (one int32 all-gather, with
+    the top-1 counts of the aux loss), so a pair's rank counts every
+    pair of its group and expert that comes earlier in the global order,
+    and the drops are one device's.  The aux loss's probability means
+    are all-reduced over the data axes (whose backward passes each rank
+    its tokens' part)."""
     t, d = xt.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     n_dp, i = mesh.size(dp), mesh.index(dp)
     t_all, ck = t * n_dp, cfg.moe.scan_chunk
     g_size = ck if ck and t_all > ck and t_all % ck == 0 else t_all
+    n_groups = t_all // g_size
     cap = min(int(cfg.moe.capacity_factor * g_size * k / e) + 1, g_size)
     cap_l = min(cap, t)         # a rank's pairs of one (group, expert)
-    gid = (i * t + torch.arange(t, device=xt.device)) // g_size
-    g0 = i * t // g_size
-    n_groups, n_lg = t_all // g_size, (i * t + t - 1) // g_size - g0 + 1
+    # each rank's tokens as runs of ``run`` consecutive global tokens
+    if shard is None:
+        run, starts = t, [[j * t] for j in range(n_dp)]
+    else:
+        run = t // rows
+        starts = [[r * shard.total + j * run for r in range(rows)]
+                  for j in range(n_dp)]
+    # the pieces where this rank's runs meet the groups: (run, local
+    # tokens, group), in the global order
+    pieces = []
+    for u, st in enumerate(starts[i]):
+        a = st
+        while a < st + run:
+            grp = a // g_size
+            z = min((grp + 1) * g_size, st + run)
+            pieces.append((u, slice(u * run + a - st, u * run + z - st),
+                           grp))
+            a = z
+    groups = sorted({grp for _, _, grp in pieces})
+    n_lg = len(groups)
+    lg_of = {grp: j for j, grp in enumerate(groups)}
     probs = torch.softmax((xt @ router.to(xt.dtype)).float(), -1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :k], idx[:, :k].to(torch.int32)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    lg = (gid - g0).to(torch.int32)
-    cls = (lg[:, None] * e + gate_idx).reshape(t * k)
-    order, cls_sorted, rank, counts = D.class_sort_ranks(cls, n_lg * e)
-    # every rank's pair counts and top-1 counts per (global group,
-    # expert), and its probabilities' sums; a group's tokens here are a
+    dev = xt.device
+
+    def per_token(values):
+        """A (T_local,) int64 tensor holding each piece's value on its
+        tokens (filled on the device: no copy from the host)."""
+        return torch.cat([torch.full((sl.stop - sl.start,), v,
+                                     dtype=torch.int64, device=dev)
+                          for v, (_, sl, _) in zip(values, pieces)])
+    piece = per_token(range(len(pieces)))
+    cls = (piece[:, None] * e + gate_idx).reshape(t * k)
+    order, cls_sorted, rank, counts = D.class_sort_ranks(
+        cls, len(pieces) * e)
+    counts = counts.view(len(pieces), e)
+    # this rank's pair counts and top-1 counts per (run, group, expert),
+    # and its probabilities' sums per group; a piece's tokens are a
     # contiguous run, summed in order (no atomics: the same bits on every
     # model rank)
-    runs = [slice(max(g * g_size - i * t, 0), min((g + 1) * g_size - i * t,
-                                                  t))
-            for g in range(g0, g0 + n_lg)]
-    mine = torch.zeros((2, n_groups, e), dtype=torch.int32,
-                       device=xt.device)
-    mine[0, g0:g0 + n_lg] = counts.view(n_lg, e)
+    n_runs = len(starts[i])
+    mine = torch.zeros((2, n_runs, n_groups, e), dtype=torch.int32,
+                       device=dev)
     top1 = F.one_hot(gate_idx[:, 0].long(), e).to(torch.int32)
-    mine[1, g0:g0 + n_lg] = torch.stack([top1[r].sum(0) for r in runs])
-    psum = torch.zeros((n_groups, e), dtype=torch.float32,
-                       device=xt.device)
-    psum = torch.cat([psum[:g0], torch.stack([probs[r].sum(0) for r in runs]),
-                      psum[g0 + n_lg:]])
-    every = C.all_gather(mine[None], dp, 0, mesh)      # (n_dp, 2, G, E)
-    before = every[:i, 0].sum(0, dtype=torch.int32)[g0:g0 + n_lg]
-    lg_s, e_s = cls_sorted // e, cls_sorted % e
-    keep = rank + before[lg_s.long(), e_s.long()] < cap
+    part = {}
+    for j, (u, sl, grp) in enumerate(pieces):
+        mine[0, u, grp] = counts[j]
+        mine[1, u, grp] = top1[sl].sum(0)
+        ps = probs[sl].sum(0)
+        part[grp] = ps if grp not in part else part[grp] + ps
+    every = C.all_gather(mine[None], dp, 0, mesh)  # (n_dp, 2, R, G, E)
+    # the pairs of earlier runs (every rank's, in the global order) per
+    # (group, expert), and of this rank's own earlier runs
+    glob = sorted((st, j, u) for j in range(n_dp)
+                  for u, st in enumerate(starts[j]))
+    seq = torch.stack([every[j, 0, u] for _, j, u in glob])
+    before = torch.cumsum(seq, 0, dtype=torch.int32) - seq
+    at = {(j, u): m for m, (_, j, u) in enumerate(glob)}
+    own = torch.cumsum(mine[0], 0, dtype=torch.int32) - mine[0]
+    tok, e_s = order.long() // k, (cls_sorted % e).long()
+    run_of, grp_of, lg_s, glob_run = (per_token(v)[tok] for v in (
+        [u for u, _, _ in pieces], [grp for _, _, grp in pieces],
+        [lg_of[grp] for _, _, grp in pieces],
+        [at[i, u] for u, _, _ in pieces]))
+    keep = rank + before[glob_run, grp_of, e_s] < cap
+    local = rank + own[run_of, grp_of, e_s]
     trash = e * n_lg * cap_l
-    slot = torch.where(keep, (e_s * n_lg + lg_s) * cap_l + rank,
+    slot = torch.where(keep, (e_s * n_lg + lg_s) * cap_l + local,
                        trash).to(torch.int32)
-    frac_probs = C.all_reduce_sum(psum, dp, mesh) / g_size
-    frac_tokens = every[:, 1].sum(0).float() / g_size
+    blocks, nxt = [], 0
+    for grp in groups:
+        if grp > nxt:
+            blocks.append(probs.new_zeros((grp - nxt, e)))
+        blocks.append(part[grp][None])
+        nxt = grp + 1
+    if nxt < n_groups:
+        blocks.append(probs.new_zeros((n_groups - nxt, e)))
+    frac_probs = C.all_reduce_sum(torch.cat(blocks), dp, mesh) / g_size
+    frac_tokens = every[:, 1].sum((0, 1)).float() / g_size
     aux = (e * (frac_tokens * frac_probs).sum(-1)
            * cfg.moe.aux_weight).mean()
     return GlobalRouting(gate_vals, gate_idx, order, keep, slot, n_lg,
@@ -365,7 +426,7 @@ def _moe_fwd_tp(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, dp):
     router, *stacks = C.unshard(p.router, *(getattr(p, n) for n in names),
                                 mesh=mesh)
     xt = x.reshape(b * s, d)
-    r = route_global(cfg, router, xt, mesh, dp)
+    r = route_global(cfg, router, xt, mesh, dp, sequence_shard(s), b)
     out = _experts(cfg, dict(zip(names, stacks)), C.copy_to_model(xt),
                    C.copy_to_model(r.gate_vals), r.order, r.slot, r.keep,
                    cfg.moe.n_experts * r.n_groups * r.cap_l)
@@ -394,9 +455,10 @@ def dropped_choices(cfg: ModelConfig, p: MoE, x: torch.Tensor):
         else:
             router = C.gather_whole(p.router, p.router._pspec, mesh)
             xt = x.reshape(t, d)
-            r = route_global(cfg, router, xt, mesh, dp) \
+            shard = sequence_shard(s)
+            r = route_global(cfg, router, xt, mesh, dp, shard, b) \
                 if tp_in_expert(cfg, mesh.size("model")) or not dp \
-                else route(cfg, router, xt)
+                or shard is not None else route(cfg, router, xt)
             dropped = int((~r.keep).sum())
         out = torch.tensor([dropped, t * cfg.moe.top_k], dtype=torch.int64,
                            device=x.device)

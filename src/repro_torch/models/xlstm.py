@@ -65,6 +65,7 @@ from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_trainable
 from repro_torch.models import layers as L
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.activations import manual_dp_context
+from repro_torch.sharding.sequence import in_order
 
 I_CLAMP = 8.0  # clamp on the exponential input gate pre-activation
 
@@ -233,8 +234,8 @@ def mlstm_fwd(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
     # ----- chunkwise parallel (prefill) --------------------------------------
     if state is None:
         state = init_mlstm_state(cfg, b, device=x.device, n_heads=h)
-    y, c_st, n_st = _mlstm_scan(cfg, state["c"], state["n"], q, k, v,
-                                log_f, log_i)
+    y, c_st, n_st = _scan_in_order(cfg, state["c"], state["n"], q, k, v,
+                                   log_f, log_i)
     y = y.reshape(b, s, h * hd_v).to(x.dtype)
     y = L.gated_rmsnorm(y, z, w.norm_scale, width)
     return _row_out(y @ w.w_out.to(x.dtype), mesh), {"c": c_st, "n": n_st}
@@ -274,6 +275,19 @@ def _mlstm_scan(cfg: ModelConfig, c_st, n_st, q, k, v, log_f, log_i):
                                      *(t[ci] for t in chunks), mask)
         ys.append(y)
     return torch.stack(ys, 1).reshape(b, s, *ys[0].shape[2:]), c_st, n_st
+
+
+def _scan_in_order(cfg: ModelConfig, c_st, n_st, q, k, v, log_f, log_i):
+    """``_mlstm_scan`` over the rank's positions; under a sequence split
+    each slice from the state the one before ends with
+    (``sharding/sequence.in_order``; the returned state the whole
+    sequence's)."""
+    def core(q, k, v, log_f, log_i, c, n):
+        y, c, n = _mlstm_scan(cfg, c, n, q, k, v, log_f, log_i)
+        return y, (c, n)
+    y, (c_st, n_st) = in_order(core, (q, k, v, log_f, log_i), (c_st, n_st),
+                               q.shape[1])
+    return y, c_st, n_st
 
 
 def _mlstm_shared(cfg: ModelConfig, q, k, v, log_f, log_i, state, mesh):
@@ -321,7 +335,7 @@ def _mlstm_shared(cfg: ModelConfig, q, k, v, log_f, log_i, state, mesh):
     rows = slice((r % sh) * hd_v // sh, (r % sh + 1) * hd_v // sh)
     if state is None:
         state = init_mlstm_state(cfg, b, device=q.device)
-    y, c_st, n_st = _mlstm_scan(
+    y, c_st, n_st = _scan_in_order(
         cfg, state["c"][:, hh:hh + 1, rows], state["n"][:, hh:hh + 1], q, k,
         v, log_f[..., hh:hh + 1], log_i[..., hh:hh + 1])
     y = y.reshape(b, sl, -1)
@@ -394,7 +408,10 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     barrier per step among the CTAs of a head.  When autograd records, the
     call goes through ``slstm_scan_trainable``: the same launch forward, a
     recompute of the plain scan in the backward.  On a mesh each rank
-    runs the recurrence on its heads (module docstring)."""
+    runs the recurrence on its heads (module docstring); under a sequence
+    split on its slice of the positions, from the state the slice before
+    ends with (``sharding/sequence.in_order``: the launch runs in the
+    forward, and in the backward again before the plain recompute)."""
     mesh = manual_dp_context()[0]
     b, s, d = x.shape
     _, h, hd = slstm_dims(cfg)
@@ -424,10 +441,14 @@ def slstm_fwd(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     if state is None:
         state = init_slstm_state(cfg, b, device=x.device, n_heads=h)
     wh = w_h.to(x.dtype).contiguous()
-    scan = slstm_scan_trainable if torch.is_grad_enabled() and (
-        xg.requires_grad or wh.requires_grad) else slstm_scan
-    ys, (hf, cf, nf, mf) = scan(
-        xg, wh, *(state[k].contiguous() for k in ("h", "c", "n", "m")))
+
+    def core(xg, wh, *st):
+        scan = slstm_scan_trainable if torch.is_grad_enabled() and (
+            xg.requires_grad or wh.requires_grad) else slstm_scan
+        return scan(xg, wh, *st)
+    ys, (hf, cf, nf, mf) = in_order(
+        core, (xg, wh),
+        tuple(state[k].contiguous() for k in ("h", "c", "n", "m")), s)
     y = ys.permute(1, 0, 2, 3).reshape(b, s, h * hd).to(x.dtype)
     # post up/down FFN (GeGLU at ratio ~4/3, per the sLSTM block design);
     # the reference's gelu is the tanh approximation

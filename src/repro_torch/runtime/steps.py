@@ -73,7 +73,9 @@ def loss_and_grads(cfg: ModelConfig, params, batch, grad_accum: int = 1):
     Inside ``train_mesh_context`` ``batch`` is this rank's rows
     (``data/pipeline.local_batch``: its rows of each global microbatch,
     in microbatch order, so slice i of them is its part of the single
-    device's slice i), ``params`` its shards, and the result is the
+    device's slice i; a microbatch below the data axes, given as
+    ``train_mesh_context(mesh, microbatch)``, is every row and the rank's
+    slice of the positions), ``params`` its shards, and the result is the
     single device's: the global loss and metrics on every rank, and each
     gradient this rank's shard of the single device's gradient (the
     losses are global means, so a sum over the data ranks is the whole
@@ -194,7 +196,9 @@ def mcma_serve_config(cfg: ModelConfig, *,
 # steps (and ``init_cache`` / ``reset_slot``) runs inside it: the dispatch
 # engine per data shard with all-reduced stats, tensor parallelism over
 # "model".  Trained, ``loss_and_grads`` and ``make_train_step`` run inside
-# it on the rank's rows of the batch, tensor-parallel over "model", and
+# it on the rank's rows of the batch (``train_mesh_context(mesh,
+# microbatch)``: below the data axes its slice of the positions,
+# ``activations.sequence_split``), tensor-parallel over "model", and
 # return the single device's gradients of the global loss, each rank its
 # shards.  ``mesh=None`` is a no-op, so single-device callers share the
 # code path.

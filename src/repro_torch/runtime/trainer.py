@@ -20,7 +20,9 @@ With ``mesh`` (a ``launch/mesh.HostMesh``; every rank builds the same
 Trainer) the config must train there (``model.check_mesh_trainable``),
 the state is this rank's shards under ``sharding/rules.state_pspecs``,
 each step runs under ``steps.train_mesh_context`` on the rank's rows of
-the global batch (``data/pipeline.local_batch``), and checkpoints are
+the global batch (``data/pipeline.local_batch``; a microbatch below the
+data axes: every row and the rank's slice of the positions), and
+checkpoints are
 saved whole and restored onto any mesh.  ``history``, the straggler
 flags and what ``run()`` returns are the same on every rank (a step's
 wall time is the slowest rank's); rank 0 prints.
@@ -85,7 +87,8 @@ class Trainer:
                     f"{ds.global_batch} rows in {tc.grad_accum} equal "
                     f"microbatches (n_hosts={ds.n_hosts})")
             M.check_mesh_trainable(cfg, mesh,
-                                   ds.global_batch // tc.grad_accum)
+                                   ds.global_batch // tc.grad_accum,
+                                   ds.seq_len)
         self.monitor = StragglerMonitor()
         self.history: list[dict] = []
         self.step_fn = steps_lib.make_train_step(
@@ -120,7 +123,8 @@ class Trainer:
                 raise PreemptionError(f"injected preemption at step {step}")
             batch = self._batch_at(step)
             t0 = time.time()
-            with steps_lib.train_mesh_context(self.mesh):
+            with steps_lib.train_mesh_context(
+                    self.mesh, self.ds.global_batch // self.tc.grad_accum):
                 self.state, metrics = self.step_fn(self.state, batch)
             loss = float(metrics["loss"])           # blocks; honest step time
             dt = self._slowest(time.time() - t0)

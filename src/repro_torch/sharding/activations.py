@@ -24,15 +24,28 @@ weights still FSDP over "data" and tensor-parallel over "model".
 stats, the MoE's routing and drops, the logits' gather) adds the data
 ranks' copies together, and ``context_parallel`` gives the data axes a
 dense or ring KV cache is split over by sequence (``layers.py``).
+
+A training microbatch that does not divide over the data axes runs
+inside ``sequence_split`` (``mesh_context(mesh, microbatch=)`` enters it):
+every data rank holds every row of the microbatch and its own equal
+slice of the S positions (``data/pipeline.local_batch``), so each data
+rank computes DIFFERENT tokens of the same rows.  ``row_axes`` still
+names the data axes (every token mean is a mean over them), and
+``sequence_shard`` gives a rank's first position: attention gathers k and
+v over the data axes along S, the MoE routes the global token groups,
+and a recurrence hands its state from each shard to the next
+(``sharding/sequence.py``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 from contextvars import ContextVar
 
 _SPEC: ContextVar = ContextVar("activation_spec", default=None)
 _MESH: ContextVar = ContextVar("activation_mesh", default=None)
 _WHOLE: ContextVar = ContextVar("whole_rows", default=False)
+_SEQ: ContextVar = ContextVar("sequence_split", default=False)
 
 
 @contextlib.contextmanager
@@ -49,17 +62,22 @@ def activation_sharding(spec, mesh=None):
 
 
 @contextlib.contextmanager
-def mesh_context(mesh):
+def mesh_context(mesh, microbatch: int = 0):
     """The context of one rank's part of an SPMD program on ``mesh``: the
     mesh and the residual stream batch-sharded over its data axes,
-    ``P(dp, None, None)``.  ``mesh=None`` is a no-op, so single-device
-    callers share the code path (``runtime/steps.serve_mesh_context`` and
-    ``train_mesh_context``)."""
+    ``P(dp, None, None)``.  ``microbatch`` (training): the global
+    microbatch's rows; where they do not divide over the data axes the
+    block runs under ``sequence_split``.  ``mesh=None`` is a no-op, so
+    single-device callers share the code path
+    (``runtime/steps.serve_mesh_context`` and ``train_mesh_context``)."""
     if mesh is None:
         yield None
         return
     from repro_torch.sharding.rules import P, dp_axes
-    with activation_sharding(P(dp_axes(mesh), None, None), mesh):
+    dp = dp_axes(mesh)
+    below = microbatch % mesh.size(dp) != 0
+    with activation_sharding(P(dp, None, None), mesh), \
+            sequence_split() if below else contextlib.nullcontext():
         yield mesh
 
 
@@ -68,10 +86,12 @@ def with_current_context(fn):
     sees wherever it runs later: the backward's recompute of a
     checkpointed block runs on autograd's device thread, which context
     variables do not reach."""
-    spec, mesh, whole = _SPEC.get(), _MESH.get(), _WHOLE.get()
+    spec, mesh, whole, seq = _SPEC.get(), _MESH.get(), _WHOLE.get(), \
+        _SEQ.get()
 
     def bound(*args):
-        with activation_sharding(spec, mesh), whole_rows(whole):
+        with activation_sharding(spec, mesh), whole_rows(whole), \
+                sequence_split(seq):
             return fn(*args)
     return bound
 
@@ -137,3 +157,32 @@ def context_parallel():
     if mesh is None or not _WHOLE.get() or mesh.size(dp) == 1:
         return None
     return mesh, dp
+
+
+@contextlib.contextmanager
+def sequence_split(on: bool = True):
+    """Within the block (``on``) a training microbatch below the data
+    axes: every data rank holds every row and its own slice of the
+    positions, the data ranks' slices in rank order (``sequence_shard``)."""
+    tok = _SEQ.set(bool(on))
+    try:
+        yield
+    finally:
+        _SEQ.reset(tok)
+
+
+class SeqShard(collections.namedtuple("SeqShard", "mesh dp start total")):
+    """A data rank's slice of a sequence split over the data axes (a
+    training row under ``sequence_split``, a context-parallel KV cache):
+    the mesh, the data axes, its first position and the whole length."""
+
+
+def sequence_shard(n: int):
+    """The ``SeqShard`` of a rank holding ``n`` positions of each row
+    inside ``sequence_split`` on a mesh with more than one data rank:
+    positions [i n, (i + 1) n) of g n, i its index along the data axes.
+    None elsewhere."""
+    mesh, dp = manual_dp_context()
+    if mesh is None or not _SEQ.get() or mesh.size(dp) == 1:
+        return None
+    return SeqShard(mesh, dp, mesh.index(dp) * n, n * mesh.size(dp))

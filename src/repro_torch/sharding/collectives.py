@@ -31,10 +31,10 @@ column-parallel projection) sums it over "model"; ``model_columns`` (a
 replicated leaf cut to the rank's columns) gathers it whole;
 ``gather_for_split`` (a column-parallel output gathered whole for
 consumers that each take another slice of it: a rank's heads of a
-projection whose columns are not laid out by heads) reduce-scatters it
-over "model"; and ``unshard`` (FSDP) reduce-scatters it over the data
-axes, in one collective as its forward gathers.  Their forward results
-are those of the plain collectives, bit for bit.  ``all_to_all`` and
+projection whose columns are not laid out by heads; over the data
+axes, the keys of a sequence split over them) reduce-scatters it;
+and ``unshard`` (FSDP) reduce-scatters it over the data axes, in one
+collective as its forward gathers.  Their forward results are those of the plain collectives, bit for bit.  ``all_to_all`` and
 ``reduce_scatter`` (the serve paths' exchanges over a head_dim-split KV
 cache) have no backward.
 
@@ -454,18 +454,21 @@ def model_columns(b: torch.Tensor, n: int, mesh=None, groups: int = 1):
     return _ModelColumns.apply(b, n, groups, mesh)
 
 
-def gather_for_split(t: torch.Tensor, dim: int = -1, mesh=None):
+def gather_for_split(t: torch.Tensor, dim: int = -1, mesh=None,
+                     axes="model"):
     """A column-parallel output gathered whole over "model" on ``dim``
     for consumers that each take another slice of it (a rank's heads of
     a projection whose stored columns are not laid out by heads, or B and
     C that every head reads): the forward is ``all_gather``'s, the
     backward a reduce-scatter over "model" (``all_gather``'s slice of
-    the gradient would drop the other ranks' parts)."""
+    the gradient would drop the other ranks' parts).  ``axes``: the data
+    axes for a sequence split over them (``sharding/sequence.py``: each
+    rank's queries read another part of the gathered keys)."""
     mesh = _mesh(mesh)
-    if mesh.size("model") == 1:
+    if mesh.size(axes) == 1:
         return t
     COUNTS["gather_for_split"] += 1
-    return _GatherForSplit.apply(t.contiguous(), "model", dim % t.ndim, mesh)
+    return _GatherForSplit.apply(t.contiguous(), axes, dim % t.ndim, mesh)
 
 
 def all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, axes="model",

@@ -143,16 +143,21 @@ def test_train_mesh_refuses_a_family_width_it_cannot_divide(case):
 @pytest.mark.parametrize("shape,batch", [((3, 1), 4), ((1, 3), 6)],
                          ids=["batch-over-data", "heads-over-model"])
 def test_train_mesh_refuses_a_layout_it_cannot_divide(shape, batch):
-    """A mesh the microbatch, the heads, the kv heads, d_ff or the vocab
-    do not divide is refused, where the reference falls back to
-    compiler-placed sharding (ROADMAP queue 3; a microbatch below the
-    data axes is item 16d)."""
+    """A mesh the microbatch's rows or sequence, the heads, the kv heads,
+    d_ff or the vocab do not divide is refused, where the reference falls
+    back to compiler-placed sharding (ROADMAP queue 3): 4 rows below 3
+    data ranks train split by sequence over them only where the sequence
+    divides over them (8 and 128 positions do not)."""
     cfg = _cfg()
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+    seq = (lambda n: f"{n} positions over them.*") if shape[0] > 1 \
+        else (lambda n: "")
+    with pytest.raises(NotImplementedError,
+                       match=seq(8) + "ROADMAP queue 3"):
         Trainer(cfg, TrainerConfig(total_steps=1), ds, mesh=FakeMesh(shape),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+    with pytest.raises(NotImplementedError,
+                       match=seq(128) + "ROADMAP queue 3"):
         launch_train.main(["--smoke", "--approx", "--steps", "1", "--batch",
                            str(batch), "--device", "cpu", "--mesh",
                            ",".join(map(str, shape))])

@@ -357,8 +357,12 @@ def test_load_cells_and_fmt_table(tmp_path):
                "error": "NotImplementedError: mesh {'data': 16, 'model': "
                         "16} does not divide the sharded train path of "
                         "xlstm-1.3b at microbatch 8 (the microbatch over "
-                        "the data axes, below them ROADMAP item 16d; "
-                        "d_up=2816 over model): the reference falls back"}
+                        "the data axes, or below them its 4094 positions "
+                        "over them with ssm.chunk=256 within a rank's "
+                        "slice; d_up=2816 over model): the reference "
+                        "falls back to compiler-placed sharding there, the "
+                        "port refuses (ROADMAP queue 3, layout "
+                        "departures)"}
     for c in (CELL, refused):
         with open(tmp_path / f"{c['arch']}__{c['shape']}__single.json",
                   "w") as f:
@@ -375,6 +379,6 @@ def test_load_cells_and_fmt_table(tmp_path):
     assert table[2].endswith("| coll | 0.06 | 3.0 | Y |")
     assert table[3].startswith("| xlstm-1.3b | train_4k | REFUSED: does "
                                "not divide")
-    assert "ROADMAP item 16d" in table[3]
+    assert "or below them its 4094 positions over them" in table[3]
     assert set(roofline.LEVERS) == {"compute", "memory", "collective"}
     assert len(roofline.load_cells(str(tmp_path), "other")) == 1

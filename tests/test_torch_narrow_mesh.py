@@ -113,10 +113,12 @@ REFUSED = {
         r"d_ff \(experts=6, TP-in-expert\)=126"),
     # a batch below the data axes serves (its rows whole on every data
     # rank) unless its cache length divides over them neither; a
-    # microbatch there does not train (ROADMAP item 16d)
+    # microbatch there trains split by sequence unless its sequence does
+    # not divide over them either
     "batch-over-data": ("internlm2-1.8b", {}, (3, 4),
                         {"serve": "KV cache of 40 rows for a batch of 4",
-                         "train": r"microbatch 4 \(.*ROADMAP item 16d"}),
+                         "train": r"microbatch 4 \(.*or below them its 40 "
+                                  "positions over them"}),
 }
 
 
@@ -144,7 +146,7 @@ def test_predicate_refuses_every_other_width(case, train):
     with pytest.raises(NotImplementedError,
                        match=match + ".*ROADMAP queue 3"):
         check(cfg, MeshShape(shape), 4,
-              **({} if train else {"max_len": W.CACHE["max_len"]}))
+              **{"seq" if train else "max_len": W.CACHE["max_len"]})
 
 
 # ---------------------------------------------------------------------------

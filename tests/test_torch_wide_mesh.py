@@ -8,9 +8,10 @@ smoke xLSTM's 4 heads equal |model| = 4, so its heads are set to 2 and to
 Held:
   * ``check_mesh_servable`` / ``check_mesh_trainable`` accept the xLSTM's
     heads below |model| where |model| is a multiple of them, serving
-    accepts a batch below the data axes, training refuses a microbatch
-    there naming ROADMAP item 16d, and a cache whose length does not
-    divide over the data axes either is refused (no world);
+    accepts a batch below the data axes, training accepts a microbatch
+    there whose sequence divides over them and refuses one whose
+    sequence does not naming ROADMAP queue 3, and a cache whose length
+    does not divide over the data axes either is refused (no world);
   * the mLSTM and sLSTM cores with heads below |model|: a prefill, a
     prefill from its state and decode steps within 3e-5 of the
     reference's single-device ``repro.models.xlstm`` (the sLSTM within
@@ -104,9 +105,12 @@ def test_predicate_accepts_xlstm_heads_below_model(heads, shape, train):
 def test_serving_accepts_a_batch_below_the_data_axes(arch, batch):
     cfg = W.serve_cfg(smoke_config, get_config, arch)
     TM.check_mesh_servable(cfg, MeshShape((2, 4)), batch, max_len=64)
+    # a microbatch there trains split by sequence over the data axes,
+    # unless its sequence does not divide over them
+    TM.check_mesh_trainable(cfg, MeshShape((2, 4)), 1, 64)
     with pytest.raises(NotImplementedError,
-                       match="microbatch 1 .*ROADMAP item 16d"):
-        TM.check_mesh_trainable(cfg, MeshShape((2, 4)), 1)
+                       match="microbatch 1 .*63 positions.*ROADMAP queue 3"):
+        TM.check_mesh_trainable(cfg, MeshShape((2, 4)), 1, 63)
 
 
 def test_a_cache_that_divides_neither_way_is_refused():
