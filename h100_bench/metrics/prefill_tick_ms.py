@@ -1,0 +1,9 @@
+"""prefill_tick_ms: host time of every chunk (prefill) tick started in the
+untraced window, over their number."""
+
+
+def read(run):
+    w0, end = run["w0"], run["host_end"]
+    v = [t1 - t0 for t0, t1, ph in run["times"]
+         if ph == "prefill" and w0 <= t0 < end]
+    return 1e3 * sum(v) / len(v) if v else None
